@@ -1,0 +1,15 @@
+"""robustmvd_tpu_torch — the Robust MVD framework in PyTorch, for NVIDIA Hopper.
+
+The PyTorch and CUDA counterpart of the JAX package ``robustmvd_tpu``, built
+slice by slice under the same string interfaces
+(reference: rmvd/__init__.py:1-25). This slice covers ``robust_mvd``
+inference: ``create_model``, ``list_models``, ``has_model``,
+``model.run(...)`` and ``python -m robustmvd_tpu_torch.inference``.
+
+Entry points run on the card (``device="cuda"``) unless the caller passes
+``device="cpu"``; without a card they raise rather than fall back.
+"""
+
+__version__ = "0.1.0"
+
+from .models import create_model, has_model, list_models, prepare_custom_model  # noqa: F401

@@ -1,0 +1,34 @@
+"""Model factory (reference interface: rmvd/models/factory.py:8-61)."""
+
+from __future__ import annotations
+
+from .helpers import add_run_function, resolve_device
+from .registry import get_model
+
+
+def create_model(name, pretrained=True, weights=None, train=False, device=None, **kwargs):
+    """Create a model by registry name.
+
+    Args:
+        name: registered model name.
+        pretrained: accepted for interface parity; there is no download,
+            so without ``weights`` the weights are initialised from ``seed``.
+        weights: path to a rmvd ``.pt`` checkpoint.
+        train: training is not part of the port yet; must be False.
+        device: ``None`` (the card), ``"cuda"``, ``"cuda:N"`` or ``"cpu"``.
+            Without a card, ``None`` raises instead of using the CPU.
+    """
+    entrypoint = get_model(name)
+    model = entrypoint(pretrained=pretrained, weights=weights, train=train,
+                       device=resolve_device(device), **kwargs)
+    model.name = name
+    return model
+
+
+def prepare_custom_model(model):
+    """Prepare a duck-typed custom model (input_adapter / __call__ /
+    output_adapter) for the run protocol (reference: rmvd/models/factory.py:32-61)."""
+    add_run_function(model)
+    if not hasattr(model, "name"):
+        model.name = type(model).__name__
+    return model

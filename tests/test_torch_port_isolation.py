@@ -1,0 +1,110 @@
+"""The port stands alone: no JAX, no flax, nothing of robustmvd_tpu.
+
+- Importing ``robustmvd_tpu_torch`` and running a model on the CPU, in a
+  fresh interpreter, loads none of them.
+- No source file of the package, nor ``chip_smoke.py``, imports them or
+  names them in a string (``importlib`` style).
+- Entry points default to the card and raise, naming ``device='cpu'``,
+  where there is none.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import robustmvd_tpu_torch
+from robustmvd_tpu_torch.inference import parse_args
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "robustmvd_tpu")
+
+
+def _forbidden(name):
+    return name.split(".")[0] in FORBIDDEN
+
+
+def test_running_the_port_loads_no_jax():
+    code = """
+import sys
+import numpy as np
+import robustmvd_tpu_torch as r
+model = r.create_model("robust_mvd", device="cpu")
+rng = np.random.RandomState(0)
+images = [rng.rand(3, 64, 64).astype(np.float32) * 255 for _ in range(2)]
+K = np.array([[50, 0, 32], [0, 50, 32], [0, 0, 1]], np.float32)
+T = np.eye(4, dtype=np.float32); T[0, 3] = 0.1
+pred, _ = model.run(images=images, keyview_idx=0, poses=[np.eye(4, dtype=np.float32), T], intrinsics=[K, K])
+assert pred["depth"].shape == (1, 32, 32), pred["depth"].shape
+bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
+print("LOADED", bad)
+""" % (FORBIDDEN,)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def _sources():
+    pkg = Path(robustmvd_tpu_torch.__file__).parent
+    return sorted(pkg.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_nothing_of_jax(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str):
+            names = [node.value] if node.value.isidentifier() or "." in node.value and " " not in node.value else []
+        else:
+            continue
+        assert not any(_forbidden(n) for n in names), f"{path}:{node.lineno} names {names}"
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        robustmvd_tpu_torch.create_model("robust_mvd")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        robustmvd_tpu_torch.create_model("robust_mvd", device="cuda")
+    assert parse_args([]).device == "cuda"
+
+
+def test_facade():
+    assert robustmvd_tpu_torch.list_models() == ["robust_mvd", "robust_mvd_5M"]
+    assert robustmvd_tpu_torch.has_model("robust_mvd")
+    assert not robustmvd_tpu_torch.has_model("robust_mvd_5M", trainable_only=True)
+    with pytest.raises(NotImplementedError):
+        robustmvd_tpu_torch.create_model("robust_mvd", device="cpu", train=True)
+
+
+def test_custom_model_gets_the_run_protocol():
+    """prepare_custom_model attaches run() to a duck-typed model."""
+    import numpy as np
+
+    class Custom:
+        def input_adapter(self, images, keyview_idx, poses=None, intrinsics=None, depth_range=None):
+            return {"x": torch.from_numpy(np.stack(images, 1))}
+
+        def __call__(self, x):
+            return {"depth": x.mean(dim=(1, 2))}, {"n": x.shape[1]}
+
+        def output_adapter(self, out):
+            pred, aux = out
+            return {k: v.numpy() for k, v in pred.items()}, aux
+
+    model = robustmvd_tpu_torch.prepare_custom_model(Custom())
+    assert model.name == "Custom"
+    images = [np.full((3, 4, 5), float(i), np.float32) for i in range(3)]
+    pred, aux = model.run(images=images, keyview_idx=0)
+    assert pred["depth"].shape == (4, 5) and pred["depth"][0, 0] == 1.0
+    assert aux == {"n": 3}
