@@ -10,18 +10,29 @@ CUDA toolkit (``nvcc``). Phases, each printing one JSON line:
             ``nvcc`` per source, all started together).
 2. card:    the card's name and power limit (nvidia-smi), which every
             number below belongs to.
-3. kernel:  K1 (plane-sweep score sampling) at the main path's shape,
+3. kernel:  K1 (plane-sweep score sampling) at the robust_mvd path's shape,
             P = 48*160 key pixels, 48x160 score images, S = 256, taps from a
             real epipolar sweep; f32 and bf16 held against the plain torch
-            version on the card; kernel, plain and library (grid_sample)
-            times with CUDA events; the bytes bound.
-4. parity:  robust_mvd on the card vs on the CPU, TF32 off, 64x128, 1+2 views.
-5. main:    the inference CLI on sample_data/ (256x320, 1+3 views), then
-            ``model.run`` at 384x1280 with 1+2 views, fp32: warm-up, timed
-            frames, peak memory, and K1's launch count on that run; then
-            where a frame's time goes: host-clock stages of ``model.run``
-            and device time per kernel from torch.profiler.
-6. the kernels line, and last the ``{"ok": true, ...}`` line.
+            version on the card; kernel, plain and library (grid_sample, in
+            f32 and in bf16) times with CUDA events; the bytes bound.
+4. kernel:  K2 (fused plane-sweep warp + variance) at the family paths'
+            shapes: mvsnet (B=1, V=2, D=256, 96x320, C=32) with f32 and bf16
+            features, cvp's coarse level (R,t mode, D=48, 24x80, C=16) and
+            its finest level (dense mode, D=8, 384x1280, C=16); each held
+            against the plain torch version on the card; kernel, plain and
+            grid_sample-route times; the bound.
+5. parity:  robust_mvd (64x128), mvsnet_train and cvp_mvsnet (128x160) on
+            the card vs on the CPU, TF32 off, 1+2 views.
+6. main:    robust_mvd: the inference CLI on sample_data/ (256x320, 1+3
+            views), then ``model.run`` at 384x1280 with 1+2 views, fp32 and
+            TF32 convolutions: warm-up, timed frames, peak memory, and K1's
+            launch count on that run; where a frame's time goes (host-clock
+            stages of ``model.run``, device time per kernel from
+            torch.profiler). Then the same for the MVSNet family: the CLI
+            with mvsnet_train on sample_data/, and ``model.run`` of
+            mvsnet_train and cvp_mvsnet at 384x1280 with 1+2 views, with K2's
+            launches on each run.
+7. the kernels line, and last the ``{"ok": true, ...}`` line.
 
 Any failed check raises and the script exits non-zero; it does nothing
 without a CUDA device. Weights are random, from a seed.
@@ -40,6 +51,14 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
 MODEL_BOUNDS = (1e-4, 1e-3)  # mean, max relative error (tests/test_torch_port_model.py)
+K2_LIMIT = 1e-5  # K2 vs its plain version: the same op order, no fused multiply-add
+FLIPPED_SHARE = 0.01  # uncertainty pixels whose truncated window index may differ
+# cvp_mvsnet's finer levels space their hypotheses by the mean one-pixel
+# interval, a mean over pixels that includes near-singular 2x2 solves, so
+# rounding differences (the card's convolutions sum in another order) grow
+# level by level. Its coarsest level (no interval) is held at MODEL_BOUNDS,
+# its final depth and uncertainty here.
+CVP_FINE_BOUNDS = (1e-2, 5e-2)
 
 
 def emit(phase, **fields):
@@ -200,8 +219,166 @@ def phase_kernel():
     lib_err = float((library()[:, 0, 0] - planesweep_sample(corr, y0, wy, x0, wx)).abs().max())
     results["f32"]["library_ms"] = time_ms(library)
     results["f32"]["library_max_abs_diff"] = lib_err
-    results["bf16"]["library_ms"] = None
+    # bf16: grid_sample takes bf16 scores with a grid of the same dtype (so
+    # the sample positions round to bf16 too: the diff is reported, not held)
+    img16, grid16 = corr.bfloat16()[:, None], grid.bfloat16()
+
+    def library_bf16():
+        return F.grid_sample(img16, grid16, mode="bilinear", padding_mode="zeros", align_corners=False)
+
+    ref16 = planesweep_sample(corr.bfloat16(), y0, wy, x0, wx)
+    results["bf16"]["library_ms"] = time_ms(library_bf16)
+    results["bf16"]["library_max_abs_diff"] = float((library_bf16()[:, 0, 0].float() - ref16).abs().max())
     emit("kernel", name="planesweep_sample", shape={"P": P, "Hs": Hs, "Ws": Ws, "S": S}, **results)
+    return results
+
+
+def sideways_sample(rng, H, W, num_views):
+    """Random images with KITTI-like intrinsics and source cameras beside the
+    key (a stereo-like rig with small rotations), the MVSNet family's usual
+    geometry. Forward motion puts the epipole inside the image, where
+    CVP-MVSNet's hypothesis interval has 0/0 pixels and its mean is NaN, as
+    in the JAX package (ROADMAP queue 3)."""
+    from scipy.spatial.transform import Rotation
+
+    sample = kitti_like_sample(rng, H, W, num_views)
+    for i in range(1, num_views):
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = Rotation.from_rotvec(rng.randn(3) * 0.02).as_matrix()
+        T[:3, 3] = [0.2 * [0, -1, 1, -2, 2][i], 0.02 * rng.randn(), 0.02 * rng.randn()]
+        sample["poses"][i] = T[None]
+    return sample
+
+
+def k2_cases(device):
+    """K2's arguments at the family paths' shapes, from a sideways KITTI-like
+    rig at 384x1280: {case: (ref, src, rot, trans, depth)}."""
+    import torch
+
+    from robustmvd_tpu_torch.models.blocks.cvp_mvsnet import condition_intrinsics, proj_mat, src_from_ref
+    from robustmvd_tpu_torch.models.mvsnet import projection_matrices, unit_steps
+    from robustmvd_tpu_torch.ops.homography import inverse, plane_sweep_transform
+
+    H, W = 384, 1280
+    sample = sideways_sample(np.random.RandomState(3), H, W, 3)
+    K = torch.tensor(np.stack(sample["intrinsics"], 1), device=device)  # (1, 3, 3, 3)
+    poses = torch.tensor(np.stack(sample["poses"], 1), device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def feats(h, w, C):
+        return (torch.randn((1, h, w, C), generator=gen, device=device),
+                torch.randn((1, 2, h, w, C), generator=gen, device=device))
+
+    cases = {}
+    # mvsnet: 1/4 projections, the key's inverted, 256 planes over 0.2..100
+    proj = projection_matrices(K, poses)
+    rot, trans = plane_sweep_transform(proj[:, 1:], torch.linalg.inv(proj[:, 0]))
+    depth = (0.2 + unit_steps(256, device) * (100.0 - 0.2))[None]
+    cases["mvsnet_f32"] = (*feats(96, 320, 32), rot.contiguous(), trans.contiguous(), depth)
+    ref, src = cases["mvsnet_f32"][:2]
+    cases["mvsnet_bf16"] = (ref.bfloat16(), src.bfloat16(), *cases["mvsnet_f32"][2:])
+
+    def rt(level, shapes):
+        Ks = condition_intrinsics(K.reshape(3, 3, 3), (H, W), shapes)  # (3 views, S, 3, 3)
+        ref_inv = inverse(proj_mat(Ks[0:1, level], poses[:, 0]))
+        rts = [src_from_ref(Ks[i:i + 1, level], poses[:, i], ref_inv) for i in (1, 2)]
+        return torch.stack([r for r, _ in rts], 1), torch.stack([t for _, t in rts], 1)
+
+    shapes = [(H >> i, W >> i) for i in range(5)]
+    # cvp coarsest level: 48 planes over 0.2..100 at 1/16
+    step = (torch.tensor(100.0, device=device) - 0.2) / torch.tensor(47.0, device=device)
+    planes = (0.2 + step * torch.arange(48, dtype=torch.float32, device=device))[None]
+    cases["cvp_rt"] = (*feats(24, 80, 16), *rt(4, shapes), planes)
+    # cvp finest level: 8 per-pixel hypotheses around a smooth depth map
+    base = 5.0 + 20.0 * torch.rand((1, 1, 24, 80), generator=gen, device=device)
+    base = torch.nn.functional.interpolate(base, size=(H, W), mode="bilinear", align_corners=False)
+    levels = torch.arange(-4, 4, dtype=torch.float32, device=device)[None, :, None, None]
+    cases["cvp_dense"] = (*feats(H, W, 16), *rt(0, shapes), (base + 0.25 * levels).contiguous())
+    return cases
+
+
+def k2_bound(ref, src, out_dtype, depth):
+    """Least time for K2 on these inputs: the output written once, the key
+    and source maps and (dense mode) the hypotheses read once, at the HBM
+    rate; against (15 + 11 C) flops per (pixel, view) at the f32 rate."""
+    import torch
+
+    B, H, W, C = ref.shape
+    V = src.shape[1]
+    D = depth.shape[1]
+    out_elt = torch.empty((), dtype=out_dtype).element_size()
+    nbytes = (B * D * H * W * C * out_elt + ref.numel() * ref.element_size() + src.numel() * src.element_size()
+              + (depth.numel() * 4 if depth.dim() == 4 else 0))
+    flops = B * D * H * W * V * (15 + 11 * C)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    return {"bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def grid_sample_route(ref, src, rot, trans, depth):
+    """The yardstick: the same variance with one F.grid_sample per view over
+    all planes, then torch ops (no single PyTorch call computes it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from robustmvd_tpu_torch.ops.homography import sweep_coordinates
+
+    B, H, W, C = ref.shape
+    V, Hs, Ws = src.shape[1:4]
+    D = depth.shape[1]
+    d = depth.reshape(B, D, H * W) if depth.dim() == 4 else depth
+    grids = []
+    for v in range(V):
+        xi, yi = sweep_coordinates(rot[:, v], trans[:, v], d, H, W, Hs, Ws)
+        grids.append(torch.stack([(2 * xi + 1) / Ws - 1, (2 * yi + 1) / Hs - 1], -1).reshape(B, D * H, W, 2))
+    maps = [src[:, v].permute(0, 3, 1, 2).float() for v in range(V)]  # (B, C, Hs, Ws)
+    refv = ref.float().permute(0, 3, 1, 2)[:, :, None]  # (B, C, 1, H, W)
+
+    def run():
+        vsum, vsq = refv, refv * refv
+        for v in range(V):
+            w = F.grid_sample(maps[v], grids[v], mode="bilinear", padding_mode="zeros",
+                              align_corners=False).reshape(B, C, D, H, W)
+            vsum, vsq = vsum + w, vsq + w * w
+        mean = vsum / (V + 1)
+        return vsq / (V + 1) - mean * mean  # (B, C, D, H, W)
+
+    return run
+
+
+def phase_kernel_k2():
+    import torch
+
+    from robustmvd_tpu_torch.ops.kernels.sweep_warp import sweep_variance, sweep_variance_reference
+
+    results = {}
+    for case, (ref, src, rot, trans, depth) in k2_cases(torch.device("cuda")).items():
+        valid = torch.ones((1, src.shape[1]), device=ref.device)
+        out = sweep_variance(ref, src, rot, trans, depth, valid)
+        torch.cuda.synchronize()
+        plain = sweep_variance_reference(ref, src, rot, trans, depth, valid)
+        err = float((out - plain).abs().max())
+        if not (err <= K2_LIMIT and torch.isfinite(out).all()):
+            raise AssertionError(f"K2 {case} disagrees with its plain version: max_abs_err {err} > {K2_LIMIT}")
+        route = grid_sample_route(ref, src, rot, trans, depth)
+        route_diff = float((route().permute(0, 2, 3, 4, 1) - out).abs().max())
+        del plain
+        torch.cuda.empty_cache()
+        results[case] = {
+            "shape": {"B": ref.shape[0], "V": src.shape[1], "D": depth.shape[1], "H": ref.shape[1],
+                      "W": ref.shape[2], "C": ref.shape[3], "dtype": str(ref.dtype).replace("torch.", ""),
+                      "hypotheses": "per-pixel" if depth.dim() == 4 else "per-plane"},
+            "max_abs_err": err, "limit": K2_LIMIT,
+            "ms": time_ms(lambda: sweep_variance(ref, src, rot, trans, depth, valid)),
+            "plain_ms": time_ms(lambda: sweep_variance_reference(ref, src, rot, trans, depth, valid), runs=10,
+                                warmup=2),
+            "grid_sample_route_ms": time_ms(route, runs=10, warmup=2),
+            "grid_sample_route_max_abs_diff": route_diff,
+            **k2_bound(ref, src, torch.float32, depth),
+        }
+        torch.cuda.empty_cache()
+    emit("kernel", name="sweep_warp", **results)
     return results
 
 
@@ -295,6 +472,121 @@ def phase_main(counters):
     return runs
 
 
+FAMILY = {"mvsnet_train": 1, "cvp_mvsnet": 5}  # K2 launches per frame at nscale 5
+
+
+def phase_family_parity():
+    """mvsnet_train and cvp_mvsnet on the card vs on the CPU, TF32 off."""
+    import torch
+
+    import robustmvd_tpu_torch as rmvd
+
+    tf32 = set_tf32(False)
+    sample = sideways_sample(np.random.RandomState(4), 128, 160, 3)
+    sample["depth_range"] = (np.array([1.0], np.float32), np.array([50.0], np.float32))
+    report = {}
+    for name in FAMILY:
+        outs = {}
+        for device in ("cpu", "cuda"):
+            model = rmvd.create_model(name, device=device, seed=0)
+            outs[device] = model.run(**sample)
+            del model
+        (pc, ac), (pg, ag) = outs["cpu"], outs["cuda"]
+        c = pc["depth"]
+        if not (np.isfinite(c).all() and c.std() > 1e-3 * np.abs(c).mean()):
+            raise AssertionError(f"{name} parity run: depth not finite or flat (std {c.std()}): vacuous check")
+        checks = {"depth": (pg["depth"], c, MODEL_BOUNDS)}
+        if name == "cvp_mvsnet":
+            checks = {"depth_coarsest": (ag["depths_all"][-1], ac["depths_all"][-1], MODEL_BOUNDS),
+                      "depth": (pg["depth"], c, CVP_FINE_BOUNDS),
+                      "depth_uncertainty": (pg["depth_uncertainty"], pc["depth_uncertainty"], CVP_FINE_BOUNDS)}
+        errors = {}
+        for key, (g, ref, bounds) in checks.items():
+            mean, mx = relative_errors(g, ref)
+            errors[key] = [mean, mx]
+            if not (mean <= bounds[0] and mx <= bounds[1]):
+                raise AssertionError(f"card vs CPU {name} {key}: mean {mean}, max {mx} > {bounds}")
+        uc, ug = pc["depth_uncertainty"], pg["depth_uncertainty"]
+        flipped = float((np.abs(ug - uc) > 1e-4 * np.abs(uc).mean()).mean())
+        if name == "mvsnet_train" and not flipped <= FLIPPED_SHARE:
+            raise AssertionError(f"card vs CPU {name} uncertainty: {flipped} of the pixels differ > {FLIPPED_SHARE}")
+        report[name] = {"shape": list(c.shape), "rel_err": errors, "uncertainty_flipped_share": flipped,
+                        "depth_std_over_mean": float(c.std() / np.abs(c).mean())}
+    emit("parity_family", tf32=tf32, input_shape=[128, 160], views=3, bounds=MODEL_BOUNDS,
+         cvp_fine_bounds=CVP_FINE_BOUNDS, flipped_limit=FLIPPED_SHARE, **report)
+    torch.cuda.empty_cache()
+
+
+def timed_frames(model, sample, counters, warmup=3, frames=20):
+    """Warm-up and timed ``model.run`` frames with the launch counts reset
+    just before and read just after; returns (last pred, stats)."""
+    import torch
+
+    counters.reset()
+    for _ in range(warmup):
+        pred, _ = model.run(**sample)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(frames):
+        t0 = time.perf_counter()
+        pred, _ = model.run(**sample)  # ends in a device->host copy
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = counters.read()
+    return pred, {"ms_per_frame": statistics.median(times), "ms_per_frame_mean": statistics.mean(times),
+                  "ms_per_frame_min": min(times), "frames": frames, "warmup": warmup,
+                  "peak_mib": torch.cuda.max_memory_allocated() / 2**20, "launches": launches,
+                  "launches_per_frame": {k: v / (warmup + frames) for k, v in launches.items()}}
+
+
+def phase_family_main(counters):
+    import torch
+
+    import robustmvd_tpu_torch as rmvd
+    from robustmvd_tpu_torch.inference import main as inference_main
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as out:
+        counters.reset()
+        inference_main(["--model", "mvsnet_train", "--input_path", os.path.join(root, "sample_data"),
+                        "--output_path", out])
+        cli_launches = counters.read()
+        depth = np.load(os.path.join(out, "depth.npy"))
+        if depth.shape != (256, 320) or not np.isfinite(depth).all():
+            raise AssertionError(f"mvsnet CLI depth: shape {depth.shape}, finite {np.isfinite(depth).all()}")
+        if cli_launches["sweep_warp"] != 1:
+            raise AssertionError(f"mvsnet CLI launched K2 {cli_launches} times, expected 1")
+    emit("main_cli_family", model="mvsnet_train", input="sample_data", shape=[256, 320], views=4,
+         launches=cli_launches)
+
+    sample = sideways_sample(np.random.RandomState(5), 384, 1280, 3)
+    runs = {}
+    for name, per_frame in FAMILY.items():
+        model = rmvd.create_model(name)
+        runs[name] = {}
+        for label, tf32_on in (("fp32", False), ("tf32_convs", True)):
+            tf32 = set_tf32(False)
+            if tf32_on:  # PyTorch's default: TF32 for cuDNN convolutions only
+                torch.backends.cudnn.allow_tf32 = True
+                tf32 = {**tf32, "cudnn.allow_tf32": True}
+            pred, stats = timed_frames(model, sample, counters)
+            frames = stats["warmup"] + stats["frames"]
+            if stats["launches"]["sweep_warp"] != per_frame * frames:
+                raise AssertionError(f"{name}: K2 launched {stats['launches']} times in {frames} frames, "
+                                     f"expected {per_frame} per frame")
+            depth = pred["depth"]
+            expected = (1, 1, 96, 320) if name == "mvsnet_train" else (1, 1, 384, 1280)
+            if depth.shape != expected or not np.isfinite(depth).all():
+                raise AssertionError(f"{name} depth: shape {depth.shape}, finite {np.isfinite(depth).all()}")
+            runs[name][label] = {"tf32": tf32, **stats}
+        set_tf32(False)
+        emit("main_family", model=name, shape=[384, 1280], views=3, dtype="float32", **runs[name])
+        emit("breakdown_family", model=name, **device_breakdown(model, sample, frames=5))
+        del model
+        torch.cuda.empty_cache()
+    return runs
+
+
 def device_breakdown(model, sample, frames):
     """Where a frame's time goes: host-clock stages of model.run, each ended
     by a synchronise, and device time per kernel from torch.profiler."""
@@ -347,16 +639,19 @@ def device_breakdown(model, sample, frames):
 
 
 def kernel_kind(name):
-    """Group profiler rows: convolutions (cuDNN), the score matmul (the only
-    GEMM outside cuDNN), K1, copies, and the rest (elementwise, cat, gather)."""
+    """Group profiler rows: convolutions (cuDNN, 2D and 3D), GEMMs outside
+    cuDNN (robust_mvd's score matmul; the family's bicubic resize), K1, K2,
+    copies, and the rest (elementwise, cat, gather, softmax)."""
     if "planesweep_sample" in name:
         return "k1_planesweep_sample"
+    if "sweep_warp" in name:
+        return "k2_sweep_warp"
     if "HtoD" in name or "DtoH" in name:
         return "memcpy_" + ("h2d" if "HtoD" in name else "d2h")
     if any(key in name for key in ("fprop", "convolve", "dgrad", "cudnn")):
         return "convolutions"
     if "gemm" in name:
-        return "score_matmul"
+        return "gemm"
     return "other"
 
 
@@ -388,10 +683,16 @@ def main():
     phase_build()
     phase_card()
     k1 = phase_kernel()
+    k2 = phase_kernel_k2()
     phase_parity()
-    runs = phase_main(Counters())
+    phase_family_parity()
+    counters = Counters()
+    runs = phase_main(counters)
+    family = phase_family_main(counters)
 
     f32, bf16 = k1["f32"], k1["bf16"]
+    k2_main = k2["mvsnet_f32"]
+    k2_launches = {name: family[name]["fp32"]["launches"]["sweep_warp"] for name in FAMILY}
     print(json.dumps({"kernels": [{
         "name": "planesweep_sample",
         "route": "cuda",
@@ -406,7 +707,24 @@ def main():
         "bound_ms": f32["bound_ms"],
         "bound_by": f32["bound_by"],
         "library_ms": f32["library_ms"],
-        "bf16": {k: bf16[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+        "bf16": {k: bf16[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    }, {
+        "name": "sweep_warp",
+        "route": "cuda",
+        "source": "robustmvd_tpu_torch/csrc/sweep_warp.cu",
+        "replaces": "robustmvd_tpu/ops/pallas/sweep_warp.py:287 (_call_sweep, kernel _sweep_kernel :179; "
+                    "entries warp_variance :373, warp_variance_rt :446, warp_variance_dense :465)",
+        "launches": sum(k2_launches.values()),
+        "launches_by_path": k2_launches,
+        "max_abs_err": k2_main["max_abs_err"],
+        "ms": k2_main["ms"],
+        "plain_ms": k2_main["plain_ms"],
+        "bound_ms": k2_main["bound_ms"],
+        "bound_by": k2_main["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes it; the yardstick is the grid_sample route
+        "grid_sample_route_ms": k2_main["grid_sample_route_ms"],
+        "cases": {case: {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "grid_sample_route_ms", "bound_ms",
+                                           "bound_by")} for case, r in k2.items()},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -2,9 +2,10 @@
 
 The PyTorch and CUDA counterpart of the JAX package ``robustmvd_tpu``, built
 slice by slice under the same string interfaces
-(reference: rmvd/__init__.py:1-25). This slice covers ``robust_mvd``
-inference: ``create_model``, ``list_models``, ``has_model``,
-``model.run(...)`` and ``python -m robustmvd_tpu_torch.inference``.
+(reference: rmvd/__init__.py:1-25). It covers the inference of
+``robust_mvd``, ``mvsnet_train`` and ``cvp_mvsnet``: ``create_model``,
+``list_models``, ``has_model``, ``model.run(...)`` and
+``python -m robustmvd_tpu_torch.inference``.
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; without a card they raise rather than fall back.

@@ -4,3 +4,5 @@ from .registry import has_model, list_models, register_model  # noqa: F401
 
 # model definitions register themselves on import
 from .robust_mvd import robust_mvd, robust_mvd_5M  # noqa: F401
+from .mvsnet import mvsnet_train  # noqa: F401
+from .cvp_mvsnet import cvp_mvsnet  # noqa: F401

@@ -1,0 +1,128 @@
+"""MVSNet blocks as NCHW / NCDHW ``nn.Module``s.
+
+Counterparts of the JAX package's ``models/blocks/mvsnet.py`` (reference:
+rmvd/models/blocks/mvsnet_components.py:8-123): ``FeatureNet`` (2D CNN,
+3 -> 32 channels at 1/4 resolution) and ``CostRegNet`` (3D U-Net over the
+variance volume, 8..64 channels, BatchNorm + ReLU, transposed convolutions
+on the way up). Submodule names are the flax names (``conv0.conv``,
+``conv0.bn``, ``conv7.conv``, ``prob``), so ``models/weights.py`` maps the
+JAX parameter tree onto ``state_dict()`` one to one.
+
+The JAX package's dz2d / banded / packed lowerings of the 3D convolutions
+(``ops/conv3d.py``) are TPU reformulations with the same parameters; here
+every convolution is a plain ``nn.Conv3d`` / ``nn.ConvTranspose3d`` (cuDNN on
+the card). BatchNorm runs in eval mode (running statistics, eps 1e-5).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+class ConvBnReLU(nn.Module):
+    """Conv2d(bias=False) + BN + ReLU (reference: mvsnet_components.py:8-22)."""
+
+    def __init__(self, in_ch, out_ch, kernel_size=3, stride=1, pad=1):
+        super().__init__()
+        self.conv = nn.Conv2d(in_ch, out_ch, kernel_size, stride=stride, padding=pad, bias=False)
+        self.bn = nn.BatchNorm2d(out_ch, eps=1e-5)
+
+    def forward(self, x):
+        return F.relu(self.bn(self.conv(x)))
+
+
+class ConvBnReLU3D(nn.Module):
+    """Conv3d(k3, pad 1, bias=False) + BN + ReLU
+
+    (reference: mvsnet_components.py:25-41; cvp_mvsnet_components.py:85-128)."""
+
+    def __init__(self, in_ch, out_ch, stride=1):
+        super().__init__()
+        self.conv = nn.Conv3d(in_ch, out_ch, 3, stride=stride, padding=1, bias=False)
+        self.bn = nn.BatchNorm3d(out_ch, eps=1e-5)
+
+    def forward(self, x):
+        return F.relu(self.bn(self.conv(x)))
+
+
+class DeconvBnReLU3D(nn.Module):
+    """ConvTranspose3d(k3, s2, p1, output_padding=1, bias=False) + BN + ReLU:
+
+    twice the input on each spatial axis."""
+
+    def __init__(self, in_ch, out_ch):
+        super().__init__()
+        self.conv = nn.ConvTranspose3d(in_ch, out_ch, 3, stride=2, padding=1, output_padding=1, bias=False)
+        self.bn = nn.BatchNorm3d(out_ch, eps=1e-5)
+
+    def forward(self, x):
+        return F.relu(self.bn(self.conv(x)))
+
+
+class FeatureNet(nn.Module):
+    """3 -> 32 channels at 1/4 resolution (reference: mvsnet_components.py:44-66)."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv0 = ConvBnReLU(3, 8, 3, 1, 1)
+        self.conv1 = ConvBnReLU(8, 8, 3, 1, 1)
+        self.conv2 = ConvBnReLU(8, 16, 5, 2, 2)
+        self.conv3 = ConvBnReLU(16, 16, 3, 1, 1)
+        self.conv4 = ConvBnReLU(16, 16, 3, 1, 1)
+        self.conv5 = ConvBnReLU(16, 32, 5, 2, 2)
+        self.conv6 = ConvBnReLU(32, 32, 3, 1, 1)
+        self.feature = nn.Conv2d(32, 32, 3, padding=1)
+
+    def forward(self, x):
+        for i in range(7):
+            x = getattr(self, f"conv{i}")(x)
+        return self.feature(x)
+
+
+class CostRegNet(nn.Module):
+    """3D U-Net over a (B, 32, D, h, w) volume -> (B, 1, D, h, w) logits
+
+    (reference: mvsnet_components.py:69-123)."""
+
+    def __init__(self, in_ch=32):
+        super().__init__()
+        self.conv0 = ConvBnReLU3D(in_ch, 8)
+        self.conv1 = ConvBnReLU3D(8, 16, stride=2)
+        self.conv2 = ConvBnReLU3D(16, 16)
+        self.conv3 = ConvBnReLU3D(16, 32, stride=2)
+        self.conv4 = ConvBnReLU3D(32, 32)
+        self.conv5 = ConvBnReLU3D(32, 64, stride=2)
+        self.conv6 = ConvBnReLU3D(64, 64)
+        self.conv7 = DeconvBnReLU3D(64, 32)
+        self.conv9 = DeconvBnReLU3D(32, 16)
+        self.conv11 = DeconvBnReLU3D(16, 8)
+        self.prob = nn.Conv3d(8, 1, 3, padding=1)
+
+    def forward(self, x):
+        conv0 = self.conv0(x)
+        conv2 = self.conv2(self.conv1(conv0))
+        conv4 = self.conv4(self.conv3(conv2))
+        x = self.conv6(self.conv5(conv4))
+        x = conv4 + self.conv7(x)
+        x = conv2 + self.conv9(x)
+        x = conv0 + self.conv11(x)
+        return self.prob(x)
+
+
+def init_weights(module, generator):
+    """Random weights from ``generator``: kaiming-normal (fan-in, ReLU gain)
+
+    for every convolution, zero biases, BatchNorm as constructed (scale 1,
+    shift 0, mean 0, variance 1)."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
+            fan_in = m.in_channels * math.prod(m.kernel_size)
+            std = math.sqrt(2.0 / fan_in)
+            with torch.no_grad():
+                m.weight.copy_(torch.randn(m.weight.shape, generator=generator) * std)
+                if m.bias is not None:
+                    m.bias.zero_()

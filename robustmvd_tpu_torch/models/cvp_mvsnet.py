@@ -1,0 +1,143 @@
+"""cvp_mvsnet — CVP-MVSNet, a coarse-to-fine cost-volume pyramid, in PyTorch.
+
+Reference model: rmvd/models/cvp_mvsnet.py:60-321, through the JAX package's
+``models/cvp_mvsnet.py``. A feature pyramid over ``nscale`` image scales
+(all views in one pass); at the coarsest level 48 uniform hypotheses and a
+variance cost volume (K2, R,t mode), the shared CostRegNet, softmax and
+depth regression; then at each finer level the depth upsampled x2
+(bicubic, ``jax.image.resize`` semantics), 8 hypotheses around it spaced by
+the epipolar one-pixel interval, a variance volume with per-pixel hypotheses
+(K2, dense mode), the same CostRegNet and depth regression; confidence = the
+probability mass of four consecutive hypotheses at the expected index of
+the last level (:219-236). Inputs are /255 at a multiple of 64 (:259-288);
+the depth range defaults to 0.2..100.
+
+The JAX input adapter pads the view list to a bucket; the port does not, so
+every source view counts. Only inference ("test" mode) is ported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.homography import inverse
+from ..ops.interpolate import resize_bicubic_x2
+from ..ops.kernels.sweep_warp import warp_variance_rt
+from .blocks.cvp_mvsnet import (
+    CostRegNet,
+    FeaturePyramid,
+    cal_depth_hypos,
+    cal_sweeping_depth_hypos,
+    condition_intrinsics,
+    proj_cost_volume,
+    proj_mat,
+    src_from_ref,
+)
+from .blocks.mvsnet import init_weights
+from .helpers import ModelBase, resize_to_multiple, to_device
+from .mvsnet import confidence_4tap
+from .registry import register_model
+from .robust_mvd import split_key_sources
+from .weights import load_checkpoint
+
+NUM_COARSE_HYPOTHESES = 48
+
+
+def _channel_last(feat, B, V):
+    """(B*V, C, h, w) -> (B, V, h, w, C), contiguous."""
+    return feat.reshape(B, V, *feat.shape[1:]).permute(0, 1, 3, 4, 2).contiguous()
+
+
+class CVPMVSNet(ModelBase):
+    """The forward takes images (B, V, 3, H, W) in [0, 1], poses (B, V, 4, 4),
+
+    absolute intrinsics (B, V, 3, 3), keyview_idx (B,), min_depth and
+    max_depth (B,)."""
+
+    def __init__(self, device, nscale=5, weights=None, seed=0):
+        super().__init__()
+        self.nscale = nscale
+        self.featurePyramid = FeaturePyramid()
+        self.cost_reg_refine = CostRegNet()
+        if weights is None:
+            init_weights(self, torch.Generator().manual_seed(seed))
+        else:
+            self.load_state_dict(load_checkpoint(weights))
+        self.to(device).eval()
+
+    def _regress(self, volume, hypos):
+        """Variance volume (B, D, h, w, C) -> (depth (B, h, w), prob)."""
+        logits = self.cost_reg_refine(volume.permute(0, 4, 1, 2, 3).contiguous())
+        prob = torch.softmax(logits, dim=1)
+        if hypos.dim() == 2:
+            hypos = hypos[:, :, None, None]
+        return torch.sum(prob * hypos, dim=1), prob
+
+    def forward(self, images, poses, intrinsics, keyview_idx, min_depth, max_depth):
+        B, V, _, H, W = images.shape
+        image_key, images_src = split_key_sources(images, keyview_idx)
+        K_key, K_srcs = split_key_sources(intrinsics, keyview_idx)
+        pose_key, poses_src = split_key_sources(poses, keyview_idx)
+
+        all_imgs = torch.cat([image_key[:, None], images_src], dim=1)  # key first
+        fp = [_channel_last(f, B, V) for f in self.featurePyramid(all_imgs.reshape(B * V, 3, H, W), self.nscale)]
+        fp_shapes = [(f.shape[2], f.shape[3]) for f in fp]
+        ref_K_ms = condition_intrinsics(K_key, (H, W), fp_shapes)  # (B, S, 3, 3)
+        src_K_ms = torch.stack([condition_intrinsics(K_srcs[:, i], (H, W), fp_shapes) for i in range(V - 1)],
+                               dim=1)  # (B, V-1, S, 3, 3)
+
+        # coarsest level: uniform sweep (K2, R,t mode)
+        hypos = cal_sweeping_depth_hypos(min_depth, max_depth, NUM_COARSE_HYPOTHESES)
+        ref_proj_inv = inverse(proj_mat(ref_K_ms[:, -1], pose_key))
+        rts = [src_from_ref(src_K_ms[:, i, -1], poses_src[:, i], ref_proj_inv) for i in range(V - 1)]
+        volume = warp_variance_rt(fp[-1][:, 0], fp[-1][:, 1:], torch.stack([r for r, _ in rts], dim=1),
+                                  torch.stack([t for _, t in rts], dim=1), hypos)
+        depth, prob = self._regress(volume, hypos)
+        depths = [depth]
+
+        # refinement levels (K2, dense mode)
+        for level in range(self.nscale - 2, -1, -1):
+            depth_up = resize_bicubic_x2(depth)
+            hypos = cal_depth_hypos(depth_up, ref_K_ms[:, level], src_K_ms[:, 0, level], pose_key,
+                                    poses_src[:, 0])
+            volume = proj_cost_volume(fp[level][:, 0], fp[level][:, 1:], ref_K_ms[:, level],
+                                      src_K_ms[:, :, level], pose_key, poses_src, hypos)
+            depth, prob = self._regress(volume, hypos)
+            depths.append(depth)
+
+        pred = {"depth": depth[:, None], "depth_uncertainty": (1.0 - confidence_4tap(prob))[:, None]}
+        aux = {"depth": pred["depth"], "depths_all": [d[:, None] for d in depths[::-1]]}
+        return pred, aux
+
+    def input_adapter(self, images, keyview_idx, poses=None, intrinsics=None, depth_range=None):
+        """Multiple-of-64 resize, /255 on the card (a true division, like the
+
+        numpy path's), depth range default 0.2..100 (reference:
+        cvp_mvsnet.py:259-288)."""
+        if poses is None or intrinsics is None:
+            raise ValueError("cvp_mvsnet requires poses and intrinsics inputs")
+        images, intrinsics, _ = resize_to_multiple(images, intrinsics, 64)
+        device = self.device
+        images = torch.stack([to_device(img, device) for img in images], dim=1)
+        if depth_range is None:
+            depth_range = (np.array([0.2]), np.array([100.0]))
+        lo, hi = (to_device(np.asarray(r).reshape(-1), device) for r in depth_range)
+        return {
+            "images": images / torch.tensor(255.0, device=device),
+            "poses": to_device(np.stack(poses, axis=1), device),
+            "intrinsics": to_device(np.stack(intrinsics, axis=1), device),
+            "keyview_idx": to_device(np.asarray(keyview_idx).reshape(-1), device, np.int64),
+            "min_depth": lo,
+            "max_depth": hi,
+        }
+
+
+@register_model(trainable=False)
+def cvp_mvsnet(pretrained=True, weights=None, train=False, device="cuda", seed=0, nscale=5):
+    """CVP-MVSNet (reference: cvp_mvsnet.py:308-321), registered without
+    pretrained weights: pass a port ``.pt`` as ``weights``, or get weights
+    from ``seed``."""
+    if train:
+        raise NotImplementedError("cvp_mvsnet training is not ported yet; use train=False")
+    return CVPMVSNet(device=device, nscale=nscale, weights=weights, seed=seed)

@@ -10,10 +10,38 @@ model interface runs unchanged.
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 import torch.nn as nn
 
 from ..utils import add_batch_dim, remove_batch_dim, to_numpy
+from ..utils.image import resize_bilinear
+
+
+def resize_to_multiple(images, intrinsics, multiple):
+    """Resize (B, 3, H, W) numpy views up to a multiple of ``multiple`` and
+
+    scale absolute intrinsics with them (the reference models' input
+    adapters, e.g. rmvd/models/mvsnet.py:170-199). Returns (images,
+    intrinsics, (ht, wd))."""
+    orig_ht, orig_wd = images[0].shape[-2:]
+    ht = int(math.ceil(orig_ht / multiple) * multiple)
+    wd = int(math.ceil(orig_wd / multiple) * multiple)
+    if (orig_ht, orig_wd) != (ht, wd):
+        images = [resize_bilinear(img, (ht, wd)) for img in images]
+        sx, sy = wd / orig_wd, ht / orig_ht
+        intrinsics = [K * np.array([[sx, 1, sx], [1, sy, sy], [1, 1, 1]], dtype=np.float32)
+                      for K in intrinsics]
+    return images, intrinsics, (ht, wd)
+
+
+def to_device(a, device, dtype=np.float32):
+    """numpy -> tensor on ``device`` (one upload, no host-side conversion
+
+    beyond the dtype)."""
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
 
 
 def resolve_device(device):

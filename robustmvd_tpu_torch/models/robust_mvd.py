@@ -16,14 +16,11 @@ no ``num_views`` masking.
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 
 from ..ops.corr import planesweep_correlation
 from ..utils import to_relative_intrinsics
-from ..utils.image import resize_bilinear as np_resize_bilinear
 from .blocks.dispnet import (
     DispnetContextEncoder,
     DispnetCostvolumeEncoder,
@@ -32,7 +29,7 @@ from .blocks.dispnet import (
     LearnedFusion,
     init_weights,
 )
-from .helpers import ModelBase
+from .helpers import ModelBase, resize_to_multiple, to_device
 from .registry import register_model
 from .weights import load_checkpoint
 
@@ -131,29 +128,16 @@ class RobustMVD(ModelBase):
         """
         if poses is None or intrinsics is None:
             raise ValueError("robust_mvd requires poses and intrinsics inputs")
-        orig_ht, orig_wd = images[0].shape[-2:]
-        ht = int(math.ceil(orig_ht / 64.0) * 64.0)
-        wd = int(math.ceil(orig_wd / 64.0) * 64.0)
-        if (orig_ht, orig_wd) != (ht, wd):
-            images = [np_resize_bilinear(img, (ht, wd)) for img in images]
-            sx, sy = wd / orig_wd, ht / orig_ht
-            intrinsics = [
-                K * np.array([[sx, 1, sx], [1, sy, sy], [1, 1, 1]], dtype=np.float32)
-                for K in intrinsics
-            ]
+        images, intrinsics, (ht, wd) = resize_to_multiple(images, intrinsics, 64)
         intrinsics = [to_relative_intrinsics(K, wd, ht) for K in intrinsics]
         device = self.device
-
-        def dev(a, dtype=np.float32):
-            return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
-
-        images = torch.stack([dev(img) for img in images], dim=1)
+        images = torch.stack([to_device(img, device) for img in images], dim=1)
         images = images / torch.tensor(255.0, device=device) - 0.4
         return {
             "images": images,
-            "poses": dev(np.stack(poses, axis=1)),
-            "intrinsics": dev(np.stack(intrinsics, axis=1)),
-            "keyview_idx": dev(np.asarray(keyview_idx).reshape(-1), np.int64),
+            "poses": to_device(np.stack(poses, axis=1), device),
+            "intrinsics": to_device(np.stack(intrinsics, axis=1), device),
+            "keyview_idx": to_device(np.asarray(keyview_idx).reshape(-1), device, np.int64),
         }
 
 

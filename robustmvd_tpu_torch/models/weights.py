@@ -16,12 +16,36 @@ decoder/deconv_1/conv/kernel                -> decoder.deconv_1.0.weight
 
 Conv kernels (kh, kw, I, O) become (O, I, kh, kw); ConvTranspose kernels
 are stored spatially flipped as (kh, kw, I, O) and become (I, O, kh, kw).
+
+The MVSNet family's trees (``{"params", "batch_stats"}``) keep the flax
+module names, which the port's modules carry too:
+
+flax path                                   -> torch name
+params/feature/conv0/conv/kernel            -> feature.conv0.conv.weight
+params/feature/conv0/bn/{scale,bias}        -> feature.conv0.bn.{weight,bias}
+batch_stats/feature/conv0/bn/{mean,var}     -> feature.conv0.bn.running_{mean,var}
+params/cost_regularization/prob/*           -> cost_regularization.prob.*
+
+3D kernels (kd, kh, kw, I, O) become (O, I, kd, kh, kw). The transposed 3D
+convolutions (``_TRANSPOSED_3D``) run in JAX as a correlation of the
+dilated input with the kernel as stored; torch's ConvTranspose3d correlates
+with its weight flipped, so (kd, kh, kw, I, O) becomes (I, O, kd, kh, kw)
+flipped on all three spatial axes (a module path ending in
+one of those names, so that a lone CostRegNet's tree converts too). Every BatchNorm gets
+``num_batches_tracked = 0``. :func:`variables_from_state_dict` is the
+inverse.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+# module paths (suffixes) of the family's transposed 3D convolutions:
+# MVSNet's CostRegNet conv7/conv9/conv11, CVP-MVSNet's conv5/conv6 deconvs
+_TRANSPOSED_3D = ("conv7.conv", "conv9.conv", "conv11.conv", "conv5_deconv", "conv6_deconv")
+_BN_LEAVES = {("params", "scale"): "weight", ("params", "bias"): "bias",
+              ("batch_stats", "mean"): "running_mean", ("batch_stats", "var"): "running_var"}
 
 _SEQ_NAMES = {"corr_to_view_weight_conv0": "corr_to_view_weight.0",
               "corr_to_view_weight_conv1": "corr_to_view_weight.2"}
@@ -44,7 +68,11 @@ def _flatten(tree, prefix=()):
 
 
 def state_dict_from_jax(variables):
-    """JAX parameters (``{"params": {...}}`` or the params tree) -> state_dict."""
+    """JAX variables -> state_dict: ``{"params", "batch_stats"}`` of the
+
+    MVSNet family, or robust_mvd's ``{"params": ...}`` or params tree."""
+    if "batch_stats" in variables:
+        return _family_state_dict(variables)
     params = variables.get("params", variables)
     state = {}
     for path, value in _flatten(params):
@@ -62,3 +90,64 @@ def state_dict_from_jax(variables):
             raise ValueError(f"unexpected parameter {'/'.join(path)}")
         state[".".join(parts + [leaf])] = torch.from_numpy(np.array(w, dtype=np.float32))
     return state
+
+
+def _kernel_to_torch(module, w):
+    if w.ndim == 4:
+        return w.transpose(3, 2, 0, 1)  # (kh,kw,I,O) -> (O,I,kh,kw)
+    if module.endswith(_TRANSPOSED_3D):
+        return w[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2)  # -> (I,O,kd,kh,kw), flipped
+    return w.transpose(4, 3, 0, 1, 2)  # (kd,kh,kw,I,O) -> (O,I,kd,kh,kw)
+
+
+def _kernel_to_jax(module, w):
+    if w.ndim == 4:
+        return w.transpose(2, 3, 1, 0)
+    if module.endswith(_TRANSPOSED_3D):
+        return w.transpose(2, 3, 4, 0, 1)[::-1, ::-1, ::-1]
+    return w.transpose(2, 3, 4, 1, 0)
+
+
+def _family_state_dict(variables):
+    state = {}
+    for collection in ("params", "batch_stats"):
+        for path, value in _flatten(variables[collection]):
+            *parts, leaf = path
+            module = ".".join(parts)
+            w = np.asarray(value)
+            if parts[-1] == "bn" or parts[-1].endswith("_bn"):
+                name = _BN_LEAVES[(collection, leaf)]
+                if name == "weight":
+                    state[f"{module}.num_batches_tracked"] = torch.tensor(0)
+            elif collection == "params" and leaf == "kernel":
+                name, w = "weight", _kernel_to_torch(module, w)
+            elif collection == "params" and leaf == "bias":
+                name = "bias"
+            else:
+                raise ValueError(f"unexpected variable {collection}/{'/'.join(path)}")
+            state[f"{module}.{name}"] = torch.from_numpy(np.array(w, dtype=np.float32))
+    return state
+
+
+def variables_from_state_dict(state):
+    """An MVSNet-family state_dict -> JAX ``{"params", "batch_stats"}``
+
+    (the inverse of :func:`state_dict_from_jax` for those trees)."""
+    leaves = {name: key for key, name in _BN_LEAVES.items()}
+    variables = {"params": {}, "batch_stats": {}}
+    for key, value in state.items():
+        module, name = key.rsplit(".", 1)
+        if name == "num_batches_tracked":
+            continue
+        w = value.detach().cpu().numpy()
+        if name in ("running_mean", "running_var") or (module.endswith("bn") and name in ("weight", "bias")):
+            collection, leaf = leaves[name]
+        elif name == "weight":
+            collection, leaf, w = "params", "kernel", _kernel_to_jax(module, w)
+        else:
+            collection, leaf = "params", name
+        node = variables[collection]
+        for part in module.split("."):
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(w)
+    return variables

@@ -5,6 +5,13 @@ version for CPU tensors, and counts its launches in ``<wrapper>.launches``.
 """
 
 from .planesweep_sample import planesweep_sample, planesweep_sample_reference  # noqa: F401
+from .sweep_warp import (  # noqa: F401
+    sweep_variance,
+    sweep_variance_reference,
+    warp_variance,
+    warp_variance_dense,
+    warp_variance_rt,
+)
 
 # every kernel wrapper of the port, for launch accounting and builds
-KERNELS = {"planesweep_sample": planesweep_sample}
+KERNELS = {"planesweep_sample": planesweep_sample, "sweep_warp": sweep_variance}

@@ -17,6 +17,7 @@ from robustmvd_tpu_torch.ops.kernels.planesweep_sample import (
     planesweep_sample,
     planesweep_sample_reference,
 )
+from robustmvd_tpu_torch.ops.kernels.sweep_warp import sweep_variance, sweep_variance_reference
 
 pytestmark = pytest.mark.cuda
 
@@ -98,3 +99,104 @@ def test_robust_mvd_on_card_matches_cpu(cuda):
         scale = np.abs(c).mean() + 1e-12
         assert np.abs(g - c).mean() / scale <= 1e-4
         assert np.abs(g - c).max() / scale <= 1e-3
+
+
+def _sweep_inputs(seed, B=2, V=2, H=12, W=20, C=32, D=8, dense=False):
+    """K2's arguments: a row of cameras around the key, planes from 0.5 to 10
+    (one at z = 0 of the first source view: non-finite coordinates)."""
+    rng = np.random.RandomState(seed)
+    ref = rng.randn(B, H, W, C).astype(np.float32)
+    src = rng.randn(B, V, H, W, C).astype(np.float32)
+    rot = np.tile(np.array([[1.0, 0, -W / 2], [0, 1.0, -H / 2], [0, 0, 1]], np.float32), (B, V, 1, 1))
+    rot += rng.randn(B, V, 3, 3).astype(np.float32) * 0.01
+    rot[:, :, 2] = [0.0, 0.0, 1.0]
+    trans = (rng.randn(B, V, 3) * [2.0, 1.0, 0.0]).astype(np.float32)
+    trans[:, 0, 2] = -3.0
+    depth = np.tile(np.linspace(0.5, 10.0, D, dtype=np.float32), (B, 1))
+    depth[:, 1] = 3.0
+    if dense:
+        depth = (depth[:, :, None, None] * (1 + 0.1 * rng.rand(B, D, H, W))).astype(np.float32)
+    valid = np.ones((B, V), np.float32)
+    valid[-1, -1] = 0.0
+    return [torch.from_numpy(a) for a in (ref, src, rot, trans, depth, valid)]
+
+
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("C", [32, 16, 8, 6])  # 6: one channel per lane (C % 4 != 0)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_matches_plain_version(cuda, dense, C, dtype):
+    ref, src, rot, trans, depth, valid = (a.to(cuda) for a in _sweep_inputs(4, C=C, dense=dense))
+    ref, src = ref.to(dtype), src.to(dtype)
+    before = sweep_variance.launches
+    out = sweep_variance(ref, src, rot, trans, depth, valid)
+    torch.cuda.synchronize()
+    assert sweep_variance.launches == before + 1
+    plain = sweep_variance_reference(ref, src, rot, trans, depth, valid)
+    torch.testing.assert_close(out, plain, atol=1e-5, rtol=1e-5)
+    assert torch.isfinite(out).all()
+    # the plain version on the card is the one the CPU tests hold to JAX
+    cpu = sweep_variance_reference(*(a.cpu() for a in (ref, src, rot, trans, depth, valid)))
+    torch.testing.assert_close(plain.cpu(), cpu, atol=1e-5, rtol=1e-5)
+    out16 = sweep_variance(ref, src, rot, trans, depth, valid, out_dtype=torch.bfloat16)
+    torch.testing.assert_close(out16.float(), plain.bfloat16().float(), atol=1e-2, rtol=1e-2)
+
+
+def test_k2_unaligned_rows_take_one_channel_per_lane(cuda):
+    """A map that starts 4 bytes into its storage cannot be read in 16-byte
+    vectors; the kernel takes one channel per lane and agrees all the same."""
+    ref, src, rot, trans, depth, valid = (a.to(cuda) for a in _sweep_inputs(7, C=16))
+    src_off = torch.empty(src.numel() + 1, device=cuda)[1:].view(src.shape).copy_(src)
+    out = sweep_variance(ref, src_off, rot, trans, depth, valid)
+    torch.testing.assert_close(out, sweep_variance_reference(ref, src, rot, trans, depth, valid), atol=1e-5, rtol=1e-5)
+
+
+def test_k2_rejects_mixed_devices(cuda):
+    ref, src, rot, trans, depth, valid = _sweep_inputs(5)
+    with pytest.raises(ValueError):
+        sweep_variance(ref.to(cuda), src.to(cuda), rot, trans.to(cuda), depth.to(cuda), valid.to(cuda))
+
+
+def _family_sample(seed, H, W):
+    """Three views with tilted, rotated cameras (a camera that only rotates
+    about y makes CVP-MVSNet's interval singular on the principal row)."""
+    from scipy.spatial.transform import Rotation
+
+    rng = np.random.RandomState(seed)
+    images = [rng.rand(1, 3, H, W).astype(np.float32) * 255 for _ in range(3)]
+    K = np.array([[[0.8 * W, 0, W / 2], [0, 0.8 * W, H / 2], [0, 0, 1]]], np.float32)
+    poses = [np.eye(4, dtype=np.float32)[None] for _ in range(3)]
+    for i in (1, 2):
+        poses[i][0, :3, :3] = Rotation.from_rotvec(rng.randn(3) * 0.05).as_matrix()
+        poses[i][0, :3, 3] = rng.randn(3) * 0.1 + [0.1 * i, 0.0, 0.0]
+    return dict(images=images, poses=poses, intrinsics=[K] * 3, keyview_idx=np.zeros(1, np.int64),
+                depth_range=(np.array([1.0], np.float32), np.array([10.0], np.float32)))
+
+
+@pytest.mark.parametrize("name,launches", [("mvsnet_train", 1), ("cvp_mvsnet", 5)])
+def test_family_on_card_matches_cpu(cuda, name, launches):
+    """Card vs CPU, TF32 off: depth relative to its mean magnitude, mean
+    <= 1e-4 and max <= 1e-3 (fp32 sums in another order through the 3D
+    U-Nets); at most 1% of the uncertainty pixels pick another window. For
+    cvp_mvsnet that holds at the coarsest level; the finer levels space
+    their hypotheses by a mean over near-singular per-pixel solves, which
+    magnifies rounding differences (chip_smoke.py ``CVP_FINE_BOUNDS``):
+    mean <= 1e-2, max <= 5e-2."""
+    sample = _family_sample(6, 128, 192)
+    before = sweep_variance.launches
+    pred_g, aux_g = create_model(name, device="cuda").run(**sample)
+    assert sweep_variance.launches == before + launches
+    pred_c, aux_c = create_model(name, device="cpu").run(**sample)
+    g, c = pred_g["depth"], pred_c["depth"]
+    assert np.isfinite(c).all() and c.std() > 1e-3 * np.abs(c).mean()
+
+    def within(ours, ref, mean, mx):
+        scale = np.abs(ref).mean()
+        return np.abs(ours - ref).mean() / scale <= mean and np.abs(ours - ref).max() / scale <= mx
+
+    ug, uc = pred_g["depth_uncertainty"], pred_c["depth_uncertainty"]
+    if name == "cvp_mvsnet":
+        assert within(aux_g["depths_all"][-1], aux_c["depths_all"][-1], 1e-4, 1e-3)
+        assert within(g, c, 1e-2, 5e-2) and within(ug, uc, 1e-2, 5e-2)
+    else:
+        assert within(g, c, 1e-4, 1e-3)
+        assert (np.abs(ug - uc) <= 1e-4 * np.abs(uc).mean()).mean() >= 0.99

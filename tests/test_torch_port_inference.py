@@ -96,3 +96,58 @@ def test_vis_matches_jax(kind):
         arr[:] = 2.5
     np.testing.assert_array_equal(np.array(vis(arr)), np.array(jax_vis(arr)))
     np.testing.assert_array_equal(np.array(vis(arr[None])), np.array(jax_vis(arr[None])))
+
+
+@pytest.fixture(scope="module")
+def mvsnet_cli_run(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("inference_mvsnet")
+    weights = tmp / "mvsnet_train.pt"
+    model = create_model("mvsnet_train", device="cpu", seed=2)
+    torch.save({"model_state_dict": model.state_dict()}, weights)
+    out = tmp / "out"
+    proc = subprocess.run(
+        [sys.executable, "-m", "robustmvd_tpu_torch.inference", "--model", "mvsnet_train",
+         "--input_path", str(SAMPLE), "--output_path", str(out), "--weights", str(weights),
+         "--device", "cpu"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return model, out
+
+
+def test_mvsnet_cli_writes_what_model_run_gives(mvsnet_cli_run):
+    """mvsnet_train through the CLI (full width, 256 hypotheses, depth range
+    defaulting to 0.2..100 as in the JAX module) equals ``model.run``."""
+    model, out = mvsnet_cli_run
+    sample, h, w = load_data(str(SAMPLE))
+    pred, _ = model.run(**sample)
+    assert pred["depth"].shape == (1, 64, 80)
+    for name in ("depth", "depth_uncertainty"):
+        ref = resize_bilinear(pred[name], (h, w))[0]
+        np.testing.assert_allclose(np.load(out / f"{name}.npy"), ref, rtol=1e-6, atol=0)
+        assert np.isfinite(ref).all() and (out / f"{name}.png").stat().st_size > 0
+
+
+def test_mvsnet_cli_agrees_with_jax(mvsnet_cli_run):
+    """The JAX module (``warp_impl="xla"``) with the CLI model's weights on
+    the same sample: per-pixel relative depth error mean <= 1e-5, max <= 1e-4
+    (the bound of tests/test_torch_port_mvsnet.py)."""
+    from robustmvd_tpu.models.mvsnet import MVSNet as JaxMVSNet
+    from robustmvd_tpu.models.mvsnet import MVSNetModule
+    from robustmvd_tpu_torch.models.weights import variables_from_state_dict
+    from robustmvd_tpu_torch.utils import add_batch_dim
+
+    model, out = mvsnet_cli_run
+    sample, h, w = load_data(str(SAMPLE))
+    images, keyview_idx, poses, intrinsics = add_batch_dim(
+        [sample["images"], sample["keyview_idx"], sample["poses"], sample["intrinsics"]])
+    # the adapter uses no state; the module runs without the JAX model's init
+    inputs = JaxMVSNet.input_adapter(None, images=images, keyview_idx=keyview_idx, poses=poses,
+                                     intrinsics=intrinsics)
+    module = MVSNetModule(num_sampling_steps=256, warp_impl="xla", conv3d_impl="xla")
+    ref_pred, _ = module.apply(variables_from_state_dict(model.state_dict()), **inputs)
+    ref_depth = resize_bilinear(np.asarray(ref_pred["depth"])[..., 0], (h, w))[0]
+    depth = np.load(out / "depth.npy")
+    assert ref_depth.std() > 1e-3 * ref_depth.mean()
+    rel = np.abs(depth - ref_depth) / ref_depth
+    assert rel.mean() <= 1e-5 and rel.max() <= 1e-4, (rel.mean(), rel.max())

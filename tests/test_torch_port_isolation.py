@@ -1,6 +1,6 @@
 """The port stands alone: no JAX, no flax, nothing of robustmvd_tpu.
 
-- Importing ``robustmvd_tpu_torch`` and running a model on the CPU, in a
+- Importing ``robustmvd_tpu_torch`` and running each model on the CPU, in a
   fresh interpreter, loads none of them.
 - No source file of the package, nor ``chip_smoke.py``, imports them or
   names them in a string (``importlib`` style).
@@ -33,13 +33,14 @@ def test_running_the_port_loads_no_jax():
 import sys
 import numpy as np
 import robustmvd_tpu_torch as r
-model = r.create_model("robust_mvd", device="cpu")
 rng = np.random.RandomState(0)
 images = [rng.rand(3, 64, 64).astype(np.float32) * 255 for _ in range(2)]
 K = np.array([[50, 0, 32], [0, 50, 32], [0, 0, 1]], np.float32)
 T = np.eye(4, dtype=np.float32); T[0, 3] = 0.1
-pred, _ = model.run(images=images, keyview_idx=0, poses=[np.eye(4, dtype=np.float32), T], intrinsics=[K, K])
-assert pred["depth"].shape == (1, 32, 32), pred["depth"].shape
+for name, shape in (("robust_mvd", (1, 32, 32)), ("mvsnet_train", (1, 16, 16)), ("cvp_mvsnet", (1, 64, 64))):
+    model = r.create_model(name, device="cpu", **({"nscale": 3} if name == "cvp_mvsnet" else {}))
+    pred, _ = model.run(images=images, keyview_idx=0, poses=[np.eye(4, dtype=np.float32), T], intrinsics=[K, K])
+    assert pred["depth"].shape == shape, (name, pred["depth"].shape)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
 print("LOADED", bad)
 """ % (FORBIDDEN,)
@@ -79,12 +80,23 @@ def test_entry_points_default_to_the_card(monkeypatch):
     assert parse_args([]).device == "cuda"
 
 
+@pytest.mark.parametrize("name", ["mvsnet_train", "cvp_mvsnet"])
+def test_family_entry_points_default_to_the_card(monkeypatch, name):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        robustmvd_tpu_torch.create_model(name)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        robustmvd_tpu_torch.create_model(name, device="cuda")
+    assert robustmvd_tpu_torch.create_model(name, device="cpu").device.type == "cpu"
+
+
 def test_facade():
-    assert robustmvd_tpu_torch.list_models() == ["robust_mvd", "robust_mvd_5M"]
+    assert robustmvd_tpu_torch.list_models() == ["cvp_mvsnet", "mvsnet_train", "robust_mvd", "robust_mvd_5M"]
     assert robustmvd_tpu_torch.has_model("robust_mvd")
-    assert not robustmvd_tpu_torch.has_model("robust_mvd_5M", trainable_only=True)
-    with pytest.raises(NotImplementedError):
-        robustmvd_tpu_torch.create_model("robust_mvd", device="cpu", train=True)
+    assert robustmvd_tpu_torch.list_models(trainable_only=True) == ["robust_mvd"]
+    for name in ("robust_mvd", "mvsnet_train", "cvp_mvsnet"):
+        with pytest.raises(NotImplementedError):
+            robustmvd_tpu_torch.create_model(name, device="cpu", train=True)
 
 
 def test_custom_model_gets_the_run_protocol():

@@ -50,3 +50,62 @@ def mvd_sample(rng, H, W, num_views, B=1):
         poses.append(np.tile(T, (B, 1, 1)))
     return {"images": images, "poses": poses, "intrinsics": intrinsics, "keyview_idx": np.zeros(B, np.int64)}
 
+
+def run_bridged_block(jax_module, port_module, x, rng, name=None):
+    """Init a flax block on channel-last ``x``, randomise its variables,
+    bridge them into ``port_module`` (under the module path ``name`` where
+    the bridge needs the path), and run both: (port output, JAX output),
+    the port fed channel-first."""
+    import jax
+    import jax.numpy as jnp
+
+    variables = randomized_variables(jax_module.init(jax.random.PRNGKey(0), jnp.asarray(x)), rng)
+    if name is None:
+        port_module.load_state_dict(state_dict_from_jax(variables), strict=True)
+    else:
+        state = state_dict_from_jax({k: {name: v} for k, v in variables.items()})
+        torch.nn.ModuleDict({name: port_module}).load_state_dict(state, strict=True)
+    port_module.eval()
+    ref = np.asarray(jax_module.apply(variables, jnp.asarray(x)))
+    with torch.no_grad():
+        out = port_module(t(x).permute(0, x.ndim - 1, *range(1, x.ndim - 1))).numpy()
+    return out, ref
+
+
+def randomized_variables(variables, rng, prob_gain=1.0):
+    """A flax ``{"params", "batch_stats"}`` tree with BatchNorm statistics,
+    scales and every bias drawn at random (init leaves them at the identity
+    and zero), and the prediction head's kernel (``prob``/``prob0``) scaled by
+    ``prob_gain`` so that the softmax over hypotheses is not nearly flat."""
+    import jax
+
+    def draw(path, v):
+        v = np.asarray(v)
+        key = path[-1].key
+        if key == "mean" or key == "bias":
+            return (rng.randn(*v.shape) * 0.1).astype(np.float32)
+        if key == "var":
+            return (0.5 + rng.rand(*v.shape)).astype(np.float32)
+        if key == "scale":
+            return (0.8 + 0.4 * rng.rand(*v.shape)).astype(np.float32)
+        if key == "kernel" and path[-2].key in ("prob", "prob0"):
+            return (v * prob_gain).astype(np.float32)
+        return v
+
+    return jax.tree_util.tree_map_with_path(draw, jax.tree_util.tree_map(np.asarray, dict(variables)))
+
+
+def general_mvd_sample(rng, H, W, num_views, B=1):
+    """As :func:`mvd_sample` with rotated source cameras and a (1, 10) depth
+    range: CVP-MVSNet's hypothesis interval is singular for a pure
+    translation without rotation."""
+    from scipy.spatial.transform import Rotation
+
+    sample = mvd_sample(rng, H, W, num_views, B)
+    for i in range(1, num_views):
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = Rotation.from_rotvec(rng.randn(3) * 0.05).as_matrix()
+        T[:3, 3] = rng.randn(3) * 0.1 + [0.1 * i, 0.0, 0.0]
+        sample["poses"][i] = np.tile(T, (B, 1, 1))
+    sample["depth_range"] = (np.full(B, 1.0, np.float32), np.full(B, 10.0, np.float32))
+    return sample
