@@ -22,7 +22,8 @@ CUDA toolkit (``nvcc``). Phases, each printing one JSON line:
             against the plain torch version on the card; kernel, plain and
             grid_sample-route times; the bound.
 5. parity:  robust_mvd (64x128), mvsnet_train and cvp_mvsnet (128x160) on
-            the card vs on the CPU, TF32 off, 1+2 views.
+            the card vs on the CPU, TF32 off, 1+2 views (the family with
+            cuDNN's deterministic algorithms).
 6. main:    robust_mvd: the inference CLI on sample_data/ (256x320, 1+3
             views), then ``model.run`` at 384x1280 with 1+2 views, fp32 and
             TF32 convolutions: warm-up, timed frames, peak memory, and K1's
@@ -32,7 +33,15 @@ CUDA toolkit (``nvcc``). Phases, each printing one JSON line:
             with mvsnet_train on sample_data/, and ``model.run`` of
             mvsnet_train and cvp_mvsnet at 384x1280 with 1+2 views, with K2's
             launches on each run.
-7. the kernels line, and last the ``{"ok": true, ...}`` line.
+7. vis:     K2's group mode (fused homography warp + 8-group correlation)
+            at vis_mvsnet's three stage shapes and K3 (fused soft-argmin) at
+            its pair and fused readout shapes, each held against its plain
+            version on the card, timed beside the bound, the grid_sample
+            route (K2 group) and torch.softmax (K3); vis_mvsnet on the card
+            vs the CPU (128x192, TF32 off, cuDNN deterministic); the CLI with vis_mvsnet on
+            sample_data/, and ``model.run`` at 384x1280 with 1+2 views, with
+            both kernels' launches on each run.
+8. the kernels line, and last the ``{"ok": true, ...}`` line.
 
 Any failed check raises and the script exits non-zero; it does nothing
 without a CUDA device. Weights are random, from a seed.
@@ -51,7 +60,11 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
 MODEL_BOUNDS = (1e-4, 1e-3)  # mean, max relative error (tests/test_torch_port_model.py)
-K2_LIMIT = 1e-5  # K2 vs its plain version: the same op order, no fused multiply-add
+K2_LIMIT = 1e-5  # K2 (both modes) vs its plain version: the same op order, no fused multiply-add
+# K3 vs its plain version (torch.softmax and sums over D in another order,
+# expf/logf vs torch's): prob, expectation (+ 1e-6 * D: it reaches D - 1),
+# entropy
+K3_LIMITS = (1e-6, 1e-5, 1e-5)
 FLIPPED_SHARE = 0.01  # uncertainty pixels whose truncated window index may differ
 # cvp_mvsnet's finer levels space their hypotheses by the mean one-pixel
 # interval, a mean over pixels that includes near-singular 2x2 solves, so
@@ -66,11 +79,15 @@ def emit(phase, **fields):
 
 
 def time_ms(fn, runs=30, warmup=5):
-    """Median of per-call CUDA-event times, after warm-up."""
+    """Median of per-call CUDA-event times, after warm-up. The timed calls
+    are queued behind a sleep kernel (~10 ms), so that the events time the
+    card's work and not the host's launch overhead between small kernels."""
     import torch
 
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
     pairs = []
     for _ in range(runs):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -476,12 +493,16 @@ FAMILY = {"mvsnet_train": 1, "cvp_mvsnet": 5}  # K2 launches per frame at nscale
 
 
 def phase_family_parity():
-    """mvsnet_train and cvp_mvsnet on the card vs on the CPU, TF32 off."""
+    """mvsnet_train and cvp_mvsnet on the card vs on the CPU, TF32 off, with
+    cuDNN's deterministic algorithms: cvp's finer levels magnify rounding,
+    and the default algorithms' run-to-run spread alone moved its
+    uncertainty's max error between 0.039 and 0.050 on one card."""
     import torch
 
     import robustmvd_tpu_torch as rmvd
 
     tf32 = set_tf32(False)
+    torch.backends.cudnn.deterministic = True
     sample = sideways_sample(np.random.RandomState(4), 128, 160, 3)
     sample["depth_range"] = (np.array([1.0], np.float32), np.array([50.0], np.float32))
     report = {}
@@ -512,8 +533,9 @@ def phase_family_parity():
             raise AssertionError(f"card vs CPU {name} uncertainty: {flipped} of the pixels differ > {FLIPPED_SHARE}")
         report[name] = {"shape": list(c.shape), "rel_err": errors, "uncertainty_flipped_share": flipped,
                         "depth_std_over_mean": float(c.std() / np.abs(c).mean())}
-    emit("parity_family", tf32=tf32, input_shape=[128, 160], views=3, bounds=MODEL_BOUNDS,
-         cvp_fine_bounds=CVP_FINE_BOUNDS, flipped_limit=FLIPPED_SHARE, **report)
+    torch.backends.cudnn.deterministic = False
+    emit("parity_family", tf32=tf32, cudnn_deterministic=True, input_shape=[128, 160], views=3,
+         bounds=MODEL_BOUNDS, cvp_fine_bounds=CVP_FINE_BOUNDS, flipped_limit=FLIPPED_SHARE, **report)
     torch.cuda.empty_cache()
 
 
@@ -587,6 +609,248 @@ def phase_family_main(counters):
     return runs
 
 
+VIS_LAUNCHES = {"sweep_group_cost": 6, "soft_argmin": 6}  # per frame at 1+2 views
+
+
+def k2_group_cases(device):
+    """K2 group mode's arguments at vis_mvsnet's stage shapes (B=1, C=32),
+    from a sideways KITTI-like rig at 384x1280: the key and the first source
+    cam scaled to the stage, per-pixel w = 1 / (depth + 1e-9) around a
+    smooth depth map, as stages 2 and 3 get it: {stage: (ref, src, A, B, w)}."""
+    import torch
+
+    from robustmvd_tpu_torch.models.blocks.vis_mvsnet import PIXEL_CENTRES, scale_camera
+    from robustmvd_tpu_torch.models.vis_mvsnet import DEPTH_NUMS, FEATURE_STRIDES, INTERVAL_SCALES
+    from robustmvd_tpu_torch.ops.homography import get_homography_coeffs, matmul_sums
+
+    H, W = 384, 1280
+    sample = sideways_sample(np.random.RandomState(6), H, W, 2)
+    cams = torch.zeros((2, 2, 4, 4), device=device)
+    cams[:, 0] = torch.tensor(np.concatenate(sample["poses"]), device=device)
+    cams[:, 1, :3, :3] = torch.tensor(np.concatenate(sample["intrinsics"]), device=device)
+    centres = torch.tensor(PIXEL_CENTRES, device=device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    base = 5.0 + 20.0 * torch.rand((1, 1, 24, 80), generator=gen, device=device)
+    cases = {}
+    for stage, (D, stride, scale) in enumerate(zip(DEPTH_NUMS, FEATURE_STRIDES, INTERVAL_SCALES), 1):
+        h, w = H // stride, W // stride
+        A, Bm = get_homography_coeffs(scale_camera(cams[0:1], 1 / stride), scale_camera(cams[1:2], 1 / stride))
+        start = torch.nn.functional.interpolate(base, size=(h, w), mode="bilinear", align_corners=False)
+        interval = (100.0 - 0.2) / 192 * scale
+        depth = start - D * interval / 2 + interval * torch.arange(D, device=device).reshape(1, D, 1, 1)
+        cases[f"stage{stage}"] = (
+            torch.randn((1, h, w, 32), generator=gen, device=device),
+            torch.randn((1, h, w, 32), generator=gen, device=device),
+            matmul_sums(A, centres).contiguous(), matmul_sums(Bm, centres).contiguous(),
+            (1.0 / (depth.clamp_min(0.2) + 1e-9)).contiguous())
+    return cases
+
+
+def k2_group_bound(ref, src, w, G):
+    """Least time for K2 group on these inputs: the output, the key and
+    source maps and the per-pixel w each moved once, at the HBM rate;
+    against (45 + 9 C) flops per pixel at the f32 rate."""
+    B, D, H, W = w.shape
+    C = ref.shape[3]
+    nbytes = B * D * H * W * G * 4 + (ref.numel() + src.numel() + w.numel()) * 4
+    flops = B * D * H * W * (45 + 9 * C)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    return {"bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def group_grid_sample_route(ref, src, A, Bm, w, G):
+    """The yardstick: one F.grid_sample over all D planes at the kernel's
+    coordinates, then the product with the key and the group sums (no
+    single PyTorch call computes it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from robustmvd_tpu_torch.ops.kernels.sweep_group_cost import homography_coordinates
+
+    B, H, W, C = ref.shape
+    D = w.shape[1]
+    Hs, Ws = src.shape[1:3]
+    xi, yi = homography_coordinates(A, Bm, w)
+    grid = torch.stack([(2 * xi + 1) / Ws - 1, (2 * yi + 1) / Hs - 1], -1).reshape(B, D * H, W, 2)
+    src_c = src.permute(0, 3, 1, 2).contiguous()
+    ref_c = ref.permute(0, 3, 1, 2)[:, :, None]  # (B, C, 1, H, W)
+
+    def run():
+        warped = F.grid_sample(src_c, grid, mode="bilinear", padding_mode="zeros",
+                               align_corners=False).reshape(B, C, D, H, W)
+        return (warped * ref_c).reshape(B, G, C // G, D, H, W).sum(2)  # (B, G, D, H, W)
+
+    return run
+
+
+def phase_kernel_k2_group():
+    import torch
+
+    from robustmvd_tpu_torch.ops.kernels.sweep_group_cost import (
+        homography_group_cost,
+        homography_group_cost_reference,
+    )
+
+    results = {}
+    for case, (ref, src, A, Bm, w) in k2_group_cases(torch.device("cuda")).items():
+        out = homography_group_cost(ref, src, A, Bm, w)
+        torch.cuda.synchronize()
+        plain = homography_group_cost_reference(ref, src, A, Bm, w)
+        err = float((out - plain).abs().max())
+        if not (err <= K2_LIMIT and torch.isfinite(out).all()):
+            raise AssertionError(f"K2 group {case} disagrees with its plain version: max_abs_err {err} > {K2_LIMIT}")
+        on_map = float((out != 0).any(-1).float().mean())
+        if not on_map > 0.5:
+            raise AssertionError(f"K2 group {case}: only {on_map} of the samples land on the map: vacuous check")
+        route = group_grid_sample_route(ref, src, A, Bm, w, 8)
+        route_diff = float((route().permute(0, 2, 3, 4, 1) - out).abs().max())
+        del plain
+        torch.cuda.empty_cache()
+        results[case] = {
+            "shape": {"B": 1, "D": w.shape[1], "H": ref.shape[1], "W": ref.shape[2], "C": ref.shape[3], "G": 8,
+                      "w": "per-pixel"},
+            "max_abs_err": err, "limit": K2_LIMIT, "on_map_share": on_map,
+            "ms": time_ms(lambda: homography_group_cost(ref, src, A, Bm, w)),
+            "plain_ms": time_ms(lambda: homography_group_cost_reference(ref, src, A, Bm, w), runs=10, warmup=2),
+            "grid_sample_route_ms": time_ms(route, runs=10, warmup=2),
+            "grid_sample_route_max_abs_diff": route_diff,
+            **k2_group_bound(ref, src, w, 8),
+        }
+        torch.cuda.empty_cache()
+    emit("kernel", name="sweep_group_cost", **results)
+    return results
+
+
+def k3_bound(volume):
+    """Least time for K3: the volume read once, the probability volume and
+    three maps written once, at the HBM rate; against ~20 flops per element
+    (exp, log and division counted as one each) at the f32 rate."""
+    B, D, H, W = volume.shape
+    nbytes = 2 * volume.numel() * 4 + 3 * B * H * W * 4
+    flops = 20 * volume.numel()
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    return {"bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def phase_kernel_k3():
+    """K3 at vis_mvsnet's readout shapes at 384x1280 with 1+2 views: the
+    pair readout (2, D, h, w) and the fused one (1, D, h, w) of each stage.
+    prob, expectation and entropy are held at K3_LIMITS; the window mass
+    may differ on FLIPPED_SHARE of the pixels (the mask flips at ties)."""
+    import torch
+
+    from robustmvd_tpu_torch.models.vis_mvsnet import DEPTH_NUMS, FEATURE_STRIDES
+    from robustmvd_tpu_torch.ops.kernels.soft_argmin import fused_soft_argmin, fused_soft_argmin_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    results = {}
+    for stage, (D, stride) in enumerate(zip(DEPTH_NUMS, FEATURE_STRIDES), 1):
+        for readout, B in (("pair", 2), ("fused", 1)):
+            vol = torch.randn((B, D, 384 // stride, 1280 // stride), generator=gen, device="cuda") * 3
+            out = fused_soft_argmin(vol, window=2)
+            torch.cuda.synchronize()
+            plain = fused_soft_argmin_reference(vol, window=2)
+            errs = {name: float((a - b).abs().max()) for name, a, b in
+                    zip(("prob", "expectation", "entropy", "prob_map"), out, plain)}
+            flipped = float(((out[3] - plain[3]).abs() > 1e-5).float().mean())
+            limits = {"prob": K3_LIMITS[0], "expectation": K3_LIMITS[1] + 1e-6 * D, "entropy": K3_LIMITS[2]}
+            if not (all(errs[k] <= v for k, v in limits.items()) and flipped <= FLIPPED_SHARE):
+                raise AssertionError(f"K3 stage {stage} {readout} disagrees with its plain version: {errs}, "
+                                     f"mask flipped on {flipped} of the pixels")
+            results[f"stage{stage}_{readout}"] = {
+                "shape": list(vol.shape), "max_abs_err": max(errs[k] for k in limits), "errors": errs,
+                "limits": limits, "prob_map_flipped_share": flipped,
+                "ms": time_ms(lambda: fused_soft_argmin(vol, window=2)),
+                "plain_ms": time_ms(lambda: fused_soft_argmin_reference(vol, window=2), runs=10, warmup=2),
+                "library_ms": time_ms(lambda: torch.softmax(vol, dim=1)),  # torch.softmax alone over D
+                **k3_bound(vol),
+            }
+    emit("kernel", name="soft_argmin", **results)
+    return results
+
+
+def phase_vis_parity():
+    """vis_mvsnet on the card vs on the CPU, TF32 off, cuDNN deterministic."""
+    import torch
+
+    import robustmvd_tpu_torch as rmvd
+
+    tf32 = set_tf32(False)
+    torch.backends.cudnn.deterministic = True
+    sample = sideways_sample(np.random.RandomState(7), 128, 192, 3)
+    sample["depth_range"] = (np.array([1.0], np.float32), np.array([50.0], np.float32))
+    outs = {}
+    for device in ("cpu", "cuda"):
+        model = rmvd.create_model("vis_mvsnet", device=device, seed=0)
+        outs[device] = model.run(**sample)
+        del model
+    torch.backends.cudnn.deterministic = False
+    (pc, _), (pg, _) = outs["cpu"], outs["cuda"]
+    c = pc["depth"]
+    if not (np.isfinite(c).all() and c.std() > 1e-3 * np.abs(c).mean()):
+        raise AssertionError(f"vis_mvsnet parity run: depth not finite or flat (std {c.std()}): vacuous check")
+    mean, mx = relative_errors(pg["depth"], c)
+    if not (mean <= MODEL_BOUNDS[0] and mx <= MODEL_BOUNDS[1]):
+        raise AssertionError(f"card vs CPU vis_mvsnet depth: mean {mean}, max {mx} > {MODEL_BOUNDS}")
+    diff = np.abs(pg["depth_uncertainty"] - pc["depth_uncertainty"])
+    unc = {"mean_abs_diff": float(diff.mean()), "share_over_1e-3": float((diff > 1e-3).mean())}
+    if not (unc["mean_abs_diff"] <= 1e-4 and unc["share_over_1e-3"] <= FLIPPED_SHARE):
+        raise AssertionError(f"card vs CPU vis_mvsnet uncertainty: {unc}")
+    emit("parity_vis", tf32=tf32, cudnn_deterministic=True, input_shape=[128, 192], views=3, bounds=MODEL_BOUNDS,
+         shape=list(c.shape), depth_rel_err=[mean, mx], uncertainty=unc, flipped_limit=FLIPPED_SHARE,
+         depth_std_over_mean=float(c.std() / np.abs(c).mean()))
+    torch.cuda.empty_cache()
+
+
+def phase_vis_main(counters):
+    import torch
+
+    import robustmvd_tpu_torch as rmvd
+    from robustmvd_tpu_torch.inference import main as inference_main
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as out:
+        counters.reset()
+        inference_main(["--model", "vis_mvsnet", "--input_path", os.path.join(root, "sample_data"),
+                        "--output_path", out])
+        cli_launches = counters.read()
+        depth = np.load(os.path.join(out, "depth.npy"))
+        if depth.shape != (256, 320) or not np.isfinite(depth).all():
+            raise AssertionError(f"vis CLI depth: shape {depth.shape}, finite {np.isfinite(depth).all()}")
+        if (cli_launches["sweep_group_cost"], cli_launches["soft_argmin"]) != (9, 6):
+            raise AssertionError(f"vis CLI with 3 source views launched {cli_launches}, expected 9 K2 group, 6 K3")
+    emit("main_cli_vis", model="vis_mvsnet", input="sample_data", shape=[256, 320], views=4, launches=cli_launches)
+
+    sample = sideways_sample(np.random.RandomState(8), 384, 1280, 3)
+    model = rmvd.create_model("vis_mvsnet")
+    runs = {}
+    for label, tf32_on in (("fp32", False), ("tf32_convs", True)):
+        tf32 = set_tf32(False)
+        if tf32_on:  # PyTorch's default: TF32 for cuDNN convolutions only
+            torch.backends.cudnn.allow_tf32 = True
+            tf32 = {**tf32, "cudnn.allow_tf32": True}
+        pred, stats = timed_frames(model, sample, counters)
+        frames = stats["warmup"] + stats["frames"]
+        for name, per_frame in VIS_LAUNCHES.items():
+            if stats["launches"][name] != per_frame * frames:
+                raise AssertionError(f"vis_mvsnet: {name} launched {stats['launches']} times in {frames} frames, "
+                                     f"expected {per_frame} per frame")
+        depth = pred["depth"]
+        if depth.shape != (1, 1, 192, 640) or not np.isfinite(depth).all():
+            raise AssertionError(f"vis_mvsnet depth: shape {depth.shape}, finite {np.isfinite(depth).all()}")
+        runs[label] = {"tf32": tf32, **stats}
+    set_tf32(False)
+    emit("main_vis", model="vis_mvsnet", shape=[384, 1280], views=3, dtype="float32", **runs)
+    emit("breakdown_vis", model="vis_mvsnet", **device_breakdown(model, sample, frames=5))
+    del model
+    torch.cuda.empty_cache()
+    return runs
+
+
 def device_breakdown(model, sample, frames):
     """Where a frame's time goes: host-clock stages of model.run, each ended
     by a synchronise, and device time per kernel from torch.profiler."""
@@ -639,17 +903,23 @@ def device_breakdown(model, sample, frames):
 
 
 def kernel_kind(name):
-    """Group profiler rows: convolutions (cuDNN, 2D and 3D), GEMMs outside
-    cuDNN (robust_mvd's score matmul; the family's bicubic resize), K1, K2,
-    copies, and the rest (elementwise, cat, gather, softmax)."""
+    """Group profiler rows: convolutions (cuDNN, 2D and 3D, direct, implicit
+    GEMM and FFT), GEMMs outside cuDNN (robust_mvd's score matmul; the
+    family's bicubic resize), K1, K2,
+    K2's group mode, K3, copies, and the rest (elementwise, cat, gather,
+    softmax)."""
     if "planesweep_sample" in name:
         return "k1_planesweep_sample"
     if "sweep_warp" in name:
         return "k2_sweep_warp"
+    if "homography_group_cost" in name:
+        return "k2_group_cost"
+    if "soft_argmin_kernel" in name:
+        return "k3_soft_argmin"
     if "HtoD" in name or "DtoH" in name:
         return "memcpy_" + ("h2d" if "HtoD" in name else "d2h")
-    if any(key in name for key in ("fprop", "convolve", "dgrad", "cudnn")):
-        return "convolutions"
+    if any(key in name for key in ("fprop", "convolve", "dgrad", "cudnn", "fft", "cf32", "region_transform")):
+        return "convolutions"  # fft, cf32 (complex GEMM), region_transform: cuDNN's FFT convolutions
     if "gemm" in name:
         return "gemm"
     return "other"
@@ -684,11 +954,15 @@ def main():
     phase_card()
     k1 = phase_kernel()
     k2 = phase_kernel_k2()
+    k2g = phase_kernel_k2_group()
+    k3 = phase_kernel_k3()
     phase_parity()
     phase_family_parity()
+    phase_vis_parity()
     counters = Counters()
     runs = phase_main(counters)
     family = phase_family_main(counters)
+    vis = phase_vis_main(counters)
 
     f32, bf16 = k1["f32"], k1["bf16"]
     k2_main = k2["mvsnet_f32"]
@@ -725,6 +999,36 @@ def main():
         "grid_sample_route_ms": k2_main["grid_sample_route_ms"],
         "cases": {case: {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "grid_sample_route_ms", "bound_ms",
                                            "bound_by")} for case, r in k2.items()},
+    }, {
+        "name": "sweep_group_cost",
+        "route": "cuda",
+        "source": "robustmvd_tpu_torch/csrc/sweep_group_cost.cu",
+        "replaces": "robustmvd_tpu/ops/pallas/sweep_warp.py:287 (_call_sweep, kernel _sweep_kernel :179, "
+                    "agg='group'; entry homography_group_cost :579)",
+        "launches": vis["fp32"]["launches"]["sweep_group_cost"],
+        "max_abs_err": max(r["max_abs_err"] for r in k2g.values()),
+        "ms": k2g["stage3"]["ms"],
+        "plain_ms": k2g["stage3"]["plain_ms"],
+        "bound_ms": k2g["stage3"]["bound_ms"],
+        "bound_by": k2g["stage3"]["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes it; the yardstick is the grid_sample route
+        "grid_sample_route_ms": k2g["stage3"]["grid_sample_route_ms"],
+        "cases": {case: {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "grid_sample_route_ms", "bound_ms",
+                                           "bound_by")} for case, r in k2g.items()},
+    }, {
+        "name": "soft_argmin",
+        "route": "cuda",
+        "source": "robustmvd_tpu_torch/csrc/soft_argmin.cu",
+        "replaces": "robustmvd_tpu/ops/pallas/softargmin.py:46 (fused_soft_argmin, pallas_call :92)",
+        "launches": vis["fp32"]["launches"]["soft_argmin"],
+        "max_abs_err": max(r["max_abs_err"] for r in k3.values()),
+        "ms": k3["stage3_pair"]["ms"],
+        "plain_ms": k3["stage3_pair"]["plain_ms"],
+        "bound_ms": k3["stage3_pair"]["bound_ms"],
+        "bound_by": k3["stage3_pair"]["bound_by"],
+        "library_ms": k3["stage3_pair"]["library_ms"],  # torch.softmax over D alone
+        "cases": {case: {k: r[k] for k in ("max_abs_err", "prob_map_flipped_share", "ms", "plain_ms", "library_ms",
+                                           "bound_ms", "bound_by")} for case, r in k3.items()},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -3,7 +3,7 @@
 The PyTorch and CUDA counterpart of the JAX package ``robustmvd_tpu``, built
 slice by slice under the same string interfaces
 (reference: rmvd/__init__.py:1-25). It covers the inference of
-``robust_mvd``, ``mvsnet_train`` and ``cvp_mvsnet``: ``create_model``,
+``robust_mvd``, ``mvsnet_train``, ``cvp_mvsnet`` and ``vis_mvsnet``: ``create_model``,
 ``list_models``, ``has_model``, ``model.run(...)`` and
 ``python -m robustmvd_tpu_torch.inference``.
 

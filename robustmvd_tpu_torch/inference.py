@@ -4,7 +4,7 @@ Runs a model on a folder with a key view and source views
 (key/{image.png,K.npy,to_ref_transform.npy} and source/N/...) and writes the
 predicted depth, inverse depth and uncertainty as .npy and turbo PNGs:
 
-    python -m robustmvd_tpu_torch.inference --model robust_mvd|mvsnet_train|cvp_mvsnet \
+    python -m robustmvd_tpu_torch.inference --model robust_mvd|mvsnet_train|cvp_mvsnet|vis_mvsnet \
         --input_path sample_data --output_path out/ [--weights x.pt] [--device cuda]
 
 Each model's depth range defaults as in its JAX module (0.2..100 for the

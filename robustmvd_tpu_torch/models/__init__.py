@@ -6,3 +6,4 @@ from .registry import has_model, list_models, register_model  # noqa: F401
 from .robust_mvd import robust_mvd, robust_mvd_5M  # noqa: F401
 from .mvsnet import mvsnet_train  # noqa: F401
 from .cvp_mvsnet import cvp_mvsnet  # noqa: F401
+from .vis_mvsnet import vis_mvsnet  # noqa: F401

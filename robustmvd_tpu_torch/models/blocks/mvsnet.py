@@ -119,7 +119,7 @@ def init_weights(module, generator):
     for every convolution, zero biases, BatchNorm as constructed (scale 1,
     shift 0, mean 0, variance 1)."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
+        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.ConvTranspose3d)):
             fan_in = m.in_channels * math.prod(m.kernel_size)
             std = math.sqrt(2.0 / fan_in)
             with torch.no_grad():

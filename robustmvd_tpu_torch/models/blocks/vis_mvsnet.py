@@ -1,0 +1,286 @@
+"""Vis-MVSNet blocks as NCHW / NCDHW ``nn.Module``s.
+
+Counterparts of the JAX package's ``models/blocks/vis_mvsnet.py``
+(reference: rmvd/models/blocks/vis_mvsnet_unet_modular.py:14-242,
+vis_mvsnet_feature_extractor.py:12-29, vis_mvsnet_singlestage.py:21-348):
+the residual U-Net (2D for the features, 3D for cost regularisation), the
+3-scale feature extractor, the pair and fused regularisers, the uncertainty
+net on the entropy map, and ``SingleStage``: per-pair cost volumes (K2's
+group mode), pair regularisation and readout (K3), visibility-aware fusion
+and the fused readout (K3). Submodule names are the flax names
+(``enc_0.block0.bn1``, ``dec_3_deconv``, ``uncert_net.head_0``), so
+``models/weights.py`` maps the JAX tree onto ``state_dict()`` one to one.
+
+Every convolution is ``nn.Conv{2,3}d`` / ``nn.ConvTranspose{2,3}d`` (cuDNN
+on the card); the JAX package's banded, packed and dz2d 3D lowerings are TPU
+reformulations with the same parameters. BatchNorm runs in eval mode
+(running statistics, eps 1e-5). The U-Net's bottom and head layers are
+empty in every Vis-MVSNet use and are not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ...ops.homography import get_homography_coeffs, matmul_sums
+from ...ops.kernels.soft_argmin import fused_soft_argmin
+from ...ops.kernels.sweep_group_cost import homography_group_cost
+
+GROUPS = 8  # correlation groups of the pair cost volumes
+FUSION_MODES = ("soft", "hard", "average", "uwta", "maxpool")
+
+
+def scale_camera(cam, scale):
+    """Scale fx, cx, fy, cy in the intrinsics plane of a (B, 2, 4, 4) cam
+
+    tensor (reference: blocks/utils.py:189-216)."""
+    mult = torch.ones((4, 4), dtype=cam.dtype, device=cam.device)
+    mult[0, 0] = mult[0, 2] = mult[1, 1] = mult[1, 2] = scale
+    return torch.stack([cam[:, 0], cam[:, 1] * mult], dim=1)
+
+
+def _conv(in_ch, out_ch, k, stride, dim):
+    cls = nn.Conv2d if dim == 2 else nn.Conv3d
+    return cls(in_ch, out_ch, k, stride=stride, padding=k // 2, bias=False)
+
+
+def _bn(ch, dim):
+    return (nn.BatchNorm2d if dim == 2 else nn.BatchNorm3d)(ch, eps=1e-5)
+
+
+def torch_deconv(in_ch, out_ch, dim):
+    """flax ``TorchDeconv``: ConvTranspose(k3, s2, p1, output_padding=1,
+    bias=False), twice the input on each spatial axis."""
+    cls = nn.ConvTranspose2d if dim == 2 else nn.ConvTranspose3d
+    return cls(in_ch, out_ch, 3, stride=2, padding=1, output_padding=1, bias=False)
+
+
+class BasicBlock(nn.Module):
+    """Residual basic block (reference: vis_mvsnet_unet_modular.py:14-70),
+    with a 1x1 downsampling branch where the stride or the width changes."""
+
+    def __init__(self, in_ch, planes, stride=1, dim=2):
+        super().__init__()
+        self.conv1 = _conv(in_ch, planes, 3, stride, dim)
+        self.bn1 = _bn(planes, dim)
+        self.conv2 = _conv(planes, planes, 3, 1, dim)
+        self.bn2 = _bn(planes, dim)
+        if stride != 1 or in_ch != planes:
+            self.downsample_conv = _conv(in_ch, planes, 1, stride, dim)
+            self.downsample_bn = _bn(planes, dim)
+
+    def forward(self, x):
+        out = self.bn2(self.conv2(F.relu(self.bn1(self.conv1(x)))))
+        residual = self.downsample_bn(self.downsample_conv(x)) if hasattr(self, "downsample_conv") else x
+        return F.relu(out + residual)
+
+
+class ResLayer(nn.Sequential):
+    """``blocks`` BasicBlocks, the first one strided (reference: _make_layer, :73-113)."""
+
+    def __init__(self, in_ch, planes, blocks, stride=1, dim=2):
+        super().__init__()
+        self.add_module("block0", BasicBlock(in_ch, planes, stride, dim))
+        for i in range(1, blocks):
+            self.add_module(f"block{i}", BasicBlock(planes, planes, 1, dim))
+
+
+class UNet(nn.Module):
+    """Residual U-Net, 2D or 3D (reference: vis_mvsnet_unet_modular.py:115-242):
+    encoder layers ``enc_i`` (the first at stride 1), then per decoder level
+    a transposed conv ``dec_i_deconv``, the skip concatenation, ``dec_i_post``
+    and, with ``dec`` > 0, ``dec_i_res``."""
+
+    def __init__(self, in_ch, enc, dec, filters, dim=2):
+        super().__init__()
+        self.n_enc = len(filters)
+        self.has_res = dec > 0
+        ch = in_ch
+        for idx, f in enumerate(filters):
+            self.add_module(f"enc_{idx}", ResLayer(ch, f, enc, 1 if idx == 0 else 2, dim))
+            ch = f
+        self.dec_names = []
+        for i, f in enumerate(filters[-2::-1]):
+            idx = self.n_enc + i
+            self.add_module(f"dec_{idx}_deconv", torch_deconv(ch, f, dim))
+            self.add_module(f"dec_{idx}_post", _conv(f + filters[-2 - i], f, 3, 1, dim))
+            if self.has_res:
+                self.add_module(f"dec_{idx}_res", ResLayer(f, f, dec, 1, dim))
+            self.dec_names.append(f"dec_{idx}")
+            ch = f
+
+    def forward(self, x, multi_scale=1):
+        enc_out = []
+        for idx in range(self.n_enc):
+            x = getattr(self, f"enc_{idx}")(x)
+            enc_out.append(x)
+        dec_out = [x]
+        for i, name in enumerate(self.dec_names):
+            x = getattr(self, f"{name}_deconv")(x)
+            x = getattr(self, f"{name}_post")(torch.cat([x, enc_out[-2 - i]], dim=1))
+            if self.has_res:
+                x = getattr(self, f"{name}_res")(x)
+            dec_out.append(x)
+        return x if multi_scale == 1 else dec_out[-multi_scale:]
+
+
+class FeatExt(nn.Module):
+    """5x5 stride-2 conv + 2D U-Net -> three 32-channel maps at 1/8, 1/4,
+    1/2 (reference: vis_mvsnet_feature_extractor.py:12-29)."""
+
+    def __init__(self):
+        super().__init__()
+        self.init_conv = nn.Conv2d(3, 16, 5, stride=2, padding=2, bias=False)
+        self.init_bn = nn.BatchNorm2d(16, eps=1e-5)
+        self.unet = UNet(16, enc=2, dec=1, filters=(32, 64, 128), dim=2)
+        self.final_conv_1 = nn.Conv2d(128, 32, 3, padding=1, bias=False)
+        self.final_conv_2 = nn.Conv2d(64, 32, 3, padding=1, bias=False)
+        self.final_conv_3 = nn.Conv2d(32, 32, 3, padding=1, bias=False)
+
+    def forward(self, x):
+        out1, out2, out3 = self.unet(F.relu(self.init_bn(self.init_conv(x))), multi_scale=3)
+        return self.final_conv_1(out1), self.final_conv_2(out2), self.final_conv_3(out3)
+
+
+class Reg(nn.Module):
+    """The pair regulariser: a 3D U-Net 8/16 over the cost volume
+    (reference: vis_mvsnet_singlestage.py:21-29)."""
+
+    def __init__(self):
+        super().__init__()
+        self.unet = UNet(GROUPS, enc=1, dec=0, filters=(8, 16), dim=3)
+
+    def forward(self, x):
+        return self.unet(x)
+
+
+class RegPair(nn.Module):
+    """8 -> 1 score head of a pair."""
+
+    def __init__(self):
+        super().__init__()
+        self.final_conv = nn.Conv3d(8, 1, 3, padding=1, bias=False)
+
+    def forward(self, x):
+        return self.final_conv(x)
+
+
+class RegFuse(nn.Module):
+    """The fused regulariser: 3D U-Net 8/16 + 8 -> 1 score head."""
+
+    def __init__(self):
+        super().__init__()
+        self.unet = UNet(8, enc=1, dec=0, filters=(8, 16), dim=3)
+        self.final_conv = nn.Conv3d(8, 1, 3, padding=1, bias=False)
+
+    def forward(self, x):
+        return self.final_conv(self.unet(x))
+
+
+class UncertNet(nn.Module):
+    """Uncertainty heads on the entropy map (reference:
+    vis_mvsnet_singlestage.py:57-76)."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv1_conv = nn.Conv2d(1, 8, 3, padding=1, bias=False)
+        self.conv1_bn = nn.BatchNorm2d(8, eps=1e-5)
+        self.conv2_conv = nn.Conv2d(8, 8, 3, padding=1, bias=False)
+        self.conv2_bn = nn.BatchNorm2d(8, eps=1e-5)
+        self.head_0 = nn.Conv2d(8, 1, 3, padding=1, bias=False)
+        self.head_1 = nn.Conv2d(8, 1, 3, padding=1, bias=False)
+
+    def forward(self, x):
+        out = F.relu(self.conv1_bn(self.conv1_conv(x)))
+        out = F.relu(self.conv2_bn(self.conv2_conv(out))) + x
+        return [self.head_0(out), self.head_1(out)]
+
+
+PIXEL_CENTRES = ((1.0, 0.0, 0.5), (0.0, 1.0, 0.5), (0.0, 0.0, 1.0))
+
+
+class SingleStage(nn.Module):
+    """One cascade stage (reference: vis_mvsnet_singlestage.py:79-348)."""
+
+    def __init__(self):
+        super().__init__()
+        self.reg = Reg()
+        self.reg_pair = RegPair()
+        self.reg_fuse = RegFuse()
+        self.uncert_net = UncertNet()
+
+    def forward(self, ref_feat, ref_cam, srcs_feat, srcs_cam, depth_num, mode="soft", depth_start=None,
+                depth_interval=None, s_scale=1, src_valid=None):
+        """ref_feat (B, h, w, C) and srcs_feat [(B, h, w, C)] channel-last
+        float32; cams (B, 2, 4, 4); depth_start / depth_interval (B, 1, 1, 1)
+        or (B, 1, h, w) (default: the key cam's); src_valid [(B,)] 0/1 per
+        source view (default: all).
+
+        Returns (est_depth (B, 1, h, w), prob_map (B, 1, h, w), pair_results
+        [[est_depth, [uncertainty heads (B, 1, h, w)]] per source view])."""
+        if mode not in FUSION_MODES:
+            raise ValueError(f"mode must be one of {FUSION_MODES}, got {mode!r}")
+        B, h, w, _ = ref_feat.shape
+        P = len(srcs_feat)
+        if depth_start is None:
+            depth_start = ref_cam[:, 1:2, 3:4, 0:1]
+        if depth_interval is None:
+            depth_interval = ref_cam[:, 1:2, 3:4, 1:2]
+        if src_valid is None:
+            src_valid = [torch.ones(B, device=ref_feat.device)] * P
+
+        # phase 1: per-pair cost volumes (K2 group mode), H = A + B / (d + 1e-9)
+        d_idx = torch.arange(depth_num, dtype=torch.float32, device=ref_feat.device).reshape(1, depth_num, 1, 1)
+        w_dense = (1.0 / (depth_start + depth_interval * d_idx + 1e-9)).expand(B, depth_num, h, w).contiguous()
+        centres = torch.tensor(PIXEL_CENTRES, device=ref_feat.device)
+        ref_cam_s = scale_camera(ref_cam, 1 / s_scale)
+        costs = []
+        for src_feat, src_cam in zip(srcs_feat, srcs_cam):
+            A, Bm = get_homography_coeffs(ref_cam_s, scale_camera(src_cam, 1 / s_scale))
+            costs.append(homography_group_cost(ref_feat, src_feat, matmul_sums(A, centres),
+                                               matmul_sums(Bm, centres), w_dense, groups=GROUPS))
+
+        # phase 2: the P pairs through the shared regularisers in one batch
+        interm = self.reg(torch.cat(costs, dim=0).permute(0, 4, 1, 2, 3).contiguous())  # (P*B, 8, D, h, w)
+        _, index, ent, _ = fused_soft_argmin(self.reg_pair(interm)[:, 0])
+        heads = self.uncert_net(ent)
+
+        # phase 3: visibility-aware fusion
+        fused = torch.zeros_like(interm[:B])
+        weight_sum = torch.zeros((B, 1, 1, h, w), device=ref_feat.device)
+        min_weight = None
+        pair_results = []
+        for p in range(P):
+            valid = src_valid[p].float().reshape(B, 1, 1, 1, 1)
+            pair = slice(p * B, (p + 1) * B)
+            pair_heads = [hd[pair] for hd in heads]
+            pair_results.append([index[pair] * depth_interval + depth_start, pair_heads])
+            x, h0 = interm[pair], pair_heads[0][:, :, None]  # (B, 1, 1, h, w)
+            if mode == "soft":
+                weight = torch.exp(-h0) * valid
+                weight_sum = weight_sum + weight
+                fused = fused + x * weight
+            elif mode == "hard":
+                weight = ((h0 < 0).float() + 1e-4) * valid
+                weight_sum = weight_sum + weight
+                fused = fused + x * weight
+            elif mode == "average":
+                fused = fused + x * valid
+            elif mode == "uwta":
+                if min_weight is None:
+                    min_weight, mask = h0, torch.ones_like(h0)
+                else:
+                    mask = (h0 < min_weight).float()
+                    min_weight = h0 * mask + min_weight * (1 - mask)
+                fused = x * mask + fused * (1 - mask)
+            else:  # maxpool
+                fused = fused + x if p == 0 else torch.maximum(fused, x)
+        if mode in ("soft", "hard"):
+            fused = fused / weight_sum
+        elif mode == "average":
+            fused = fused / sum(v.float().reshape(B, 1, 1, 1, 1) for v in src_valid)
+
+        _, index, _, prob_map = fused_soft_argmin(self.reg_fuse(fused)[:, 0], window=2)
+        return index * depth_interval + depth_start, prob_map, pair_results

@@ -1,0 +1,138 @@
+"""vis_mvsnet — Vis-MVSNet, 3-stage cascaded MVS with visibility-aware
+fusion, in PyTorch.
+
+Reference model: rmvd/models/vis_mvsnet.py:25-242, through the JAX package's
+``models/vis_mvsnet.py``. Cam tensors (B, 2, 4, 4) carry the pose, the
+intrinsics and the depth start, interval, step count and maximum (:50-62);
+one FeatExt over all views gives 32-channel maps at 1/8, 1/4 and 1/2; three
+SingleStages with soft fusion (the reference model's; the JAX model fixes
+it too) and 64/32/16 hypotheses at interval scales 4/2/1, each
+stage's depth start the previous estimate resized x2 (bilinear) minus half
+its span (:117-156); uncertainty = 1 - the last stage's windowed probability
+mass (:180-182). Each stage runs K2's group mode once per source view and K3
+twice. The input adapter resizes to a multiple of 64, truncates to uint8 as
+the reference does, normalises with the ImageNet statistics and flips RGB to
+BGR (:189-226), on the card; the depth range defaults to 0.2..100.
+
+The JAX input adapter pads the view list to a bucket (that bounds XLA
+compiles); the port does not, so every source view counts. Only inference
+is ported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.interpolate import resize_bilinear
+from .blocks.mvsnet import init_weights
+from .blocks.vis_mvsnet import FeatExt, SingleStage
+from .helpers import ModelBase, resize_to_multiple, to_device
+from .mvsnet import IMAGENET_MEAN, IMAGENET_STD
+from .registry import register_model
+from .robust_mvd import split_key_sources
+from .weights import load_checkpoint
+
+DEPTH_NUMS = (64, 32, 16)
+INTERVAL_SCALES = (4.0, 2.0, 1.0)
+FEATURE_STRIDES = (8, 4, 2)
+# Random weights: without trained BatchNorm statistics the residual U-Nets
+# grow their activations layer by layer, and the score heads' outputs reach
+# a std of several hundred, a one-hot softmax whose expectation is an
+# argmax that rounding flips. The heads are scaled down so that a random
+# network's softmax is moderately peaked (max probability ~0.3-0.7).
+SCORE_HEAD_GAIN = 1 / 64
+
+
+class VisMVSNet(ModelBase):
+    """The forward takes images (B, V, 3, H, W) normalised BGR, poses
+    (B, V, 4, 4), absolute intrinsics (B, V, 3, 3), keyview_idx (B,) and
+    optionally depth_range = (min (B,), max (B,))."""
+
+    def __init__(self, device, num_sampling_steps=192, weights=None, seed=0):
+        super().__init__()
+        self.num_sampling_steps = num_sampling_steps
+        self.feat_ext = FeatExt()
+        self.stage1 = SingleStage()
+        self.stage2 = SingleStage()
+        self.stage3 = SingleStage()
+        if weights is None:
+            init_weights(self, torch.Generator().manual_seed(seed))
+            with torch.no_grad():
+                for stage in (self.stage1, self.stage2, self.stage3):
+                    stage.reg_pair.final_conv.weight.mul_(SCORE_HEAD_GAIN)
+                    stage.reg_fuse.final_conv.weight.mul_(SCORE_HEAD_GAIN)
+        else:
+            self.load_state_dict(load_checkpoint(weights))
+        self.to(device).eval()
+
+    def forward(self, images, poses, intrinsics, keyview_idx, depth_range=None):
+        B, V, _, H, W = images.shape
+        device = images.device
+        if depth_range is None:
+            depth_range = (torch.full((B,), 0.2, device=device), torch.full((B,), 100.0, device=device))
+        lo, hi = (r.reshape(B).float() for r in depth_range)
+        cams = torch.zeros((B, V, 2, 4, 4), device=device)
+        cams[:, :, 0] = poses
+        cams[:, :, 1, :3, :3] = intrinsics
+        cams[:, :, 1, 3, 0] = lo[:, None]
+        cams[:, :, 1, 3, 1] = ((hi - lo) / self.num_sampling_steps)[:, None]
+        cams[:, :, 1, 3, 2] = float(self.num_sampling_steps)
+        cams[:, :, 1, 3, 3] = hi[:, None]
+        cam_key, cams_src = split_key_sources(cams, keyview_idx)
+        srcs_cam = [cams_src[:, i] for i in range(V - 1)]
+        depth_start = cam_key[:, 1:2, 3:4, 0:1]  # (B, 1, 1, 1)
+        depth_interval = cam_key[:, 1:2, 3:4, 1:2]
+
+        outputs, prob_maps = [], []
+        est_depth = None
+        for k, feat in enumerate(self.feat_ext(images.reshape(B * V, 3, H, W))):
+            feat = feat.reshape(B, V, *feat.shape[1:]).permute(0, 1, 3, 4, 2)  # (B, V, h, w, C)
+            ref, srcs = split_key_sources(feat, keyview_idx)
+            size = ref.shape[1:3]
+            start = None
+            if est_depth is not None:
+                start = resize_bilinear(est_depth, size) - DEPTH_NUMS[k] * depth_interval * INTERVAL_SCALES[k] / 2
+            stage = getattr(self, f"stage{k + 1}")
+            est_depth, prob_map, pairs = stage(ref.contiguous(), cam_key, [srcs[:, i] for i in range(V - 1)],
+                                               srcs_cam, DEPTH_NUMS[k], "soft", start,
+                                               depth_interval * INTERVAL_SCALES[k], FEATURE_STRIDES[k])
+            outputs.append([est_depth, pairs])
+            up = FEATURE_STRIDES[k] // FEATURE_STRIDES[-1]
+            prob_maps.append(resize_bilinear(prob_map, (size[0] * up, size[1] * up)) if up > 1 else prob_map)
+
+        pred = {"depth": est_depth, "depth_uncertainty": 1.0 - prob_map}
+        aux = {"outputs": outputs, "prob_maps": prob_maps, "ref_cam": cam_key, "depth": est_depth}
+        return pred, aux
+
+    def input_adapter(self, images, keyview_idx, poses=None, intrinsics=None, depth_range=None):
+        """Multiple-of-64 resize, then on the card: truncation to uint8 (the
+        reference's ``astype(np.uint8)`` after the resize), ImageNet
+        normalisation, RGB -> BGR (reference: vis_mvsnet.py:189-226)."""
+        if poses is None or intrinsics is None:
+            raise ValueError("vis_mvsnet requires poses and intrinsics inputs")
+        images, intrinsics, _ = resize_to_multiple(images, intrinsics, 64)
+        device = self.device
+        images = torch.stack([to_device(img, device) for img in images], dim=1).to(torch.uint8).float()
+        mean = to_device(IMAGENET_MEAN.reshape(3, 1, 1), device)
+        std = to_device(IMAGENET_STD.reshape(3, 1, 1), device)
+        images = torch.flip((images / torch.tensor(255.0, device=device) - mean) / std, [2])
+        sample = {
+            "images": images,
+            "poses": to_device(np.stack(poses, axis=1), device),
+            "intrinsics": to_device(np.stack(intrinsics, axis=1), device),
+            "keyview_idx": to_device(np.asarray(keyview_idx).reshape(-1), device, np.int64),
+        }
+        if depth_range is not None:
+            sample["depth_range"] = tuple(to_device(np.asarray(r).reshape(-1), device) for r in depth_range)
+        return sample
+
+
+@register_model(trainable=False)
+def vis_mvsnet(pretrained=True, weights=None, train=False, device="cuda", seed=0, num_sampling_steps=192):
+    """Vis-MVSNet (reference: vis_mvsnet.py:232-242) with soft fusion,
+    registered without pretrained weights: pass a port ``.pt`` as
+    ``weights``, or get weights from ``seed``."""
+    if train:
+        raise NotImplementedError("vis_mvsnet training is not ported yet; use train=False")
+    return VisMVSNet(device=device, num_sampling_steps=num_sampling_steps, weights=weights, seed=seed)

@@ -26,24 +26,29 @@ params/feature/conv0/bn/{scale,bias}        -> feature.conv0.bn.{weight,bias}
 batch_stats/feature/conv0/bn/{mean,var}     -> feature.conv0.bn.running_{mean,var}
 params/cost_regularization/prob/*           -> cost_regularization.prob.*
 
-3D kernels (kd, kh, kw, I, O) become (O, I, kd, kh, kw). The transposed 3D
-convolutions (``_TRANSPOSED_3D``) run in JAX as a correlation of the
-dilated input with the kernel as stored; torch's ConvTranspose3d correlates
-with its weight flipped, so (kd, kh, kw, I, O) becomes (I, O, kd, kh, kw)
-flipped on all three spatial axes (a module path ending in
-one of those names, so that a lone CostRegNet's tree converts too). Every BatchNorm gets
+3D kernels (kd, kh, kw, I, O) become (O, I, kd, kh, kw). The transposed
+convolutions (MVSNet's ``conv7/conv9/conv11.conv``, and every module named
+``*_deconv``: CVP-MVSNet's 3D ones, Vis-MVSNet's 2D and 3D ``TorchDeconv``)
+run in JAX as a correlation of the dilated input with the kernel as stored;
+torch's ConvTranspose correlates with its weight flipped, so (k..., I, O)
+becomes (I, O, k...) flipped on every spatial axis (matched on the module
+path's end, so that a lone block's tree converts too). BatchNorms are the
+modules named ``bn``, ``bnN`` or ``*_bn``; every one gets
 ``num_batches_tracked = 0``. :func:`variables_from_state_dict` is the
 inverse.
 """
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
-# module paths (suffixes) of the family's transposed 3D convolutions:
-# MVSNet's CostRegNet conv7/conv9/conv11, CVP-MVSNet's conv5/conv6 deconvs
-_TRANSPOSED_3D = ("conv7.conv", "conv9.conv", "conv11.conv", "conv5_deconv", "conv6_deconv")
+# MVSNet's CostRegNet transposed 3D convolutions (module path suffixes);
+# modules named *_deconv are transposed too
+_TRANSPOSED = ("conv7.conv", "conv9.conv", "conv11.conv")
+_BN_NAME = re.compile(r"(.*_)?bn\d*")
 _BN_LEAVES = {("params", "scale"): "weight", ("params", "bias"): "bias",
               ("batch_stats", "mean"): "running_mean", ("batch_stats", "var"): "running_var"}
 
@@ -92,20 +97,27 @@ def state_dict_from_jax(variables):
     return state
 
 
+def _is_bn(module):
+    return _BN_NAME.fullmatch(module.rsplit(".", 1)[-1]) is not None
+
+
+def _is_transposed(module):
+    return module.endswith(_TRANSPOSED) or module.endswith("_deconv")
+
+
 def _kernel_to_torch(module, w):
-    if w.ndim == 4:
-        return w.transpose(3, 2, 0, 1)  # (kh,kw,I,O) -> (O,I,kh,kw)
-    if module.endswith(_TRANSPOSED_3D):
-        return w[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2)  # -> (I,O,kd,kh,kw), flipped
-    return w.transpose(4, 3, 0, 1, 2)  # (kd,kh,kw,I,O) -> (O,I,kd,kh,kw)
+    """(k..., I, O) -> (O, I, k...); transposed: flipped, (I, O, k...)."""
+    n = w.ndim - 2
+    if _is_transposed(module):
+        return w[(slice(None, None, -1),) * n].transpose(n, n + 1, *range(n))
+    return w.transpose(n + 1, n, *range(n))
 
 
 def _kernel_to_jax(module, w):
-    if w.ndim == 4:
-        return w.transpose(2, 3, 1, 0)
-    if module.endswith(_TRANSPOSED_3D):
-        return w.transpose(2, 3, 4, 0, 1)[::-1, ::-1, ::-1]
-    return w.transpose(2, 3, 4, 1, 0)
+    n = w.ndim - 2
+    if _is_transposed(module):
+        return w.transpose(*range(2, n + 2), 0, 1)[(slice(None, None, -1),) * n]
+    return w.transpose(*range(2, n + 2), 1, 0)
 
 
 def _family_state_dict(variables):
@@ -115,7 +127,7 @@ def _family_state_dict(variables):
             *parts, leaf = path
             module = ".".join(parts)
             w = np.asarray(value)
-            if parts[-1] == "bn" or parts[-1].endswith("_bn"):
+            if _is_bn(module):
                 name = _BN_LEAVES[(collection, leaf)]
                 if name == "weight":
                     state[f"{module}.num_batches_tracked"] = torch.tensor(0)
@@ -140,7 +152,7 @@ def variables_from_state_dict(state):
         if name == "num_batches_tracked":
             continue
         w = value.detach().cpu().numpy()
-        if name in ("running_mean", "running_var") or (module.endswith("bn") and name in ("weight", "bias")):
+        if name in ("running_mean", "running_var") or (_is_bn(module) and name in ("weight", "bias")):
             collection, leaf = leaves[name]
         elif name == "weight":
             collection, leaf, w = "params", "kernel", _kernel_to_jax(module, w)

@@ -1,4 +1,4 @@
-"""Fronto-parallel plane-sweep warps (MVSNet and CVP-MVSNet).
+"""Fronto-parallel plane-sweep warps (MVSNet, CVP-MVSNet and Vis-MVSNet).
 
 Counterparts of the JAX package's ``ops/homography.py::homo_warp`` and
 ``rt_planesweep_warp`` (reference: rmvd/models/blocks/utils.py:222-268 and
@@ -16,6 +16,16 @@ alike. The JAX TPU kernel forms ``M_d = d * R + T e3^T`` first; the two
 orders differ by a few ulps in the coordinates. There is no mask for points
 behind the camera (as in the reference); non-finite coordinates read zeros
 (``ops/sampling.py``).
+
+Vis-MVSNet's per-pair homographies (reference: rmvd/models/blocks/
+utils.py:95-186, the JAX package's ``get_homographies``,
+``get_homography_coeffs`` and ``homography_warping``): ``H(d) = A + B / (d +
+1e-9)`` maps pixel centres (x + 0.5, y + 0.5) of the key view into the
+source view. ``homography_warping`` clamps the normalised coordinates to
++-1.1 as rmvd's ``interpolate`` does; the fused kernel route
+(``ops/kernels/sweep_group_cost.py``) has no clamp, as the JAX TPU kernel.
+The two differ only where a clamped coordinate still reaches the map,
+which needs a map narrower than about 10 px.
 """
 
 from __future__ import annotations
@@ -110,3 +120,73 @@ def homo_warp(src_feat, src_proj, ref_proj_inv, depth_values):
     """
     rot, trans = plane_sweep_transform(src_proj, ref_proj_inv)
     return rt_planesweep_warp(src_feat, rot, trans, depth_values)
+
+
+def _cam_parts(cam):
+    """(B, 2, 4, 4) cam tensor -> R, t (B, 3, 1), K."""
+    return cam[:, 0, :3, :3].float(), cam[:, 0, :3, 3:4].float(), cam[:, 1, :3, :3].float()
+
+
+def get_homographies(left_cam, right_cam, depth_num, depth_start, depth_interval):
+    """Per-depth homographies from the key (left) to a source (right) cam.
+
+    Args:
+        left_cam, right_cam: (B, 2, 4, 4) cam tensors: [0] the pose, [1] the
+            intrinsics in the top-left 3x3.
+        depth_num: D.
+        depth_start, depth_interval: (B, 1, 1, 1) or (B, 1, H, W).
+
+    Returns:
+        (B, D, H', W', 3, 3), H' = W' = 1 for scalar depth_start.
+    """
+    R_l, t_l, K_l = _cam_parts(left_cam)
+    R_r, t_r, K_r = _cam_parts(right_cam)
+    d_idx = torch.arange(depth_num, dtype=torch.float32, device=left_cam.device).reshape(1, depth_num, 1, 1)
+    depth = (depth_start + depth_interval * d_idx)[..., None, None]  # (B, D, H', W', 1, 1)
+    R_lT, R_rT = R_l.transpose(-2, -1), R_r.transpose(-2, -1)
+    fronto = R_l[:, 2:3, :3]  # (B, 1, 3)
+    c_rel = -matmul_sums(R_rT, t_r) + matmul_sums(R_lT, t_l)  # c_right - c_left
+    temp = matmul_sums(c_rel, fronto)[:, None, None, None]  # (B, 1, 1, 1, 3, 3)
+    eye = torch.eye(3, dtype=torch.float32, device=left_cam.device).reshape(1, 1, 1, 1, 3, 3)
+    middle = matmul_sums(eye - temp / (depth + 1e-9), matmul_sums(R_lT, torch.linalg.inv(K_l))[:, None, None, None])
+    return matmul_sums(matmul_sums(K_r, R_r)[:, None, None, None], middle)
+
+
+def get_homography_coeffs(left_cam, right_cam):
+    """``get_homographies`` as ``H(d) = A + B / (d + 1e-9)``, with
+    A = K_r R_r R_l^T K_l^-1 and B = -K_r R_r (c_rel fronto^T) R_l^T K_l^-1.
+
+    Returns (A, B): (B, 3, 3) float32 each.
+    """
+    R_l, t_l, K_l = _cam_parts(left_cam)
+    R_r, t_r, K_r = _cam_parts(right_cam)
+    R_lT, R_rT = R_l.transpose(-2, -1), R_r.transpose(-2, -1)
+    c_rel = -matmul_sums(R_rT, t_r) + matmul_sums(R_lT, t_l)
+    KrRr = matmul_sums(K_r, R_r)
+    RlTKli = matmul_sums(R_lT, torch.linalg.inv(K_l))
+    A = matmul_sums(KrRr, RlTKli)
+    Bm = -matmul_sums(KrRr, matmul_sums(matmul_sums(c_rel, R_l[:, 2:3, :3]), RlTKli))
+    return A, Bm
+
+
+def homography_warping(feat, H_mat):
+    """Warp (B, H, W, C) features by 3x3 homographies of pixel centres.
+
+    H_mat: (B, 3, 3) or (B, H, W, 3, 3). Warped coordinates are divided by
+    the map size, scaled to [-1, 1], clamped to +-1.1, and sampled with
+    align_corners=False semantics and zeros padding (reference:
+    blocks/utils.py:154-186).
+    """
+    B, Hh, Ww, C = feat.shape
+    ys, xs = torch.meshgrid(torch.arange(Hh, dtype=torch.float32, device=feat.device) + 0.5,
+                            torch.arange(Ww, dtype=torch.float32, device=feat.device) + 0.5, indexing="ij")
+    Hb = H_mat[:, None, None] if H_mat.dim() == 3 else H_mat  # (B, 1|H, 1|W, 3, 3)
+    warped = Hb[..., :, 0] * xs[None, ..., None] + Hb[..., :, 1] * ys[None, ..., None] + Hb[..., :, 2]
+    wx = warped[..., 0] / (warped[..., 2] + 1e-9)
+    wy = warped[..., 1] / (warped[..., 2] + 1e-9)
+    gx = torch.clamp((wx / Ww) * 2 - 1, -1.1, 1.1)
+    gy = torch.clamp((wy / Hh) * 2 - 1, -1.1, 1.1)
+    xi = ((gx + 1) * Ww - 1) / 2
+    yi = ((gy + 1) * Hh - 1) / 2
+    out, _ = bilinear_sample(feat, xi.reshape(B, -1), yi.reshape(B, -1))
+    return out.reshape(B, Hh, Ww, C)

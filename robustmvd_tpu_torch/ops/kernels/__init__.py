@@ -5,6 +5,8 @@ version for CPU tensors, and counts its launches in ``<wrapper>.launches``.
 """
 
 from .planesweep_sample import planesweep_sample, planesweep_sample_reference  # noqa: F401
+from .soft_argmin import fused_soft_argmin, fused_soft_argmin_reference  # noqa: F401
+from .sweep_group_cost import homography_group_cost, homography_group_cost_reference  # noqa: F401
 from .sweep_warp import (  # noqa: F401
     sweep_variance,
     sweep_variance_reference,
@@ -13,5 +15,7 @@ from .sweep_warp import (  # noqa: F401
     warp_variance_rt,
 )
 
-# every kernel wrapper of the port, for launch accounting and builds
-KERNELS = {"planesweep_sample": planesweep_sample, "sweep_warp": sweep_variance}
+# every kernel wrapper of the port by its source name (csrc/<name>.cu), for
+# launch accounting and builds
+KERNELS = {"planesweep_sample": planesweep_sample, "sweep_warp": sweep_variance,
+           "sweep_group_cost": homography_group_cost, "soft_argmin": fused_soft_argmin}

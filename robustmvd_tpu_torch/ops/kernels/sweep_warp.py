@@ -13,8 +13,9 @@ arguments and layouts (channel-last volumes):
   depth hypotheses.
 
 The JAX entries' ``dc``, ``band`` and ``interpret`` arguments set the TPU
-kernel's tiling and are not taken; the group-correlation entry
-(``homography_group_cost``, Vis-MVSNet) is not ported yet.
+kernel's tiling and are not taken. The group-correlation entry
+(``homography_group_cost``, Vis-MVSNet) is its own kernel,
+``sweep_group_cost.py``.
 
 For a CUDA tensor each entry launches the kernel or raises. For a CPU tensor
 it computes the same function with :func:`sweep_variance_reference`, the

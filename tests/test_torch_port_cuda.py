@@ -17,6 +17,12 @@ from robustmvd_tpu_torch.ops.kernels.planesweep_sample import (
     planesweep_sample,
     planesweep_sample_reference,
 )
+from robustmvd_tpu_torch.ops.homography import get_homography_coeffs, matmul_sums
+from robustmvd_tpu_torch.ops.kernels.soft_argmin import fused_soft_argmin, fused_soft_argmin_reference
+from robustmvd_tpu_torch.ops.kernels.sweep_group_cost import (
+    homography_group_cost,
+    homography_group_cost_reference,
+)
 from robustmvd_tpu_torch.ops.kernels.sweep_warp import sweep_variance, sweep_variance_reference
 
 pytestmark = pytest.mark.cuda
@@ -200,3 +206,91 @@ def test_family_on_card_matches_cpu(cuda, name, launches):
     else:
         assert within(g, c, 1e-4, 1e-3)
         assert (np.abs(ug - uc) <= 1e-4 * np.abs(uc).mean()).mean() >= 0.99
+
+
+def _group_inputs(seed, B=2, H=12, W=20, C=32, D=8):
+    """K2 group mode's arguments from a key and a shifted, rotated source
+    cam; per-pixel w around 1 / (1..4), one pixel with w = inf (non-finite
+    coordinates) and one plane through p_z = 0 of the first batch element
+    (coordinates beyond 2^30)."""
+    from scipy.spatial.transform import Rotation
+
+    rng = np.random.RandomState(seed)
+    ref = rng.randn(B, H, W, C).astype(np.float32)
+    src = rng.randn(B, H, W, C).astype(np.float32)
+    key = np.zeros((B, 2, 4, 4), np.float32)
+    key[:, 0] = np.eye(4)
+    key[:, 1, :3, :3] = [[0.8 * W, 0, W / 2], [0, 0.8 * W, H / 2], [0, 0, 1]]
+    cam = key.copy()
+    cam[:, 0, :3, :3] = Rotation.from_rotvec(rng.randn(3) * 0.02).as_matrix()
+    cam[:, 0, :3, 3] = [0.3, 0.1, 0.0]
+    A, Bm = get_homography_coeffs(torch.from_numpy(key), torch.from_numpy(cam))
+    centres = torch.tensor([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1.0]])
+    A, Bm = matmul_sums(A, centres), matmul_sums(Bm, centres)
+    A[0, 2], Bm[0, 2] = torch.tensor([0.0, 0.0, 1.0]), torch.tensor([0.0, 0.0, -1.0])  # p_z = 1 - w
+    depth = 1.0 + 3.0 * rng.rand(B, D, H, W)
+    w = (1.0 / (depth + 1e-9)).astype(np.float32)
+    w[0, 1] = 1.0
+    w[-1, 2, 0, 0] = np.inf
+    return [torch.from_numpy(a) for a in (ref, src)] + [A.contiguous(), Bm.contiguous(), torch.from_numpy(w)]
+
+
+@pytest.mark.parametrize("C", [32, 64, 24, 16])  # 32, 64: four channels per load; 24, 16: one (C/G % 4 != 0)
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_k2_group_matches_plain_version(cuda, C, out_dtype):
+    ref, src, A, Bm, w = (a.to(cuda) for a in _group_inputs(8, C=C))
+    before = homography_group_cost.launches
+    out = homography_group_cost(ref, src, A, Bm, w, groups=8, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert homography_group_cost.launches == before + 1
+    plain = homography_group_cost_reference(ref, src, A, Bm, w, groups=8, out_dtype=out_dtype)
+    torch.testing.assert_close(out.float(), plain.float(), atol=1e-5, rtol=0)
+    assert torch.isfinite(out.float()).all() and (out.float() != 0).float().mean() > 0.3
+    # the plain version on the card is the one the CPU tests hold to JAX
+    cpu = homography_group_cost_reference(*(a.cpu() for a in (ref, src, A, Bm, w)), groups=8, out_dtype=out_dtype)
+    torch.testing.assert_close(plain.cpu().float(), cpu.float(), atol=1e-5, rtol=1e-5)
+
+
+def test_k2_group_unaligned_rows_take_one_channel_per_load(cuda):
+    """A source map 4 bytes into its storage cannot be read in 16-byte
+    vectors; the kernel loads one channel at a time and agrees all the same."""
+    ref, src, A, Bm, w = (a.to(cuda) for a in _group_inputs(9, C=32))
+    src_off = torch.empty(src.numel() + 1, device=cuda)[1:].view(src.shape).copy_(src)
+    out = homography_group_cost(ref, src_off, A, Bm, w)
+    torch.testing.assert_close(out, homography_group_cost_reference(ref, src, A, Bm, w), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 12, 20), (1, 64, 5, 7), (2, 192, 3, 5), (1, 32, 48, 160)])
+def test_k3_matches_plain_version(cuda, shape):
+    """prob atol 1e-6, expectation atol 1e-5 + rtol 1e-6, entropy atol 1e-5
+    (expf / logf vs torch's, sums in another order); the window mass off by
+    more than 1e-5 on at most 1% of the pixels (the mask flips at ties)."""
+    gen = torch.Generator(device=cuda).manual_seed(shape[1])
+    vol = torch.randn(shape, generator=gen, device=cuda) * 3
+    before = fused_soft_argmin.launches
+    out = fused_soft_argmin(vol, window=2)
+    torch.cuda.synchronize()
+    assert fused_soft_argmin.launches == before + 1
+    plain = fused_soft_argmin_reference(vol, window=2)
+    for a, b, atol, rtol in zip(out[:3], plain[:3], (1e-6, 1e-5, 1e-5), (0, 1e-6, 0)):
+        torch.testing.assert_close(a, b, atol=atol, rtol=rtol)
+    assert ((out[3] - plain[3]).abs() > 1e-5).float().mean() <= 0.01
+
+
+def test_vis_mvsnet_on_card_matches_cpu(cuda):
+    """Card vs CPU, TF32 off, 128x192 with 1+2 views: 6 K2-group and 6 K3
+    launches; depth relative to its mean magnitude mean <= 1e-4, max <= 1e-3;
+    the uncertainty (a windowed probability mass) mean |diff| <= 1e-4 and
+    |diff| > 1e-3 on at most 1% of the pixels."""
+    sample = _family_sample(6, 128, 192)
+    before = homography_group_cost.launches, fused_soft_argmin.launches
+    pred_g, _ = create_model("vis_mvsnet", device="cuda").run(**sample)
+    assert (homography_group_cost.launches, fused_soft_argmin.launches) == (before[0] + 6, before[1] + 6)
+    pred_c, _ = create_model("vis_mvsnet", device="cpu").run(**sample)
+    g, c = pred_g["depth"], pred_c["depth"]
+    assert g.shape == (1, 1, 64, 96)
+    assert np.isfinite(c).all() and c.std() > 1e-3 * np.abs(c).mean()
+    scale = np.abs(c).mean()
+    assert np.abs(g - c).mean() / scale <= 1e-4 and np.abs(g - c).max() / scale <= 1e-3
+    diff = np.abs(pred_g["depth_uncertainty"] - pred_c["depth_uncertainty"])
+    assert diff.mean() <= 1e-4 and (diff > 1e-3).mean() <= 0.01

@@ -151,3 +151,34 @@ def test_mvsnet_cli_agrees_with_jax(mvsnet_cli_run):
     assert ref_depth.std() > 1e-3 * ref_depth.mean()
     rel = np.abs(depth - ref_depth) / ref_depth
     assert rel.mean() <= 1e-5 and rel.max() <= 1e-4, (rel.mean(), rel.max())
+
+
+@pytest.fixture(scope="module")
+def vis_cli_run(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("inference_vis")
+    weights = tmp / "vis_mvsnet.pt"
+    model = create_model("vis_mvsnet", device="cpu", seed=4)
+    torch.save({"model_state_dict": model.state_dict()}, weights)
+    out = tmp / "out"
+    proc = subprocess.run(
+        [sys.executable, "-m", "robustmvd_tpu_torch.inference", "--model", "vis_mvsnet",
+         "--input_path", str(SAMPLE), "--output_path", str(out), "--weights", str(weights),
+         "--device", "cpu"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return model, out
+
+
+def test_vis_cli_writes_what_model_run_gives(vis_cli_run):
+    """vis_mvsnet through the CLI (full width, 1+3 views, depth range
+    defaulting to 0.2..100) equals ``model.run``: depth at half the input
+    resolution, resized back."""
+    model, out = vis_cli_run
+    sample, h, w = load_data(str(SAMPLE))
+    pred, _ = model.run(**sample)
+    assert pred["depth"].shape == (1, h // 2, w // 2)
+    for name in ("depth", "depth_uncertainty"):
+        ref = resize_bilinear(pred[name], (h, w))[0]
+        np.testing.assert_allclose(np.load(out / f"{name}.npy"), ref, rtol=1e-6, atol=0)
+        assert np.isfinite(ref).all() and (out / f"{name}.png").stat().st_size > 0

@@ -37,7 +37,8 @@ rng = np.random.RandomState(0)
 images = [rng.rand(3, 64, 64).astype(np.float32) * 255 for _ in range(2)]
 K = np.array([[50, 0, 32], [0, 50, 32], [0, 0, 1]], np.float32)
 T = np.eye(4, dtype=np.float32); T[0, 3] = 0.1
-for name, shape in (("robust_mvd", (1, 32, 32)), ("mvsnet_train", (1, 16, 16)), ("cvp_mvsnet", (1, 64, 64))):
+for name, shape in (("robust_mvd", (1, 32, 32)), ("mvsnet_train", (1, 16, 16)), ("cvp_mvsnet", (1, 64, 64)),
+                    ("vis_mvsnet", (1, 32, 32))):
     model = r.create_model(name, device="cpu", **({"nscale": 3} if name == "cvp_mvsnet" else {}))
     pred, _ = model.run(images=images, keyview_idx=0, poses=[np.eye(4, dtype=np.float32), T], intrinsics=[K, K])
     assert pred["depth"].shape == shape, (name, pred["depth"].shape)
@@ -80,7 +81,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
     assert parse_args([]).device == "cuda"
 
 
-@pytest.mark.parametrize("name", ["mvsnet_train", "cvp_mvsnet"])
+@pytest.mark.parametrize("name", ["mvsnet_train", "cvp_mvsnet", "vis_mvsnet"])
 def test_family_entry_points_default_to_the_card(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -91,10 +92,11 @@ def test_family_entry_points_default_to_the_card(monkeypatch, name):
 
 
 def test_facade():
-    assert robustmvd_tpu_torch.list_models() == ["cvp_mvsnet", "mvsnet_train", "robust_mvd", "robust_mvd_5M"]
+    assert robustmvd_tpu_torch.list_models() == ["cvp_mvsnet", "mvsnet_train", "robust_mvd", "robust_mvd_5M",
+                                                 "vis_mvsnet"]
     assert robustmvd_tpu_torch.has_model("robust_mvd")
     assert robustmvd_tpu_torch.list_models(trainable_only=True) == ["robust_mvd"]
-    for name in ("robust_mvd", "mvsnet_train", "cvp_mvsnet"):
+    for name in ("robust_mvd", "mvsnet_train", "cvp_mvsnet", "vis_mvsnet"):
         with pytest.raises(NotImplementedError):
             robustmvd_tpu_torch.create_model(name, device="cpu", train=True)
 

@@ -75,8 +75,10 @@ def run_bridged_block(jax_module, port_module, x, rng, name=None):
 def randomized_variables(variables, rng, prob_gain=1.0):
     """A flax ``{"params", "batch_stats"}`` tree with BatchNorm statistics,
     scales and every bias drawn at random (init leaves them at the identity
-    and zero), and the prediction head's kernel (``prob``/``prob0``) scaled by
-    ``prob_gain`` so that the softmax over hypotheses is not nearly flat."""
+    and zero; any BatchNorm name: ``bn``, ``bn1``, ``conv1_bn``), and the
+    score heads' kernels (``prob``/``prob0``, Vis-MVSNet's ``final_conv``)
+    scaled by ``prob_gain`` so that the softmax over hypotheses is not nearly
+    flat."""
     import jax
 
     def draw(path, v):
@@ -88,7 +90,7 @@ def randomized_variables(variables, rng, prob_gain=1.0):
             return (0.5 + rng.rand(*v.shape)).astype(np.float32)
         if key == "scale":
             return (0.8 + 0.4 * rng.rand(*v.shape)).astype(np.float32)
-        if key == "kernel" and path[-2].key in ("prob", "prob0"):
+        if key == "kernel" and path[-2].key in ("prob", "prob0", "final_conv"):
             return (v * prob_gain).astype(np.float32)
         return v
 
