@@ -38,10 +38,22 @@ CUDA toolkit (``nvcc``). Phases, each printing one JSON line:
             its pair and fused readout shapes, each held against its plain
             version on the card, timed beside the bound, the grid_sample
             route (K2 group) and torch.softmax (K3); vis_mvsnet on the card
-            vs the CPU (128x192, TF32 off, cuDNN deterministic); the CLI with vis_mvsnet on
+            vs the CPU (128x192, TF32 off, cuDNN deterministic) with K5 and
+            with cuDNN's 3D convolutions; the CLI with vis_mvsnet on
             sample_data/, and ``model.run`` at 384x1280 with 1+2 views, with
             both kernels' launches on each run.
-8. the kernels line, and last the ``{"ok": true, ...}`` line.
+8. K5/K4:   K5 (3x3x3 stride-1 conv) on NCDHW volumes at the shapes of
+            mvsnet_train's CostRegNet (conv3d_impl="banded") and of
+            vis_mvsnet's stage-3 regularisers, held against its plain version,
+            timed beside the bound and F.conv3d (cuDNN, TF32 off and on); K4
+            (materialised homo_warp volume) with f32 and bf16 features at
+            mvsnet's (1, 256, 96, 320, 32), beside F.grid_sample. Card-vs-CPU
+            parity also covers mvsnet_train with conv3d_impl="banded",
+            warp_impl="xla" and cvp_mvsnet with "banded"; vis_mvsnet's default
+            runs K5. The main paths add mvsnet_train on K4 + K5 and vis_mvsnet
+            with conv3d_impl="xla" (cuDNN) beside its default, each with
+            every kernel's launches per frame.
+9. the kernels line, and last the ``{"ok": true, ...}`` line.
 
 Any failed check raises and the script exits non-zero; it does nothing
 without a CUDA device. Weights are random, from a seed.
@@ -399,6 +411,162 @@ def phase_kernel_k2():
     return results
 
 
+K5_LIMIT = 2e-5  # K5 vs its plain version on unit-scale inputs: float32 sums over 27 Cin taps in another order
+# K5 at the main paths' shapes at 384x1280, 1+2 views (NCDHW in, Cin -> Cout, bias):
+# mvsnet_train's CostRegNet convs with conv3d_impl="banded", vis_mvsnet's
+# stage-3 pair regulariser (enc_0, over both pairs) and its dec_2_post
+K5_CASES = {
+    "mvsnet_conv2": ((1, 16, 128, 48, 160), 16, False),
+    "mvsnet_conv4": ((1, 32, 64, 24, 80), 32, False),
+    "mvsnet_conv6": ((1, 64, 32, 12, 40), 64, False),
+    "mvsnet_prob": ((1, 8, 256, 96, 320), 1, True),
+    "vis_stage3_reg": ((2, 8, 16, 192, 640), 8, False),
+    "vis_stage3_dec_2_post": ((2, 16, 16, 192, 640), 8, False),
+}
+
+
+def k5_bound(x, cout, bias):
+    """Least time for K5: input, weights and output moved once at the HBM
+    rate, against 54 Cin Cout flops per output voxel (+ the bias add) at the
+    f32 rate."""
+    B, cin, D, H, W = x.shape
+    voxels = B * D * H * W
+    nbytes = 4 * (x.numel() + 27 * cin * cout + voxels * cout + (cout if bias else 0))
+    flops = voxels * cout * (54 * cin + (1 if bias else 0))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    return {"bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def phase_kernel_k5():
+    """K5 on NCDHW volumes (the family's layout) against its plain version
+    (27 shifted NDHWC channel contractions); yardstick ``F.conv3d`` (cuDNN)
+    with TF32 off and, as a second figure, on."""
+    import torch
+    import torch.nn.functional as F
+
+    from robustmvd_tpu_torch.ops.kernels.conv3d import conv3d_banded, conv3d_banded_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    results = {}
+    for case, (shape, cout, with_bias) in K5_CASES.items():
+        cin = shape[1]
+        x = torch.randn(shape, generator=gen, device="cuda")
+        k = torch.randn((3, 3, 3, cin, cout), generator=gen, device="cuda") / (27 * cin) ** 0.5
+        bias = torch.randn((cout,), generator=gen, device="cuda") if with_bias else None
+        set_tf32(False)
+        out = conv3d_banded(x, k, bias, channels_first=True)
+        torch.cuda.synchronize()
+        plain = conv3d_banded_reference(x.movedim(1, -1), k, bias).movedim(-1, 1)
+        err = float((out - plain).abs().max())
+        if not (err <= K5_LIMIT and torch.isfinite(out).all()):
+            raise AssertionError(f"K5 {case} disagrees with its plain version: max_abs_err {err} > {K5_LIMIT}")
+        del plain
+        weight = k.permute(4, 3, 0, 1, 2).contiguous()  # (Cout, Cin, 3, 3, 3)
+
+        def library():
+            return F.conv3d(x, weight, bias, padding=1)
+
+        lib_diff = float((library() - out).abs().max())
+        lib_ms = time_ms(library)
+        set_tf32(True)
+        lib_tf32_ms = time_ms(library)
+        set_tf32(False)
+        results[case] = {
+            "shape": list(shape), "cout": cout, "bias": with_bias, "max_abs_err": err, "limit": K5_LIMIT,
+            "ms": time_ms(lambda: conv3d_banded(x, k, bias, channels_first=True)),
+            "plain_ms": time_ms(lambda: conv3d_banded_reference(x.movedim(1, -1), k, bias), runs=10, warmup=2),
+            "library_ms": lib_ms, "library_tf32_ms": lib_tf32_ms, "library_max_abs_diff": lib_diff,
+            **k5_bound(x, cout, with_bias),
+        }
+        torch.cuda.empty_cache()
+    emit("kernel", name="conv3d_banded", layout="NCDHW", **results)
+    return results
+
+
+def k4_inputs(device):
+    """K4's arguments on mvsnet_train's warp_impl="xla" route at 384x1280:
+    a source feature map (1, 96, 320, 32), its 1/4 projection, the key's
+    inverse and 256 planes over 0.2..100, from a sideways KITTI-like rig."""
+    import torch
+
+    from robustmvd_tpu_torch.models.mvsnet import projection_matrices, unit_steps
+
+    sample = sideways_sample(np.random.RandomState(3), 384, 1280, 2)
+    K = torch.tensor(np.stack(sample["intrinsics"], 1), device=device)
+    poses = torch.tensor(np.stack(sample["poses"], 1), device=device)
+    proj = projection_matrices(K, poses)
+    gen = torch.Generator(device=device).manual_seed(5)
+    src = torch.randn((1, 96, 320, 32), generator=gen, device=device)
+    depth = (0.2 + unit_steps(256, device) * (100.0 - 0.2))[None]
+    return src, proj[:, 1].contiguous(), torch.linalg.inv(proj[:, 0]), depth
+
+
+def k4_bound(src, depth):
+    """Least time for K4: the float32 volume written once, the map and the
+    depths read once, at the HBM rate; against (15 + 7 C) flops per pixel."""
+    B, H, W, C = src.shape
+    D = depth.shape[1]
+    nbytes = B * D * H * W * C * 4 + src.numel() * src.element_size() + depth.numel() * 4
+    flops = B * D * H * W * (15 + 7 * C)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    return {"bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def phase_kernel_k4():
+    """K4 with float32 and bf16 features against its plain version; the
+    yardstick is one ``F.grid_sample`` (zeros padding, align_corners=False)
+    at the same coordinates, from an NCHW map into an NCHW volume."""
+    import torch
+    import torch.nn.functional as F
+
+    from robustmvd_tpu_torch.ops.homography import plane_sweep_transform, sweep_coordinates
+    from robustmvd_tpu_torch.ops.kernels.warp_volume import homo_warp_volume, homo_warp_volume_reference
+
+    src32, proj, inv, depth = k4_inputs(torch.device("cuda"))
+    B, H, W, C = src32.shape
+    D = depth.shape[1]
+    results = {}
+    for mode, src, limit in (("f32", src32, 1e-6), ("bf16", src32.bfloat16(), 1e-5)):
+        out = homo_warp_volume(src, proj, inv, depth)
+        torch.cuda.synchronize()
+        plain = homo_warp_volume_reference(src, proj, inv, depth)
+        err = float((out - plain).abs().max())
+        on_map = float((out != 0).any(-1).float().mean())
+        if not (err <= limit and torch.isfinite(out).all() and on_map > 0.5):
+            raise AssertionError(f"K4 {mode} disagrees with its plain version: max_abs_err {err} > {limit}, "
+                                 f"on-map share {on_map}")
+        del plain, out
+        torch.cuda.empty_cache()
+        results[mode] = {
+            "shape": {"B": B, "D": D, "H": H, "W": W, "C": C}, "max_abs_err": err, "limit": limit,
+            "on_map_share": on_map, "ms": time_ms(lambda: homo_warp_volume(src, proj, inv, depth)),
+            "plain_ms": time_ms(lambda: homo_warp_volume_reference(src, proj, inv, depth), runs=5, warmup=1),
+            **k4_bound(src, depth),
+        }
+        torch.cuda.empty_cache()
+    rot, trans = plane_sweep_transform(proj, inv)
+    xi, yi = sweep_coordinates(rot, trans, depth, H, W, H, W)
+    grid = torch.stack([(2 * xi + 1) / W - 1, (2 * yi + 1) / H - 1], -1).reshape(B, D * H, W, 2)
+    src_c = src32.permute(0, 3, 1, 2).contiguous()  # (B, C, H, W)
+
+    def library():
+        return F.grid_sample(src_c, grid, mode="bilinear", padding_mode="zeros", align_corners=False)
+
+    diff = (library().reshape(B, C, D, H, W).permute(0, 2, 3, 4, 1) - homo_warp_volume(src32, proj, inv, depth))
+    results["f32"]["library_max_abs_diff"] = float(diff.abs().max())
+    del diff
+    torch.cuda.empty_cache()
+    results["f32"]["library_ms"] = time_ms(library, runs=10, warmup=2)
+    results["bf16"]["library_ms"] = None  # grid_sample would round the grid to bf16 too
+    emit("kernel", name="warp_volume", **results)
+    torch.cuda.empty_cache()
+    return results
+
+
 def phase_parity():
     import torch
 
@@ -489,14 +657,24 @@ def phase_main(counters):
     return runs
 
 
-FAMILY = {"mvsnet_train": 1, "cvp_mvsnet": 5}  # K2 launches per frame at nscale 5
+# The family's main paths at 384x1280, 1+2 views: label -> (model, create_model
+# arguments, launches per frame of each kernel that must run; cvp at nscale 5)
+FAMILY = {
+    "mvsnet_train": ("mvsnet_train", {}, {"sweep_warp": 1}),
+    "cvp_mvsnet": ("cvp_mvsnet", {}, {"sweep_warp": 5}),
+    "mvsnet_train_banded_xla": ("mvsnet_train", {"conv3d_impl": "banded", "warp_impl": "xla"},
+                                {"warp_volume": 2, "conv3d_banded": 4, "sweep_warp": 0}),
+}
+# the card-vs-CPU configurations: the defaults and K4's and K5's paths
+FAMILY_PARITY = {label: FAMILY[label][:2] for label in FAMILY}
+FAMILY_PARITY["cvp_mvsnet_banded"] = ("cvp_mvsnet", {"conv3d_impl": "banded"})
 
 
-def phase_family_parity():
-    """mvsnet_train and cvp_mvsnet on the card vs on the CPU, TF32 off, with
-    cuDNN's deterministic algorithms: cvp's finer levels magnify rounding,
-    and the default algorithms' run-to-run spread alone moved its
-    uncertainty's max error between 0.039 and 0.050 on one card."""
+def phase_family_parity(counters):
+    """The family on the card vs on the CPU, TF32 off, with cuDNN's
+    deterministic algorithms: cvp's finer levels magnify rounding, and the
+    default algorithms' run-to-run spread alone moved its uncertainty's max
+    error between 0.039 and 0.050 on one card."""
     import torch
 
     import robustmvd_tpu_torch as rmvd
@@ -506,16 +684,18 @@ def phase_family_parity():
     sample = sideways_sample(np.random.RandomState(4), 128, 160, 3)
     sample["depth_range"] = (np.array([1.0], np.float32), np.array([50.0], np.float32))
     report = {}
-    for name in FAMILY:
+    for label, (name, kwargs) in FAMILY_PARITY.items():
         outs = {}
         for device in ("cpu", "cuda"):
-            model = rmvd.create_model(name, device=device, seed=0)
+            model = rmvd.create_model(name, device=device, seed=0, **kwargs)
+            counters.reset()
             outs[device] = model.run(**sample)
             del model
+        launches = {k: v for k, v in counters.read().items() if v}  # the card's run
         (pc, ac), (pg, ag) = outs["cpu"], outs["cuda"]
         c = pc["depth"]
         if not (np.isfinite(c).all() and c.std() > 1e-3 * np.abs(c).mean()):
-            raise AssertionError(f"{name} parity run: depth not finite or flat (std {c.std()}): vacuous check")
+            raise AssertionError(f"{label} parity run: depth not finite or flat (std {c.std()}): vacuous check")
         checks = {"depth": (pg["depth"], c, MODEL_BOUNDS)}
         if name == "cvp_mvsnet":
             checks = {"depth_coarsest": (ag["depths_all"][-1], ac["depths_all"][-1], MODEL_BOUNDS),
@@ -526,13 +706,18 @@ def phase_family_parity():
             mean, mx = relative_errors(g, ref)
             errors[key] = [mean, mx]
             if not (mean <= bounds[0] and mx <= bounds[1]):
-                raise AssertionError(f"card vs CPU {name} {key}: mean {mean}, max {mx} > {bounds}")
+                raise AssertionError(f"card vs CPU {label} {key}: mean {mean}, max {mx} > {bounds}")
         uc, ug = pc["depth_uncertainty"], pg["depth_uncertainty"]
         flipped = float((np.abs(ug - uc) > 1e-4 * np.abs(uc).mean()).mean())
         if name == "mvsnet_train" and not flipped <= FLIPPED_SHARE:
-            raise AssertionError(f"card vs CPU {name} uncertainty: {flipped} of the pixels differ > {FLIPPED_SHARE}")
-        report[name] = {"shape": list(c.shape), "rel_err": errors, "uncertainty_flipped_share": flipped,
-                        "depth_std_over_mean": float(c.std() / np.abs(c).mean())}
+            raise AssertionError(f"card vs CPU {label} uncertainty: {flipped} of the pixels differ > {FLIPPED_SHARE}")
+        impl = kwargs.get("conv3d_impl")
+        if (impl == "banded") != bool(launches.get("conv3d_banded")) or (
+                kwargs.get("warp_impl") == "xla") != bool(launches.get("warp_volume")):
+            raise AssertionError(f"{label} on the card launched {launches}")
+        report[label] = {"kwargs": kwargs, "shape": list(c.shape), "rel_err": errors,
+                         "uncertainty_flipped_share": flipped, "launches": launches,
+                         "depth_std_over_mean": float(c.std() / np.abs(c).mean())}
     torch.backends.cudnn.deterministic = False
     emit("parity_family", tf32=tf32, cudnn_deterministic=True, input_shape=[128, 160], views=3,
          bounds=MODEL_BOUNDS, cvp_fine_bounds=CVP_FINE_BOUNDS, flipped_limit=FLIPPED_SHARE, **report)
@@ -583,33 +768,42 @@ def phase_family_main(counters):
 
     sample = sideways_sample(np.random.RandomState(5), 384, 1280, 3)
     runs = {}
-    for name, per_frame in FAMILY.items():
-        model = rmvd.create_model(name)
-        runs[name] = {}
+    for path, (name, kwargs, per_frame) in FAMILY.items():
+        model = rmvd.create_model(name, **kwargs)
+        runs[path] = {}
         for label, tf32_on in (("fp32", False), ("tf32_convs", True)):
             tf32 = set_tf32(False)
             if tf32_on:  # PyTorch's default: TF32 for cuDNN convolutions only
                 torch.backends.cudnn.allow_tf32 = True
                 tf32 = {**tf32, "cudnn.allow_tf32": True}
             pred, stats = timed_frames(model, sample, counters)
-            frames = stats["warmup"] + stats["frames"]
-            if stats["launches"]["sweep_warp"] != per_frame * frames:
-                raise AssertionError(f"{name}: K2 launched {stats['launches']} times in {frames} frames, "
-                                     f"expected {per_frame} per frame")
+            check_launches(path, stats, per_frame)
             depth = pred["depth"]
             expected = (1, 1, 96, 320) if name == "mvsnet_train" else (1, 1, 384, 1280)
             if depth.shape != expected or not np.isfinite(depth).all():
-                raise AssertionError(f"{name} depth: shape {depth.shape}, finite {np.isfinite(depth).all()}")
-            runs[name][label] = {"tf32": tf32, **stats}
+                raise AssertionError(f"{path} depth: shape {depth.shape}, finite {np.isfinite(depth).all()}")
+            runs[path][label] = {"tf32": tf32, **stats}
         set_tf32(False)
-        emit("main_family", model=name, shape=[384, 1280], views=3, dtype="float32", **runs[name])
-        emit("breakdown_family", model=name, **device_breakdown(model, sample, frames=5))
+        emit("main_family", model=name, path=path, kwargs=kwargs, shape=[384, 1280], views=3, dtype="float32",
+             **runs[path])
+        emit("breakdown_family", model=name, path=path, **device_breakdown(model, sample, frames=5))
         del model
         torch.cuda.empty_cache()
     return runs
 
 
-VIS_LAUNCHES = {"sweep_group_cost": 6, "soft_argmin": 6}  # per frame at 1+2 views
+def check_launches(path, stats, per_frame):
+    """Each listed kernel launched exactly its count per frame in the run."""
+    frames = stats["warmup"] + stats["frames"]
+    for name, n in per_frame.items():
+        if stats["launches"][name] != n * frames:
+            raise AssertionError(f"{path}: {name} launched {stats['launches']} times in {frames} frames, "
+                                 f"expected {n} per frame")
+
+
+# per frame at 1+2 views, by conv3d_impl: K5 ten times per stage at the default
+VIS_LAUNCHES = {"banded": {"sweep_group_cost": 6, "soft_argmin": 6, "conv3d_banded": 30},
+                "xla": {"sweep_group_cost": 6, "soft_argmin": 6, "conv3d_banded": 0}}
 
 
 def k2_group_cases(device):
@@ -773,8 +967,9 @@ def phase_kernel_k3():
     return results
 
 
-def phase_vis_parity():
-    """vis_mvsnet on the card vs on the CPU, TF32 off, cuDNN deterministic."""
+def phase_vis_parity(counters):
+    """vis_mvsnet on the card vs on the CPU, TF32 off, cuDNN deterministic,
+    with each lowering of its 3D convolutions: the default (K5) and cuDNN's."""
     import torch
 
     import robustmvd_tpu_torch as rmvd
@@ -783,26 +978,36 @@ def phase_vis_parity():
     torch.backends.cudnn.deterministic = True
     sample = sideways_sample(np.random.RandomState(7), 128, 192, 3)
     sample["depth_range"] = (np.array([1.0], np.float32), np.array([50.0], np.float32))
-    outs = {}
-    for device in ("cpu", "cuda"):
-        model = rmvd.create_model("vis_mvsnet", device=device, seed=0)
-        outs[device] = model.run(**sample)
-        del model
+    report = {}
+    for impl, per_frame in VIS_LAUNCHES.items():
+        outs = {}
+        for device in ("cpu", "cuda"):
+            model = rmvd.create_model("vis_mvsnet", device=device, seed=0, conv3d_impl=impl)
+            counters.reset()
+            outs[device] = model.run(**sample)
+            del model
+        launches = {k: v for k, v in counters.read().items() if v}  # the card's run
+        expected = {k: v for k, v in per_frame.items() if v}
+        if launches != expected:
+            raise AssertionError(f"vis_mvsnet conv3d_impl={impl} parity run on the card launched {launches}, "
+                                 f"expected {expected}")
+        (pc, _), (pg, _) = outs["cpu"], outs["cuda"]
+        c = pc["depth"]
+        if not (np.isfinite(c).all() and c.std() > 1e-3 * np.abs(c).mean()):
+            raise AssertionError(f"vis_mvsnet parity run: depth not finite or flat (std {c.std()}): vacuous check")
+        mean, mx = relative_errors(pg["depth"], c)
+        if not (mean <= MODEL_BOUNDS[0] and mx <= MODEL_BOUNDS[1]):
+            raise AssertionError(f"card vs CPU vis_mvsnet conv3d_impl={impl} depth: mean {mean}, max {mx} > "
+                                 f"{MODEL_BOUNDS}")
+        diff = np.abs(pg["depth_uncertainty"] - pc["depth_uncertainty"])
+        unc = {"mean_abs_diff": float(diff.mean()), "share_over_1e-3": float((diff > 1e-3).mean())}
+        if not (unc["mean_abs_diff"] <= 1e-4 and unc["share_over_1e-3"] <= FLIPPED_SHARE):
+            raise AssertionError(f"card vs CPU vis_mvsnet conv3d_impl={impl} uncertainty: {unc}")
+        report[impl] = {"shape": list(c.shape), "depth_rel_err": [mean, mx], "uncertainty": unc,
+                        "launches": launches, "depth_std_over_mean": float(c.std() / np.abs(c).mean())}
     torch.backends.cudnn.deterministic = False
-    (pc, _), (pg, _) = outs["cpu"], outs["cuda"]
-    c = pc["depth"]
-    if not (np.isfinite(c).all() and c.std() > 1e-3 * np.abs(c).mean()):
-        raise AssertionError(f"vis_mvsnet parity run: depth not finite or flat (std {c.std()}): vacuous check")
-    mean, mx = relative_errors(pg["depth"], c)
-    if not (mean <= MODEL_BOUNDS[0] and mx <= MODEL_BOUNDS[1]):
-        raise AssertionError(f"card vs CPU vis_mvsnet depth: mean {mean}, max {mx} > {MODEL_BOUNDS}")
-    diff = np.abs(pg["depth_uncertainty"] - pc["depth_uncertainty"])
-    unc = {"mean_abs_diff": float(diff.mean()), "share_over_1e-3": float((diff > 1e-3).mean())}
-    if not (unc["mean_abs_diff"] <= 1e-4 and unc["share_over_1e-3"] <= FLIPPED_SHARE):
-        raise AssertionError(f"card vs CPU vis_mvsnet uncertainty: {unc}")
     emit("parity_vis", tf32=tf32, cudnn_deterministic=True, input_shape=[128, 192], views=3, bounds=MODEL_BOUNDS,
-         shape=list(c.shape), depth_rel_err=[mean, mx], uncertainty=unc, flipped_limit=FLIPPED_SHARE,
-         depth_std_over_mean=float(c.std() / np.abs(c).mean()))
+         flipped_limit=FLIPPED_SHARE, **report)
     torch.cuda.empty_cache()
 
 
@@ -821,33 +1026,33 @@ def phase_vis_main(counters):
         depth = np.load(os.path.join(out, "depth.npy"))
         if depth.shape != (256, 320) or not np.isfinite(depth).all():
             raise AssertionError(f"vis CLI depth: shape {depth.shape}, finite {np.isfinite(depth).all()}")
-        if (cli_launches["sweep_group_cost"], cli_launches["soft_argmin"]) != (9, 6):
-            raise AssertionError(f"vis CLI with 3 source views launched {cli_launches}, expected 9 K2 group, 6 K3")
+        if (cli_launches["sweep_group_cost"], cli_launches["soft_argmin"], cli_launches["conv3d_banded"]) != (9, 6, 30):
+            raise AssertionError(f"vis CLI with 3 source views launched {cli_launches}, expected 9 K2 group, 6 K3, "
+                                 "30 K5")
     emit("main_cli_vis", model="vis_mvsnet", input="sample_data", shape=[256, 320], views=4, launches=cli_launches)
 
     sample = sideways_sample(np.random.RandomState(8), 384, 1280, 3)
-    model = rmvd.create_model("vis_mvsnet")
     runs = {}
-    for label, tf32_on in (("fp32", False), ("tf32_convs", True)):
-        tf32 = set_tf32(False)
-        if tf32_on:  # PyTorch's default: TF32 for cuDNN convolutions only
-            torch.backends.cudnn.allow_tf32 = True
-            tf32 = {**tf32, "cudnn.allow_tf32": True}
-        pred, stats = timed_frames(model, sample, counters)
-        frames = stats["warmup"] + stats["frames"]
-        for name, per_frame in VIS_LAUNCHES.items():
-            if stats["launches"][name] != per_frame * frames:
-                raise AssertionError(f"vis_mvsnet: {name} launched {stats['launches']} times in {frames} frames, "
-                                     f"expected {per_frame} per frame")
-        depth = pred["depth"]
-        if depth.shape != (1, 1, 192, 640) or not np.isfinite(depth).all():
-            raise AssertionError(f"vis_mvsnet depth: shape {depth.shape}, finite {np.isfinite(depth).all()}")
-        runs[label] = {"tf32": tf32, **stats}
-    set_tf32(False)
-    emit("main_vis", model="vis_mvsnet", shape=[384, 1280], views=3, dtype="float32", **runs)
-    emit("breakdown_vis", model="vis_mvsnet", **device_breakdown(model, sample, frames=5))
-    del model
-    torch.cuda.empty_cache()
+    for impl, per_frame in VIS_LAUNCHES.items():  # the default (K5), then cuDNN's 3D convolutions
+        model = rmvd.create_model("vis_mvsnet", conv3d_impl=impl)
+        runs[impl] = {}
+        for label, tf32_on in (("fp32", False), ("tf32_convs", True)):
+            tf32 = set_tf32(False)
+            if tf32_on:  # PyTorch's default: TF32 for cuDNN convolutions only
+                torch.backends.cudnn.allow_tf32 = True
+                tf32 = {**tf32, "cudnn.allow_tf32": True}
+            pred, stats = timed_frames(model, sample, counters)
+            check_launches(f"vis_mvsnet conv3d_impl={impl}", stats, per_frame)
+            depth = pred["depth"]
+            if depth.shape != (1, 1, 192, 640) or not np.isfinite(depth).all():
+                raise AssertionError(f"vis_mvsnet depth: shape {depth.shape}, finite {np.isfinite(depth).all()}")
+            runs[impl][label] = {"tf32": tf32, **stats}
+        set_tf32(False)
+        emit("main_vis", model="vis_mvsnet", conv3d_impl=impl, shape=[384, 1280], views=3, dtype="float32",
+             **runs[impl])
+        emit("breakdown_vis", model="vis_mvsnet", conv3d_impl=impl, **device_breakdown(model, sample, frames=5))
+        del model
+        torch.cuda.empty_cache()
     return runs
 
 
@@ -906,10 +1111,14 @@ def kernel_kind(name):
     """Group profiler rows: convolutions (cuDNN, 2D and 3D, direct, implicit
     GEMM and FFT), GEMMs outside cuDNN (robust_mvd's score matmul; the
     family's bicubic resize), K1, K2,
-    K2's group mode, K3, copies, and the rest (elementwise, cat, gather,
+    K2's group mode, K3, K4, K5, copies, and the rest (elementwise, cat, gather,
     softmax)."""
     if "planesweep_sample" in name:
         return "k1_planesweep_sample"
+    if "warp_volume_kernel" in name:
+        return "k4_warp_volume"
+    if "conv3d_k3_kernel" in name:
+        return "k5_conv3d_banded"
     if "sweep_warp" in name:
         return "k2_sweep_warp"
     if "homography_group_cost" in name:
@@ -956,17 +1165,23 @@ def main():
     k2 = phase_kernel_k2()
     k2g = phase_kernel_k2_group()
     k3 = phase_kernel_k3()
-    phase_parity()
-    phase_family_parity()
-    phase_vis_parity()
+    k5 = phase_kernel_k5()
+    k4 = phase_kernel_k4()
     counters = Counters()
+    phase_parity()
+    phase_family_parity(counters)
+    phase_vis_parity(counters)
     runs = phase_main(counters)
     family = phase_family_main(counters)
     vis = phase_vis_main(counters)
 
     f32, bf16 = k1["f32"], k1["bf16"]
     k2_main = k2["mvsnet_f32"]
-    k2_launches = {name: family[name]["fp32"]["launches"]["sweep_warp"] for name in FAMILY}
+    k2_launches = {path: family[path]["fp32"]["launches"]["sweep_warp"] for path in ("mvsnet_train", "cvp_mvsnet")}
+    k5_launches = {"vis_mvsnet": vis["banded"]["fp32"]["launches"]["conv3d_banded"],
+                   "mvsnet_train_banded_xla": family["mvsnet_train_banded_xla"]["fp32"]["launches"]["conv3d_banded"]}
+    k5_main = k5["vis_stage3_reg"]
+    k4_main = k4["f32"]
     print(json.dumps({"kernels": [{
         "name": "planesweep_sample",
         "route": "cuda",
@@ -1005,7 +1220,7 @@ def main():
         "source": "robustmvd_tpu_torch/csrc/sweep_group_cost.cu",
         "replaces": "robustmvd_tpu/ops/pallas/sweep_warp.py:287 (_call_sweep, kernel _sweep_kernel :179, "
                     "agg='group'; entry homography_group_cost :579)",
-        "launches": vis["fp32"]["launches"]["sweep_group_cost"],
+        "launches": vis["banded"]["fp32"]["launches"]["sweep_group_cost"],
         "max_abs_err": max(r["max_abs_err"] for r in k2g.values()),
         "ms": k2g["stage3"]["ms"],
         "plain_ms": k2g["stage3"]["plain_ms"],
@@ -1020,7 +1235,7 @@ def main():
         "route": "cuda",
         "source": "robustmvd_tpu_torch/csrc/soft_argmin.cu",
         "replaces": "robustmvd_tpu/ops/pallas/softargmin.py:46 (fused_soft_argmin, pallas_call :92)",
-        "launches": vis["fp32"]["launches"]["soft_argmin"],
+        "launches": vis["banded"]["fp32"]["launches"]["soft_argmin"],
         "max_abs_err": max(r["max_abs_err"] for r in k3.values()),
         "ms": k3["stage3_pair"]["ms"],
         "plain_ms": k3["stage3_pair"]["plain_ms"],
@@ -1029,6 +1244,40 @@ def main():
         "library_ms": k3["stage3_pair"]["library_ms"],  # torch.softmax over D alone
         "cases": {case: {k: r[k] for k in ("max_abs_err", "prob_map_flipped_share", "ms", "plain_ms", "library_ms",
                                            "bound_ms", "bound_by")} for case, r in k3.items()},
+    }, {
+        "name": "conv3d_banded",
+        "route": "cuda",
+        "source": "robustmvd_tpu_torch/csrc/conv3d_banded.cu",
+        "replaces": "robustmvd_tpu/ops/pallas/conv3d.py:145 (conv3d_banded_pallas; _conv3d_banded_pallas :66, "
+                    "pallas_call :101)",
+        "launches": sum(k5_launches.values()),
+        "launches_by_path": k5_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in k5.values()),
+        "ms": k5_main["ms"],
+        "plain_ms": k5_main["plain_ms"],
+        "bound_ms": k5_main["bound_ms"],
+        "bound_by": k5_main["bound_by"],
+        "library_ms": k5_main["library_ms"],  # F.conv3d (cuDNN), TF32 off
+        "library_tf32_ms": k5_main["library_tf32_ms"],
+        "cases": {case: {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "library_tf32_ms",
+                                           "bound_ms", "bound_by")} for case, r in k5.items()},
+    }, {
+        "name": "warp_volume",
+        "route": "cuda",
+        "source": "robustmvd_tpu_torch/csrc/warp_volume.cu",
+        "replaces": "robustmvd_tpu/ops/pallas/warp_volume.py:216 (homo_warp_pallas; _homo_warp_pallas :169, "
+                    "pallas_call :197)",
+        "launches": family["mvsnet_train_banded_xla"]["fp32"]["launches"]["warp_volume"],
+        "launches_by_path": {"mvsnet_train_banded_xla":
+                             family["mvsnet_train_banded_xla"]["fp32"]["launches"]["warp_volume"]},
+        "max_abs_err": k4_main["max_abs_err"],
+        "ms": k4_main["ms"],
+        "plain_ms": k4_main["plain_ms"],
+        "bound_ms": k4_main["bound_ms"],
+        "bound_by": k4_main["bound_by"],
+        "library_ms": k4_main["library_ms"],  # F.grid_sample at the same coordinates
+        "cases": {mode: {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                  for mode, r in k4.items()},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

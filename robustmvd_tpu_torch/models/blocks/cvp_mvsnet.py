@@ -19,6 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...ops.conv3d import Conv3d
 from ...ops.homography import inverse, matmul_sums
 from ...ops.interpolate import resize_bilinear
 from ...ops.kernels.sweep_warp import warp_variance_dense
@@ -55,23 +56,26 @@ class FeaturePyramid(nn.Module):
 
 
 class CostRegNet(nn.Module):
-    """3D U-Net over a (B, 16, D, h, w) volume -> (B, D, h, w) logits."""
+    """3D U-Net over a (B, 16, D, h, w) volume -> (B, D, h, w) logits;
+    ``conv3d_impl`` applies to its seven stride-1 convolutions and ``prob0``
+    (JAX :124-157): with "banded" K5 runs 8 times per call."""
 
-    def __init__(self):
+    def __init__(self, conv3d_impl="xla"):
         super().__init__()
-        self.conv0 = ConvBnReLU3D(16, 16)
-        self.conv0a = ConvBnReLU3D(16, 16)
+        impl = conv3d_impl
+        self.conv0 = ConvBnReLU3D(16, 16, conv3d_impl=impl)
+        self.conv0a = ConvBnReLU3D(16, 16, conv3d_impl=impl)
         self.conv1 = ConvBnReLU3D(16, 32, stride=2)
-        self.conv2 = ConvBnReLU3D(32, 32)
-        self.conv2a = ConvBnReLU3D(32, 32)
-        self.conv3 = ConvBnReLU3D(32, 64)
-        self.conv4 = ConvBnReLU3D(64, 64)
-        self.conv4a = ConvBnReLU3D(64, 64)
+        self.conv2 = ConvBnReLU3D(32, 32, conv3d_impl=impl)
+        self.conv2a = ConvBnReLU3D(32, 32, conv3d_impl=impl)
+        self.conv3 = ConvBnReLU3D(32, 64, conv3d_impl=impl)
+        self.conv4 = ConvBnReLU3D(64, 64, conv3d_impl=impl)
+        self.conv4a = ConvBnReLU3D(64, 64, conv3d_impl=impl)
         self.conv5_deconv = nn.ConvTranspose3d(64, 32, 3, stride=1, padding=1, bias=False)
         self.conv5_bn = nn.BatchNorm3d(32, eps=1e-5)
         self.conv6_deconv = nn.ConvTranspose3d(32, 16, 3, stride=2, padding=1, output_padding=1, bias=False)
         self.conv6_bn = nn.BatchNorm3d(16, eps=1e-5)
-        self.prob0 = nn.Conv3d(16, 1, 3, padding=1)
+        self.prob0 = Conv3d(16, 1, bias=True, impl=impl)
 
     def forward(self, x):
         conv0 = self.conv0a(self.conv0(x))

@@ -8,10 +8,11 @@ on the way up). Submodule names are the flax names (``conv0.conv``,
 ``conv0.bn``, ``conv7.conv``, ``prob``), so ``models/weights.py`` maps the
 JAX parameter tree onto ``state_dict()`` one to one.
 
-The JAX package's dz2d / banded / packed lowerings of the 3D convolutions
-(``ops/conv3d.py``) are TPU reformulations with the same parameters; here
-every convolution is a plain ``nn.Conv3d`` / ``nn.ConvTranspose3d`` (cuDNN on
-the card). BatchNorm runs in eval mode (running statistics, eps 1e-5).
+``conv3d_impl`` picks the lowering of the stride-1 3x3x3 convolutions
+where the JAX blocks take it (``ops/conv3d.py``): "banded" runs K5, "xla"
+cuDNN; the strided and transposed convolutions are
+``nn.Conv3d`` / ``nn.ConvTranspose3d`` (cuDNN on the card). BatchNorm runs
+in eval mode (running statistics, eps 1e-5).
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ...ops.conv3d import Conv3d
 
 
 class ConvBnReLU(nn.Module):
@@ -38,11 +41,15 @@ class ConvBnReLU(nn.Module):
 class ConvBnReLU3D(nn.Module):
     """Conv3d(k3, pad 1, bias=False) + BN + ReLU
 
-    (reference: mvsnet_components.py:25-41; cvp_mvsnet_components.py:85-128)."""
+    (reference: mvsnet_components.py:25-41; cvp_mvsnet_components.py:85-128);
+    ``conv3d_impl`` applies at stride 1 (JAX ``ConvBnReLU3D``)."""
 
-    def __init__(self, in_ch, out_ch, stride=1):
+    def __init__(self, in_ch, out_ch, stride=1, conv3d_impl="xla"):
         super().__init__()
-        self.conv = nn.Conv3d(in_ch, out_ch, 3, stride=stride, padding=1, bias=False)
+        if stride == 1:
+            self.conv = Conv3d(in_ch, out_ch, impl=conv3d_impl)
+        else:
+            self.conv = nn.Conv3d(in_ch, out_ch, 3, stride=stride, padding=1, bias=False)
         self.bn = nn.BatchNorm3d(out_ch, eps=1e-5)
 
     def forward(self, x):
@@ -86,21 +93,24 @@ class FeatureNet(nn.Module):
 class CostRegNet(nn.Module):
     """3D U-Net over a (B, 32, D, h, w) volume -> (B, 1, D, h, w) logits
 
-    (reference: mvsnet_components.py:69-123)."""
+    (reference: mvsnet_components.py:69-123). As in the JAX block, ``conv0``
+    never takes the banded lowering and ``prob`` does: with "banded" K5 runs
+    ``conv2``, ``conv4``, ``conv6`` and ``prob``."""
 
-    def __init__(self, in_ch=32):
+    def __init__(self, in_ch=32, conv3d_impl="xla"):
         super().__init__()
+        impl = conv3d_impl
         self.conv0 = ConvBnReLU3D(in_ch, 8)
         self.conv1 = ConvBnReLU3D(8, 16, stride=2)
-        self.conv2 = ConvBnReLU3D(16, 16)
+        self.conv2 = ConvBnReLU3D(16, 16, conv3d_impl=impl)
         self.conv3 = ConvBnReLU3D(16, 32, stride=2)
-        self.conv4 = ConvBnReLU3D(32, 32)
+        self.conv4 = ConvBnReLU3D(32, 32, conv3d_impl=impl)
         self.conv5 = ConvBnReLU3D(32, 64, stride=2)
-        self.conv6 = ConvBnReLU3D(64, 64)
+        self.conv6 = ConvBnReLU3D(64, 64, conv3d_impl=impl)
         self.conv7 = DeconvBnReLU3D(64, 32)
         self.conv9 = DeconvBnReLU3D(32, 16)
         self.conv11 = DeconvBnReLU3D(16, 8)
-        self.prob = nn.Conv3d(8, 1, 3, padding=1)
+        self.prob = Conv3d(8, 1, bias=True, impl=impl)
 
     def forward(self, x):
         conv0 = self.conv0(x)

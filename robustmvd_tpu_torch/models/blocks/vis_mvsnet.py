@@ -11,9 +11,12 @@ and the fused readout (K3). Submodule names are the flax names
 (``enc_0.block0.bn1``, ``dec_3_deconv``, ``uncert_net.head_0``), so
 ``models/weights.py`` maps the JAX tree onto ``state_dict()`` one to one.
 
-Every convolution is ``nn.Conv{2,3}d`` / ``nn.ConvTranspose{2,3}d`` (cuDNN
-on the card); the JAX package's banded, packed and dz2d 3D lowerings are TPU
-reformulations with the same parameters. BatchNorm runs in eval mode
+``conv3d_impl`` picks the lowering of the stride-1 3x3x3 convolutions, as
+the JAX blocks take it (``ops/conv3d.py``): "banded" runs K5, "xla"
+cuDNN. Each ``Reg`` runs 4 of them, ``RegPair`` 1 and
+``RegFuse`` 5: 10 per stage. Every other convolution is ``nn.Conv{2,3}d`` /
+``nn.ConvTranspose{2,3}d`` (cuDNN on the card; the strided 3D ones are JAX's
+``Conv3dPackedS2``, the same function). BatchNorm runs in eval mode
 (running statistics, eps 1e-5). The U-Net's bottom and head layers are
 empty in every Vis-MVSNet use and are not ported.
 """
@@ -24,6 +27,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...ops.conv3d import Conv3d
 from ...ops.homography import get_homography_coeffs, matmul_sums
 from ...ops.kernels.soft_argmin import fused_soft_argmin
 from ...ops.kernels.sweep_group_cost import homography_group_cost
@@ -41,7 +45,9 @@ def scale_camera(cam, scale):
     return torch.stack([cam[:, 0], cam[:, 1] * mult], dim=1)
 
 
-def _conv(in_ch, out_ch, k, stride, dim):
+def _conv(in_ch, out_ch, k, stride, dim, conv3d_impl="xla"):
+    if dim == 3 and k == 3 and stride == 1:
+        return Conv3d(in_ch, out_ch, impl=conv3d_impl)
     cls = nn.Conv2d if dim == 2 else nn.Conv3d
     return cls(in_ch, out_ch, k, stride=stride, padding=k // 2, bias=False)
 
@@ -61,11 +67,11 @@ class BasicBlock(nn.Module):
     """Residual basic block (reference: vis_mvsnet_unet_modular.py:14-70),
     with a 1x1 downsampling branch where the stride or the width changes."""
 
-    def __init__(self, in_ch, planes, stride=1, dim=2):
+    def __init__(self, in_ch, planes, stride=1, dim=2, conv3d_impl="xla"):
         super().__init__()
-        self.conv1 = _conv(in_ch, planes, 3, stride, dim)
+        self.conv1 = _conv(in_ch, planes, 3, stride, dim, conv3d_impl)
         self.bn1 = _bn(planes, dim)
-        self.conv2 = _conv(planes, planes, 3, 1, dim)
+        self.conv2 = _conv(planes, planes, 3, 1, dim, conv3d_impl)
         self.bn2 = _bn(planes, dim)
         if stride != 1 or in_ch != planes:
             self.downsample_conv = _conv(in_ch, planes, 1, stride, dim)
@@ -80,11 +86,11 @@ class BasicBlock(nn.Module):
 class ResLayer(nn.Sequential):
     """``blocks`` BasicBlocks, the first one strided (reference: _make_layer, :73-113)."""
 
-    def __init__(self, in_ch, planes, blocks, stride=1, dim=2):
+    def __init__(self, in_ch, planes, blocks, stride=1, dim=2, conv3d_impl="xla"):
         super().__init__()
-        self.add_module("block0", BasicBlock(in_ch, planes, stride, dim))
+        self.add_module("block0", BasicBlock(in_ch, planes, stride, dim, conv3d_impl))
         for i in range(1, blocks):
-            self.add_module(f"block{i}", BasicBlock(planes, planes, 1, dim))
+            self.add_module(f"block{i}", BasicBlock(planes, planes, 1, dim, conv3d_impl))
 
 
 class UNet(nn.Module):
@@ -93,21 +99,21 @@ class UNet(nn.Module):
     a transposed conv ``dec_i_deconv``, the skip concatenation, ``dec_i_post``
     and, with ``dec`` > 0, ``dec_i_res``."""
 
-    def __init__(self, in_ch, enc, dec, filters, dim=2):
+    def __init__(self, in_ch, enc, dec, filters, dim=2, conv3d_impl="xla"):
         super().__init__()
         self.n_enc = len(filters)
         self.has_res = dec > 0
         ch = in_ch
         for idx, f in enumerate(filters):
-            self.add_module(f"enc_{idx}", ResLayer(ch, f, enc, 1 if idx == 0 else 2, dim))
+            self.add_module(f"enc_{idx}", ResLayer(ch, f, enc, 1 if idx == 0 else 2, dim, conv3d_impl))
             ch = f
         self.dec_names = []
         for i, f in enumerate(filters[-2::-1]):
             idx = self.n_enc + i
             self.add_module(f"dec_{idx}_deconv", torch_deconv(ch, f, dim))
-            self.add_module(f"dec_{idx}_post", _conv(f + filters[-2 - i], f, 3, 1, dim))
+            self.add_module(f"dec_{idx}_post", _conv(f + filters[-2 - i], f, 3, 1, dim, conv3d_impl))
             if self.has_res:
-                self.add_module(f"dec_{idx}_res", ResLayer(f, f, dec, 1, dim))
+                self.add_module(f"dec_{idx}_res", ResLayer(f, f, dec, 1, dim, conv3d_impl))
             self.dec_names.append(f"dec_{idx}")
             ch = f
 
@@ -148,9 +154,9 @@ class Reg(nn.Module):
     """The pair regulariser: a 3D U-Net 8/16 over the cost volume
     (reference: vis_mvsnet_singlestage.py:21-29)."""
 
-    def __init__(self):
+    def __init__(self, conv3d_impl="xla"):
         super().__init__()
-        self.unet = UNet(GROUPS, enc=1, dec=0, filters=(8, 16), dim=3)
+        self.unet = UNet(GROUPS, enc=1, dec=0, filters=(8, 16), dim=3, conv3d_impl=conv3d_impl)
 
     def forward(self, x):
         return self.unet(x)
@@ -159,9 +165,9 @@ class Reg(nn.Module):
 class RegPair(nn.Module):
     """8 -> 1 score head of a pair."""
 
-    def __init__(self):
+    def __init__(self, conv3d_impl="xla"):
         super().__init__()
-        self.final_conv = nn.Conv3d(8, 1, 3, padding=1, bias=False)
+        self.final_conv = Conv3d(8, 1, impl=conv3d_impl)
 
     def forward(self, x):
         return self.final_conv(x)
@@ -170,10 +176,10 @@ class RegPair(nn.Module):
 class RegFuse(nn.Module):
     """The fused regulariser: 3D U-Net 8/16 + 8 -> 1 score head."""
 
-    def __init__(self):
+    def __init__(self, conv3d_impl="xla"):
         super().__init__()
-        self.unet = UNet(8, enc=1, dec=0, filters=(8, 16), dim=3)
-        self.final_conv = nn.Conv3d(8, 1, 3, padding=1, bias=False)
+        self.unet = UNet(8, enc=1, dec=0, filters=(8, 16), dim=3, conv3d_impl=conv3d_impl)
+        self.final_conv = Conv3d(8, 1, impl=conv3d_impl)
 
     def forward(self, x):
         return self.final_conv(self.unet(x))
@@ -204,11 +210,11 @@ PIXEL_CENTRES = ((1.0, 0.0, 0.5), (0.0, 1.0, 0.5), (0.0, 0.0, 1.0))
 class SingleStage(nn.Module):
     """One cascade stage (reference: vis_mvsnet_singlestage.py:79-348)."""
 
-    def __init__(self):
+    def __init__(self, conv3d_impl="xla"):
         super().__init__()
-        self.reg = Reg()
-        self.reg_pair = RegPair()
-        self.reg_fuse = RegFuse()
+        self.reg = Reg(conv3d_impl)
+        self.reg_pair = RegPair(conv3d_impl)
+        self.reg_fuse = RegFuse(conv3d_impl)
         self.uncert_net = UncertNet()
 
     def forward(self, ref_feat, ref_cam, srcs_feat, srcs_cam, depth_num, mode="soft", depth_start=None,

@@ -55,11 +55,11 @@ class CVPMVSNet(ModelBase):
     absolute intrinsics (B, V, 3, 3), keyview_idx (B,), min_depth and
     max_depth (B,)."""
 
-    def __init__(self, device, nscale=5, weights=None, seed=0):
+    def __init__(self, device, nscale=5, weights=None, seed=0, conv3d_impl="xla"):
         super().__init__()
         self.nscale = nscale
         self.featurePyramid = FeaturePyramid()
-        self.cost_reg_refine = CostRegNet()
+        self.cost_reg_refine = CostRegNet(conv3d_impl=conv3d_impl)
         if weights is None:
             init_weights(self, torch.Generator().manual_seed(seed))
         else:
@@ -134,10 +134,12 @@ class CVPMVSNet(ModelBase):
 
 
 @register_model(trainable=False)
-def cvp_mvsnet(pretrained=True, weights=None, train=False, device="cuda", seed=0, nscale=5):
+def cvp_mvsnet(pretrained=True, weights=None, train=False, device="cuda", seed=0, nscale=5, conv3d_impl="xla"):
     """CVP-MVSNet (reference: cvp_mvsnet.py:308-321), registered without
     pretrained weights: pass a port ``.pt`` as ``weights``, or get weights
-    from ``seed``."""
+    from ``seed``. ``conv3d_impl`` picks the lowering of CostRegNet's
+    stride-1 3x3x3 convolutions (``ops/conv3d.py``; "banded": K5; "xla",
+    the JAX default: cuDNN)."""
     if train:
         raise NotImplementedError("cvp_mvsnet training is not ported yet; use train=False")
-    return CVPMVSNet(device=device, nscale=nscale, weights=weights, seed=seed)
+    return CVPMVSNet(device=device, nscale=nscale, weights=weights, seed=seed, conv3d_impl=conv3d_impl)

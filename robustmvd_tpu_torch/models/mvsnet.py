@@ -12,8 +12,22 @@ linear in depth between the first sample's range (default 0.2..100). The
 input adapter resizes to a multiple of 32 and normalises with the ImageNet
 statistics (:170-199), on the card.
 
+``warp_impl`` picks the cost-volume route: "fused" (the default) runs K2;
+"xla" warps each source view into a materialised (B, D, h, w, C) volume
+with K4 (``ops/kernels/warp_volume.py::homo_warp_volume``) and keeps running
+float32 sums of the views and their squares, updated in place (JAX
+:188-215, without its optimization barrier, an XLA artefact). The "xla"
+route is slower and holds twice the memory at inference; it exists for
+what the JAX package sends through it, training and view-parallel runs,
+neither of which the port has yet (ROADMAP). ``conv3d_impl`` picks the
+lowering of CostRegNet's stride-1 3x3x3 convolutions (``ops/conv3d.py``):
+"banded" runs K5, "xla" cuDNN. ``create_model`` also takes the JAX
+package's names (:data:`WARP_ALIASES`, ``ops/conv3d.py::CONV3D_ALIASES``):
+JAX's defaults "auto" and "dz2d" are "fused" and "xla" here.
+
 The JAX input adapter pads the view list to a bucket (that bounds XLA
-compiles); the port does not, so every source view counts.
+compiles); the port does not, so every source view counts (JAX's
+``src_valid`` is all ones here).
 """
 
 from __future__ import annotations
@@ -24,6 +38,7 @@ import torch.nn.functional as F
 
 from ..ops.homography import inverse, matmul_sums
 from ..ops.kernels.sweep_warp import warp_variance
+from ..ops.kernels.warp_volume import homo_warp_volume
 from .blocks.mvsnet import CostRegNet, FeatureNet, init_weights
 from .helpers import ModelBase, resize_to_multiple, to_device
 from .registry import register_model
@@ -32,6 +47,16 @@ from .weights import load_checkpoint
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+WARP_IMPLS = ("fused", "xla")
+WARP_ALIASES = {"auto": "fused", "pallas": "fused", "pallas_fused": "fused"}
+
+
+def warp_impl_of(name):
+    """The port's cost-volume route for a JAX ``warp_impl`` name."""
+    impl = WARP_ALIASES.get(name, name)
+    if impl not in WARP_IMPLS:
+        raise ValueError(f"unknown warp_impl {name!r}: expected one of {WARP_IMPLS + tuple(WARP_ALIASES)}")
+    return impl
 
 
 def unit_steps(num, device):
@@ -75,12 +100,16 @@ class MVSNet(ModelBase):
     absolute intrinsics (B, V, 3, 3), keyview_idx (B,) and optionally
     depth_range = (min (B,), max (B,))."""
 
-    def __init__(self, device, num_sampling_steps=192, sample_in_inv_depth_space=False, weights=None, seed=0):
+    def __init__(self, device, num_sampling_steps=192, sample_in_inv_depth_space=False, weights=None, seed=0,
+                 conv3d_impl="xla", warp_impl="fused"):
         super().__init__()
+        if warp_impl not in WARP_IMPLS:
+            raise ValueError(f"unknown warp_impl {warp_impl!r}: expected one of {WARP_IMPLS}")
         self.num_sampling_steps = num_sampling_steps
         self.sample_in_inv_depth_space = sample_in_inv_depth_space
+        self.warp_impl = warp_impl
         self.feature = FeatureNet()
-        self.cost_regularization = CostRegNet()
+        self.cost_regularization = CostRegNet(conv3d_impl=conv3d_impl)
         if weights is None:
             init_weights(self, torch.Generator().manual_seed(seed))
         else:
@@ -115,7 +144,10 @@ class MVSNet(ModelBase):
         feats = feats.reshape(B, V, *feats.shape[1:]).permute(0, 1, 3, 4, 2)  # (B, V, h, w, C)
         ref_feats, src_feats = split_key_sources(feats, keyview_idx)
 
-        volume = warp_variance(ref_feats, src_feats, proj_src, proj_key, depth_samples)
+        if self.warp_impl == "xla":
+            volume = self.warped_variance(ref_feats, src_feats, proj_src, proj_key, depth_samples)
+        else:
+            volume = warp_variance(ref_feats, src_feats, proj_src, proj_key, depth_samples)
         cost_reg = self.cost_regularization(volume.permute(0, 4, 1, 2, 3).contiguous())[:, 0]
         prob = torch.softmax(cost_reg, dim=1)  # (B, D, h, w)
         depth = torch.sum(prob * depth_samples[:, :, None, None], dim=1)
@@ -124,6 +156,22 @@ class MVSNet(ModelBase):
         pred = {"depth": depth[:, None], "depth_uncertainty": uncertainty[:, None]}
         aux = {"depth": pred["depth"], "sampling_invdepths": 1.0 / torch.flip(depth_samples, [1])}
         return pred, aux
+
+    @staticmethod
+    def warped_variance(ref_feats, src_feats, proj_src, proj_key, depth_samples):
+        """The variance volume through one warped volume per source view
+        (K4, ``homo_warp_volume``): float32 running sums updated in
+        place, then ``sum_sq / n - (sum / n)^2`` (JAX :188-215)."""
+        B, h, w, C = ref_feats.shape
+        D = depth_samples.shape[1]
+        ref = ref_feats.float()[:, None].expand(B, D, h, w, C)
+        volume_sum, volume_sq = ref.clone(), ref * ref
+        for v in range(src_feats.shape[1]):
+            warped = homo_warp_volume(src_feats[:, v], proj_src[:, v], proj_key, depth_samples)
+            volume_sum += warped
+            volume_sq += warped * warped
+        count = torch.tensor(1.0 + src_feats.shape[1], device=ref_feats.device)  # a true division on the card
+        return volume_sq / count - (volume_sum / count) ** 2
 
     def input_adapter(self, images, keyview_idx, poses=None, intrinsics=None, depth_range=None):
         """Multiple-of-32 resize, ImageNet normalisation on the card
@@ -151,11 +199,13 @@ class MVSNet(ModelBase):
 
 @register_model(trainable=False)
 def mvsnet_train(pretrained=True, weights=None, train=False, device="cuda", seed=0, num_sampling_steps=256,
-                 sample_in_inv_depth_space=False):
+                 sample_in_inv_depth_space=False, conv3d_impl="xla", warp_impl="fused"):
     """MVSNet as trained in the reference (mvsnet.py:206-217), 256 hypotheses;
     registered without pretrained weights: pass a port ``.pt`` as ``weights``,
-    or get weights from ``seed``."""
+    or get weights from ``seed``. ``conv3d_impl`` and ``warp_impl`` as in
+    :class:`MVSNet`."""
     if train:
         raise NotImplementedError("mvsnet_train training is not ported yet; use train=False")
     return MVSNet(device=device, num_sampling_steps=num_sampling_steps,
-                  sample_in_inv_depth_space=sample_in_inv_depth_space, weights=weights, seed=seed)
+                  sample_in_inv_depth_space=sample_in_inv_depth_space, weights=weights, seed=seed,
+                  conv3d_impl=conv3d_impl, warp_impl=warp_impl)

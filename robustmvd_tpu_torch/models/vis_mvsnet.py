@@ -9,9 +9,10 @@ SingleStages with soft fusion (the reference model's; the JAX model fixes
 it too) and 64/32/16 hypotheses at interval scales 4/2/1, each
 stage's depth start the previous estimate resized x2 (bilinear) minus half
 its span (:117-156); uncertainty = 1 - the last stage's windowed probability
-mass (:180-182). Each stage runs K2's group mode once per source view and K3
-twice. The input adapter resizes to a multiple of 64, truncates to uint8 as
-the reference does, normalises with the ImageNet statistics and flips RGB to
+mass (:180-182). Each stage runs K2's group mode once per source view, K3
+twice and, with the default ``conv3d_impl="banded"``, K5 ten times. The
+input adapter resizes to a multiple of 64, truncates to uint8 as the
+reference does, normalises with the ImageNet statistics and flips RGB to
 BGR (:189-226), on the card; the depth range defaults to 0.2..100.
 
 The JAX input adapter pads the view list to a bucket (that bounds XLA
@@ -49,13 +50,13 @@ class VisMVSNet(ModelBase):
     (B, V, 4, 4), absolute intrinsics (B, V, 3, 3), keyview_idx (B,) and
     optionally depth_range = (min (B,), max (B,))."""
 
-    def __init__(self, device, num_sampling_steps=192, weights=None, seed=0):
+    def __init__(self, device, num_sampling_steps=192, weights=None, seed=0, conv3d_impl="banded"):
         super().__init__()
         self.num_sampling_steps = num_sampling_steps
         self.feat_ext = FeatExt()
-        self.stage1 = SingleStage()
-        self.stage2 = SingleStage()
-        self.stage3 = SingleStage()
+        self.stage1 = SingleStage(conv3d_impl)
+        self.stage2 = SingleStage(conv3d_impl)
+        self.stage3 = SingleStage(conv3d_impl)
         if weights is None:
             init_weights(self, torch.Generator().manual_seed(seed))
             with torch.no_grad():
@@ -129,10 +130,15 @@ class VisMVSNet(ModelBase):
 
 
 @register_model(trainable=False)
-def vis_mvsnet(pretrained=True, weights=None, train=False, device="cuda", seed=0, num_sampling_steps=192):
+def vis_mvsnet(pretrained=True, weights=None, train=False, device="cuda", seed=0, num_sampling_steps=192,
+               conv3d_impl="banded"):
     """Vis-MVSNet (reference: vis_mvsnet.py:232-242) with soft fusion,
     registered without pretrained weights: pass a port ``.pt`` as
-    ``weights``, or get weights from ``seed``."""
+    ``weights``, or get weights from ``seed``. ``conv3d_impl`` picks the
+    lowering of the 3D U-Nets' stride-1 3x3x3 convolutions
+    (``ops/conv3d.py``): "banded", the JAX default, runs K5 (30 launches
+    per frame), "xla" cuDNN."""
     if train:
         raise NotImplementedError("vis_mvsnet training is not ported yet; use train=False")
-    return VisMVSNet(device=device, num_sampling_steps=num_sampling_steps, weights=weights, seed=seed)
+    return VisMVSNet(device=device, num_sampling_steps=num_sampling_steps, weights=weights, seed=seed,
+                     conv3d_impl=conv3d_impl)

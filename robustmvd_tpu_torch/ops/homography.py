@@ -9,7 +9,8 @@ padding. The reference's quirk is kept: coordinates are normalised with the
 align_corners=True formula and sampled with align_corners=False, which
 amounts to ``index = x * W / (W - 1) - 0.5``.
 
-Op order, shared with the CUDA kernel K2 (``csrc/sweep_warp.cu``):
+Op order, shared with the CUDA kernels K2 (``csrc/sweep_warp.cu``) and K4
+(``csrc/warp_volume.cu``, the materialised ``homo_warp`` volume):
 ``p = (R[:, 0] * x + R[:, 1] * y + R[:, 2]) * d + T``, then ``p / p_z``;
 3x3 and 4x4 products are written out as sums, so the card and the CPU round
 alike. The JAX TPU kernel forms ``M_d = d * R + T e3^T`` first; the two
@@ -109,7 +110,8 @@ def rt_planesweep_warp(src_feat, rot, trans, depth_hypos):
 
 
 def homo_warp(src_feat, src_proj, ref_proj_inv, depth_values):
-    """MVSNet's plane-sweep warp (reference: blocks/utils.py:222-268).
+    """MVSNet's plane-sweep warp (reference: blocks/utils.py:222-268); the
+    plain version of K4 (``ops/kernels/warp_volume.py``).
 
     Args:
         src_feat: (B, Hs, Ws, C); src_proj: (B, 4, 4); ref_proj_inv: (B, 4, 4);

@@ -24,6 +24,8 @@ from robustmvd_tpu_torch.ops.kernels.sweep_group_cost import (
     homography_group_cost_reference,
 )
 from robustmvd_tpu_torch.ops.kernels.sweep_warp import sweep_variance, sweep_variance_reference
+from robustmvd_tpu_torch.ops.kernels.conv3d import conv3d_banded, conv3d_banded_reference
+from robustmvd_tpu_torch.ops.kernels.warp_volume import homo_warp_volume, homo_warp_volume_reference
 
 pytestmark = pytest.mark.cuda
 
@@ -277,16 +279,20 @@ def test_k3_matches_plain_version(cuda, shape):
     assert ((out[3] - plain[3]).abs() > 1e-5).float().mean() <= 0.01
 
 
-def test_vis_mvsnet_on_card_matches_cpu(cuda):
-    """Card vs CPU, TF32 off, 128x192 with 1+2 views: 6 K2-group and 6 K3
-    launches; depth relative to its mean magnitude mean <= 1e-4, max <= 1e-3;
-    the uncertainty (a windowed probability mass) mean |diff| <= 1e-4 and
+@pytest.mark.parametrize("conv3d_impl,k5_launches", [("banded", 30), ("xla", 0)])
+def test_vis_mvsnet_on_card_matches_cpu(cuda, conv3d_impl, k5_launches):
+    """Card vs CPU, TF32 off, 128x192 with 1+2 views, with each lowering of
+    the 3D convolutions: 6 K2-group, 6 K3 and (the default
+    ``conv3d_impl="banded"``) 30 K5 launches or (``"xla"``, cuDNN) none;
+    depth relative to its mean magnitude mean <= 1e-4, max <= 1e-3; the
+    uncertainty (a windowed probability mass) mean |diff| <= 1e-4 and
     |diff| > 1e-3 on at most 1% of the pixels."""
     sample = _family_sample(6, 128, 192)
-    before = homography_group_cost.launches, fused_soft_argmin.launches
-    pred_g, _ = create_model("vis_mvsnet", device="cuda").run(**sample)
-    assert (homography_group_cost.launches, fused_soft_argmin.launches) == (before[0] + 6, before[1] + 6)
-    pred_c, _ = create_model("vis_mvsnet", device="cpu").run(**sample)
+    kernels = (homography_group_cost, fused_soft_argmin, conv3d_banded)
+    before = [k.launches for k in kernels]
+    pred_g, _ = create_model("vis_mvsnet", device="cuda", conv3d_impl=conv3d_impl).run(**sample)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [6, 6, k5_launches]
+    pred_c, _ = create_model("vis_mvsnet", device="cpu", conv3d_impl=conv3d_impl).run(**sample)
     g, c = pred_g["depth"], pred_c["depth"]
     assert g.shape == (1, 1, 64, 96)
     assert np.isfinite(c).all() and c.std() > 1e-3 * np.abs(c).mean()
@@ -294,3 +300,155 @@ def test_vis_mvsnet_on_card_matches_cpu(cuda):
     assert np.abs(g - c).mean() / scale <= 1e-4 and np.abs(g - c).max() / scale <= 1e-3
     diff = np.abs(pred_g["depth_uncertainty"] - pred_c["depth_uncertainty"])
     assert diff.mean() <= 1e-4 and (diff > 1e-3).mean() <= 0.01
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 8, 8, 6, 10, 8),  # (B, Cin, D, H, W, Cout): D, H, W not multiples of the tile
+    (1, 16, 9, 17, 40, 16),
+    (1, 6, 5, 8, 33, 4),  # Cin not a multiple of the 4-channel stage
+    (1, 8, 12, 10, 20, 1),  # a score head
+    (1, 64, 4, 6, 10, 64),  # four 16-channel output blocks
+    (2, 24, 4, 9, 70, 8),
+])
+@pytest.mark.parametrize("layout", ["ncdhw", "ndhwc", "ncdhw_strided"])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_k5_matches_plain_version(cuda, shape, layout, with_bias):
+    """Unit-scale inputs, kernels scaled by 1 / sqrt(27 Cin): atol 2e-5
+    (float32 sums over 27 Cin taps in another order). One source serves
+    both layouts and strided views through its element strides."""
+    B, Cin, D, H, W, Cout = shape
+    gen = torch.Generator(device=cuda).manual_seed(Cin * Cout)
+    x = torch.randn((B, Cin, D, H, W), generator=gen, device=cuda)
+    k = torch.randn((3, 3, 3, Cin, Cout), generator=gen, device=cuda) / (27 * Cin) ** 0.5
+    bias = torch.randn((Cout,), generator=gen, device=cuda) if with_bias else None
+    plain = conv3d_banded_reference(x.movedim(1, -1), k, bias)  # NDHWC
+    before = conv3d_banded.launches
+    if layout == "ndhwc":
+        out = conv3d_banded(x.movedim(1, -1).contiguous(), k, bias)
+    else:
+        if layout == "ncdhw_strided":  # a channel slice of a wider volume
+            x = torch.cat([x, torch.zeros_like(x[:, :3])], 1)[:, :Cin]
+        out = conv3d_banded(x, k, bias, channels_first=True).movedim(1, -1)
+    torch.cuda.synchronize()
+    assert conv3d_banded.launches == before + 1
+    torch.testing.assert_close(out, plain, atol=2e-5, rtol=0)
+    # and the plain version on the card is the one the CPU tests hold to JAX
+    cpu = conv3d_banded_reference(x.movedim(1, -1).cpu(), k.cpu(), None if bias is None else bias.cpu())
+    torch.testing.assert_close(plain.cpu(), cpu, atol=2e-5, rtol=0)
+
+
+def test_k5_backward_matches_plain_version(cuda):
+    """K5's backward (cuDNN's conv3d_input / conv3d_weight) against autograd
+    through the plain version: rtol 1e-4, atol 1e-4."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((2, 8, 6, 7, 12), generator=gen, device=cuda)
+    k = torch.randn((3, 3, 3, 8, 4), generator=gen, device=cuda) / 15
+    bias = torch.randn((4,), generator=gen, device=cuda)
+    grads = []
+    for fn in (lambda a, b, c: conv3d_banded(a, b, c, channels_first=True),
+               lambda a, b, c: conv3d_banded_reference(a.movedim(1, -1), b, c).movedim(-1, 1)):
+        leaves = [a.clone().requires_grad_() for a in (x, k, bias)]
+        (fn(*leaves) ** 2).sum().backward()
+        grads.append([a.grad for a in leaves])
+    for ours, ref in zip(*grads):
+        torch.testing.assert_close(ours, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_k5_rejects_non_float32(cuda):
+    x = torch.zeros((1, 4, 4, 4, 4), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        conv3d_banded(x, torch.zeros((3, 3, 3, 4, 2), device=cuda, dtype=torch.bfloat16))
+
+
+def _warp_inputs(seed, B=2, H=12, W=20, C=32, D=8):
+    """K4's arguments: a source camera shifted and turned from the key,
+    planes from 0.5 to 10 and one at depth 0 with no translation in the
+    second batch element (0/0 coordinates)."""
+    from scipy.spatial.transform import Rotation
+
+    rng = np.random.RandomState(seed)
+    src = rng.randn(B, H, W, C).astype(np.float32)
+    K = np.array([[0.8 * W, 0, W / 2], [0, 0.8 * W, H / 2], [0, 0, 1]], np.float32)
+    key, proj = np.tile(np.eye(4, dtype=np.float32), (2, B, 1, 1))
+    key[:, :3, :3] = K
+    for b in range(B):
+        pose = np.eye(4, dtype=np.float32)
+        pose[:3, :3] = Rotation.from_rotvec(rng.randn(3) * 0.05).as_matrix()
+        pose[:3, 3] = [0.3, 0.1, 0.0] if b == 0 else 0.0
+        proj[b, :3, :4] = K @ pose[:3, :4]
+    depth = np.tile(np.linspace(0.5, 10.0, D, dtype=np.float32), (B, 1))
+    depth[-1, 0] = 0.0
+    return [torch.from_numpy(a) for a in (src, proj, np.linalg.inv(key).astype(np.float32), depth)]
+
+
+@pytest.mark.parametrize("C", [32, 16, 8, 6])  # 6: one channel per lane (C % 4 != 0)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_matches_plain_version(cuda, C, dtype):
+    """float32 features atol 1e-6, bf16 features 1e-5 (the same op order,
+    no fused multiply-add); the out-of-map and 0/0 samples are zeros."""
+    src, proj, inv, depth = (a.to(cuda) for a in _warp_inputs(10, C=C))
+    src = src.to(dtype)
+    before = homo_warp_volume.launches
+    out = homo_warp_volume(src, proj, inv, depth)
+    torch.cuda.synchronize()
+    assert homo_warp_volume.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (2, 8, 12, 20, C)
+    plain = homo_warp_volume_reference(src, proj, inv, depth)
+    torch.testing.assert_close(out, plain, atol=1e-6 if dtype == torch.float32 else 1e-5, rtol=0)
+    assert torch.isfinite(out).all() and (out[-1, 0] == 0).all() and (out != 0).float().mean() > 0.3
+    # the plain version on the card is the one the CPU tests hold to JAX
+    cpu = homo_warp_volume_reference(*(a.cpu() for a in (src, proj, inv, depth)))
+    torch.testing.assert_close(plain.cpu(), cpu, atol=1e-6, rtol=0)
+
+
+def test_k4_unaligned_rows_take_one_channel_per_lane(cuda):
+    src, proj, inv, depth = (a.to(cuda) for a in _warp_inputs(11, C=16))
+    src_off = torch.empty(src.numel() + 1, device=cuda)[1:].view(src.shape).copy_(src)
+    out = homo_warp_volume(src_off, proj, inv, depth)
+    torch.testing.assert_close(out, homo_warp_volume_reference(src, proj, inv, depth), atol=1e-6, rtol=0)
+
+
+def test_k4_backward_matches_plain_version(cuda):
+    """K4's backward differentiates the plain version: the same gradients
+    for the features and the projections as autograd through it (no 0/0
+    plane: its coordinates' gradient is NaN in both)."""
+    src, proj, inv, depth = (a.to(cuda) for a in _warp_inputs(12, C=8))
+    depth[:, 0] = 0.25
+    weight = torch.randn((2, 8, 12, 20, 8), device=cuda)
+    grads = []
+    for fn in (homo_warp_volume, homo_warp_volume_reference):
+        leaves = [a.clone().requires_grad_() for a in (src, proj)]
+        (fn(leaves[0], leaves[1], inv, depth) * weight).sum().backward()
+        grads.append([a.grad for a in leaves])
+    for ours, ref in zip(*grads):
+        torch.testing.assert_close(ours, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name,kwargs,launches", [
+    ("mvsnet_train", {"conv3d_impl": "banded", "warp_impl": "xla"}, {"warp_volume": 2, "conv3d_banded": 4}),
+    ("cvp_mvsnet", {"conv3d_impl": "banded"}, {"sweep_warp": 5, "conv3d_banded": 40}),
+])
+def test_family_kernel_paths_on_card_match_cpu(cuda, name, kwargs, launches):
+    """K4's and K5's paths, card vs CPU, TF32 off, with the bounds of
+    ``test_family_on_card_matches_cpu``."""
+    from robustmvd_tpu_torch.ops.kernels import KERNELS
+
+    sample = _family_sample(6, 128, 192)
+    before = {k: KERNELS[k].launches for k in launches}
+    pred_g, aux_g = create_model(name, device="cuda", **kwargs).run(**sample)
+    assert {k: KERNELS[k].launches - before[k] for k in launches} == launches
+    pred_c, aux_c = create_model(name, device="cpu", **kwargs).run(**sample)
+    g, c = pred_g["depth"], pred_c["depth"]
+    assert np.isfinite(c).all() and c.std() > 1e-3 * np.abs(c).mean()
+
+    def within(ours, ref, mean, mx):
+        scale = np.abs(ref).mean()
+        return np.abs(ours - ref).mean() / scale <= mean and np.abs(ours - ref).max() / scale <= mx
+
+    ug, uc = pred_g["depth_uncertainty"], pred_c["depth_uncertainty"]
+    if name == "cvp_mvsnet":
+        assert within(aux_g["depths_all"][-1], aux_c["depths_all"][-1], 1e-4, 1e-3)
+        assert within(g, c, 1e-2, 5e-2) and within(ug, uc, 1e-2, 5e-2)
+    else:
+        assert within(g, c, 1e-4, 1e-3)
+        assert (np.abs(ug - uc) <= 1e-4 * np.abs(uc).mean()).mean() >= 0.99

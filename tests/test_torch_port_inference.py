@@ -8,6 +8,7 @@ model test's bound (per-pixel relative depth error, mean <= 1e-4 where
 invdepth > 0). The PNGs are the JAX package's ``vis`` pixel for pixel.
 """
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -153,6 +154,18 @@ def test_mvsnet_cli_agrees_with_jax(mvsnet_cli_run):
     assert rel.mean() <= 1e-5 and rel.max() <= 1e-4, (rel.mean(), rel.max())
 
 
+def pinned_threads_env():
+    """Pin this process's CPU thread count and give the CLI subprocess the
+    same count, with MKL's dynamic thread choice off in both
+    (``torch.set_num_threads`` turns it off here, ``MKL_DYNAMIC`` there).
+    oneDNN's convolutions split their sums by the thread count, and
+    vis_mvsnet's random-weight cascade turns those rounding differences
+    into depth differences of ~1e-3 relative."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(n)
+    return {**os.environ, "OMP_NUM_THREADS": str(n), "MKL_NUM_THREADS": str(n), "MKL_DYNAMIC": "FALSE"}
+
+
 @pytest.fixture(scope="module")
 def vis_cli_run(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("inference_vis")
@@ -165,6 +178,7 @@ def vis_cli_run(tmp_path_factory):
          "--input_path", str(SAMPLE), "--output_path", str(out), "--weights", str(weights),
          "--device", "cpu"],
         cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env=pinned_threads_env(),
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     return model, out
@@ -172,7 +186,8 @@ def vis_cli_run(tmp_path_factory):
 
 def test_vis_cli_writes_what_model_run_gives(vis_cli_run):
     """vis_mvsnet through the CLI (full width, 1+3 views, depth range
-    defaulting to 0.2..100) equals ``model.run``: depth at half the input
+    defaulting to 0.2..100) equals ``model.run`` with the same pinned CPU
+    thread count (``pinned_threads_env``): depth at half the input
     resolution, resized back."""
     model, out = vis_cli_run
     sample, h, w = load_data(str(SAMPLE))

@@ -1,7 +1,10 @@
 """The port stands alone: no JAX, no flax, nothing of robustmvd_tpu.
 
 - Importing ``robustmvd_tpu_torch`` and running each model on the CPU, in a
-  fresh interpreter, loads none of them.
+  fresh interpreter, loads none of them: each model at its defaults, then
+  the family on the K4 and K5 paths (``ops/kernels/warp_volume.py``,
+  ``ops/kernels/conv3d.py``, ``ops/conv3d.py``) and vis_mvsnet on cuDNN's
+  convolutions.
 - No source file of the package, nor ``chip_smoke.py``, imports them or
   names them in a string (``importlib`` style).
 - Entry points default to the card and raise, naming ``device='cpu'``,
@@ -37,11 +40,16 @@ rng = np.random.RandomState(0)
 images = [rng.rand(3, 64, 64).astype(np.float32) * 255 for _ in range(2)]
 K = np.array([[50, 0, 32], [0, 50, 32], [0, 0, 1]], np.float32)
 T = np.eye(4, dtype=np.float32); T[0, 3] = 0.1
-for name, shape in (("robust_mvd", (1, 32, 32)), ("mvsnet_train", (1, 16, 16)), ("cvp_mvsnet", (1, 64, 64)),
-                    ("vis_mvsnet", (1, 32, 32))):
-    model = r.create_model(name, device="cpu", **({"nscale": 3} if name == "cvp_mvsnet" else {}))
+runs = (("robust_mvd", {}, (1, 32, 32)), ("mvsnet_train", {}, (1, 16, 16)),
+        ("cvp_mvsnet", {"nscale": 3}, (1, 64, 64)), ("vis_mvsnet", {}, (1, 32, 32)),
+        # the family on K4's and K5's paths (plain versions here) and vis on cuDNN's convolutions
+        ("mvsnet_train", {"conv3d_impl": "banded", "warp_impl": "xla"}, (1, 16, 16)),
+        ("cvp_mvsnet", {"nscale": 3, "conv3d_impl": "banded"}, (1, 64, 64)),
+        ("vis_mvsnet", {"conv3d_impl": "xla"}, (1, 32, 32)))
+for name, kwargs, shape in runs:
+    model = r.create_model(name, device="cpu", **kwargs)
     pred, _ = model.run(images=images, keyview_idx=0, poses=[np.eye(4, dtype=np.float32), T], intrinsics=[K, K])
-    assert pred["depth"].shape == shape, (name, pred["depth"].shape)
+    assert pred["depth"].shape == shape, (name, kwargs, pred["depth"].shape)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
 print("LOADED", bad)
 """ % (FORBIDDEN,)
