@@ -45,7 +45,10 @@ CUDA toolkit (``nvcc``). Phases, each printing one JSON line:
 8. K5/K4:   K5 (3x3x3 stride-1 conv) on NCDHW volumes at the shapes of
             mvsnet_train's CostRegNet (conv3d_impl="banded") and of
             vis_mvsnet's stage-3 regularisers, held against its plain version,
-            timed beside the bound and F.conv3d (cuDNN, TF32 off and on); K4
+            timed beside the bound of the path it took (3xTF32 tensor cores
+            for Cout > 4, CUDA cores for the score heads) and F.conv3d
+            (cuDNN, TF32 off and on), and required to beat F.conv3d fp32 at
+            mvsnet's conv4 and conv6; K4
             (materialised homo_warp volume) with f32 and bf16 features at
             mvsnet's (1, 256, 96, 320, 32), beside F.grid_sample. Card-vs-CPU
             parity also covers mvsnet_train with conv3d_impl="banded",
@@ -71,6 +74,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12  # H100 SXM data sheet, dense TF32 on the tensor cores
 MODEL_BOUNDS = (1e-4, 1e-3)  # mean, max relative error (tests/test_torch_port_model.py)
 K2_LIMIT = 1e-5  # K2 (both modes) vs its plain version: the same op order, no fused multiply-add
 # K3 vs its plain version (torch.softmax and sums over D in another order,
@@ -423,26 +427,40 @@ K5_CASES = {
     "vis_stage3_reg": ((2, 8, 16, 192, 640), 8, False),
     "vis_stage3_dec_2_post": ((2, 16, 16, 192, 640), 8, False),
 }
+# the shapes where K5 on the CUDA cores alone was slower than cuDNN fp32 (1.7x, 2.6x)
+K5_MUST_BEAT_LIBRARY = ("mvsnet_conv4", "mvsnet_conv6")
 
 
 def k5_bound(x, cout, bias):
     """Least time for K5: input, weights and output moved once at the HBM
     rate, against 54 Cin Cout flops per output voxel (+ the bias add) at the
-    f32 rate."""
+    rate of the arithmetic that gives a float32-accurate result on the path
+    the kernel takes for Cout (``conv3d_banded_path``): the f32 rate on the
+    CUDA cores (``ops_f32_ms``, also reported for the tensor-core path, as
+    the bound of earlier rows), 3 TF32 products per f32 product at the TF32
+    rate on the tensor cores (``ops_tc_ms``)."""
+    from robustmvd_tpu_torch.ops.kernels.conv3d import conv3d_banded_path
+
     B, cin, D, H, W = x.shape
     voxels = B * D * H * W
     nbytes = 4 * (x.numel() + 27 * cin * cout + voxels * cout + (cout if bias else 0))
     flops = voxels * cout * (54 * cin + (1 if bias else 0))
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOPS_PER_S * 1e3
-    return {"bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    ops_f32_ms = flops / F32_FLOPS_PER_S * 1e3
+    ops_tc_ms = 3 * flops / TF32_FLOPS_PER_S * 1e3
+    path = conv3d_banded_path(cout)
+    ops_ms = ops_tc_ms if path == "tf32x3_mma" else ops_f32_ms
+    return {"path": path, "bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms, "ops_f32_ms": ops_f32_ms,
+            "ops_tc_ms": ops_tc_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 def phase_kernel_k5():
     """K5 on NCDHW volumes (the family's layout) against its plain version
     (27 shifted NDHWC channel contractions); yardstick ``F.conv3d`` (cuDNN)
-    with TF32 off and, as a second figure, on."""
+    with TF32 off and, as a second figure, on. Fails if K5 is slower than
+    ``F.conv3d`` fp32 at the two shapes where the CUDA-core kernel lost
+    (``K5_MUST_BEAT_LIBRARY``), after printing the times."""
     import torch
     import torch.nn.functional as F
 
@@ -453,7 +471,9 @@ def phase_kernel_k5():
     for case, (shape, cout, with_bias) in K5_CASES.items():
         cin = shape[1]
         x = torch.randn(shape, generator=gen, device="cuda")
-        k = torch.randn((3, 3, 3, cin, cout), generator=gen, device="cuda") / (27 * cin) ** 0.5
+        # an nn.Conv3d weight seen as DHWIO, as ops/conv3d.py passes it
+        weight = torch.randn((cout, cin, 3, 3, 3), generator=gen, device="cuda") / (27 * cin) ** 0.5
+        k = weight.permute(2, 3, 4, 1, 0)
         bias = torch.randn((cout,), generator=gen, device="cuda") if with_bias else None
         set_tf32(False)
         out = conv3d_banded(x, k, bias, channels_first=True)
@@ -463,7 +483,6 @@ def phase_kernel_k5():
         if not (err <= K5_LIMIT and torch.isfinite(out).all()):
             raise AssertionError(f"K5 {case} disagrees with its plain version: max_abs_err {err} > {K5_LIMIT}")
         del plain
-        weight = k.permute(4, 3, 0, 1, 2).contiguous()  # (Cout, Cin, 3, 3, 3)
 
         def library():
             return F.conv3d(x, weight, bias, padding=1)
@@ -482,6 +501,10 @@ def phase_kernel_k5():
         }
         torch.cuda.empty_cache()
     emit("kernel", name="conv3d_banded", layout="NCDHW", **results)
+    slower = {case: (results[case]["ms"], results[case]["library_ms"]) for case in K5_MUST_BEAT_LIBRARY
+              if results[case]["ms"] >= results[case]["library_ms"]}
+    if slower:
+        raise AssertionError(f"K5 slower than F.conv3d fp32 (ms, library ms): {slower}")
     return results
 
 
@@ -1259,7 +1282,8 @@ def main():
         "bound_by": k5_main["bound_by"],
         "library_ms": k5_main["library_ms"],  # F.conv3d (cuDNN), TF32 off
         "library_tf32_ms": k5_main["library_tf32_ms"],
-        "cases": {case: {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "library_tf32_ms",
+        "path": k5_main["path"],
+        "cases": {case: {k: r[k] for k in ("path", "max_abs_err", "ms", "plain_ms", "library_ms", "library_tf32_ms",
                                            "bound_ms", "bound_by")} for case, r in k5.items()},
     }, {
         "name": "warp_volume",

@@ -18,8 +18,10 @@ raises, as a ``torch.autograd.Function`` whose backward is
 differentiates the XLA conv; there is no backward kernel). For a CPU tensor
 it computes the same function with :func:`conv3d_banded_reference`, the
 plain torch version (27 shifted taps, each a channel contraction, summed in
-float32), which is also what the kernel is held against. The kernel's
-source note says what bounds it.
+float32), which is also what the kernel is held against. On the card,
+more than 4 output channels run on the tensor cores (TF32 products in the
+3xTF32 split, float32-accurate), the score heads on the CUDA cores; the
+kernel's source note says what bounds each.
 """
 
 from __future__ import annotations
@@ -89,6 +91,15 @@ def conv3d_banded(x, kernel, bias=None, channels_first=False):
 
 
 conv3d_banded.launches = 0
+
+
+def conv3d_banded_path(cout):
+    """The kernel's route for ``cout`` output channels, as its C entry takes
+    it: ``"cuda_cores"`` (the score heads) or ``"tf32x3_mma"`` (the tensor
+    cores). Builds the kernel if it is not built."""
+    fn = build.load(_NAME).conv3d_banded_route
+    fn.argtypes, fn.restype = [ctypes.c_int32], ctypes.c_int
+    return "tf32x3_mma" if fn(cout) else "cuda_cores"
 
 
 def _axes(t, channels_first):

@@ -24,7 +24,7 @@ from robustmvd_tpu_torch.ops.kernels.sweep_group_cost import (
     homography_group_cost_reference,
 )
 from robustmvd_tpu_torch.ops.kernels.sweep_warp import sweep_variance, sweep_variance_reference
-from robustmvd_tpu_torch.ops.kernels.conv3d import conv3d_banded, conv3d_banded_reference
+from robustmvd_tpu_torch.ops.kernels.conv3d import conv3d_banded, conv3d_banded_path, conv3d_banded_reference
 from robustmvd_tpu_torch.ops.kernels.warp_volume import homo_warp_volume, homo_warp_volume_reference
 
 pytestmark = pytest.mark.cuda
@@ -305,16 +305,28 @@ def test_vis_mvsnet_on_card_matches_cpu(cuda, conv3d_impl, k5_launches):
 @pytest.mark.parametrize("shape", [
     (2, 8, 8, 6, 10, 8),  # (B, Cin, D, H, W, Cout): D, H, W not multiples of the tile
     (1, 16, 9, 17, 40, 16),
-    (1, 6, 5, 8, 33, 4),  # Cin not a multiple of the 4-channel stage
-    (1, 8, 12, 10, 20, 1),  # a score head
-    (1, 64, 4, 6, 10, 64),  # four 16-channel output blocks
+    (1, 6, 5, 8, 33, 4),  # Cin not a multiple of the 4-channel stage (CUDA cores)
+    (1, 8, 12, 10, 20, 1),  # a score head (CUDA cores)
+    (1, 64, 4, 6, 10, 64),  # two 32-channel output tiles
     (2, 24, 4, 9, 70, 8),
+    # the channel pairs of chip_smoke.py's K5_CASES at reduced volumes; W % 4
+    # == 0 takes 16-byte halo copies in NCDHW, other W element copies
+    (1, 16, 6, 9, 21, 16),
+    (1, 32, 5, 6, 20, 32),
+    (1, 64, 6, 5, 11, 64),
+    (1, 8, 7, 6, 19, 1),
+    (2, 8, 5, 12, 28, 8),
+    (2, 16, 5, 12, 28, 8),
+    (1, 64, 5, 7, 13, 40),  # ragged M-tile (W = 13) and N-tile (40 = 32 + 8) edges
+    (1, 12, 6, 7, 18, 16),  # Cin not a multiple of the 8-channel mma chunk (tensor cores)
+    (1, 32, 64, 24, 80, 32),  # mvsnet's conv4 at full size: Cout > 16 on the wide tile (small volumes: narrow)
 ])
 @pytest.mark.parametrize("layout", ["ncdhw", "ndhwc", "ncdhw_strided"])
 @pytest.mark.parametrize("with_bias", [False, True])
 def test_k5_matches_plain_version(cuda, shape, layout, with_bias):
     """Unit-scale inputs, kernels scaled by 1 / sqrt(27 Cin): atol 2e-5
-    (float32 sums over 27 Cin taps in another order). One source serves
+    (float32 sums over 27 Cin taps in another order; for Cout > 4 the
+    tensor cores' 3xTF32 products keep ~21 bits each). One source serves
     both layouts and strided views through its element strides."""
     B, Cin, D, H, W, Cout = shape
     gen = torch.Generator(device=cuda).manual_seed(Cin * Cout)
@@ -335,6 +347,55 @@ def test_k5_matches_plain_version(cuda, shape, layout, with_bias):
     # and the plain version on the card is the one the CPU tests hold to JAX
     cpu = conv3d_banded_reference(x.movedim(1, -1).cpu(), k.cpu(), None if bias is None else bias.cpu())
     torch.testing.assert_close(plain.cpu(), cpu, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 6, 9, 20, 8), (1, 16, 5, 7, 13, 16), (1, 64, 4, 6, 24, 64)])
+def test_k5_takes_an_nn_conv3d_weight(cuda, shape):
+    """An nn.Conv3d weight, (Cout, Cin, 3, 3, 3) seen as DHWIO, has its taps
+    innermost: the kernel copies it in that order, with the same result."""
+    B, Cin, D, H, W, Cout = shape
+    gen = torch.Generator(device=cuda).manual_seed(Cin + Cout)
+    x = torch.randn((B, Cin, D, H, W), generator=gen, device=cuda)
+    weight = torch.randn((Cout, Cin, 3, 3, 3), generator=gen, device=cuda) / (27 * Cin) ** 0.5
+    k = weight.permute(2, 3, 4, 1, 0)
+    out = conv3d_banded(x, k, None, channels_first=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, conv3d_banded(x, k.contiguous(), None, channels_first=True), atol=0, rtol=0)
+    torch.testing.assert_close(out.movedim(1, -1), conv3d_banded_reference(x.movedim(1, -1), k), atol=2e-5, rtol=0)
+
+
+def test_k5_route_by_cout(cuda):
+    """The score heads (Cout <= 4) on the CUDA cores, every wider Cout on
+    the tensor cores, as the C entry dispatches."""
+    assert [conv3d_banded_path(c) for c in (1, 4, 5, 8, 64)] == ["cuda_cores"] * 2 + ["tf32x3_mma"] * 3
+
+
+@pytest.mark.parametrize("cout", [1, 16])  # the CUDA cores, the tensor cores
+@pytest.mark.parametrize("where", ["input", "weight"])
+def test_k5_keeps_non_finite_values(cuda, cout, where):
+    """A NaN made by the card (0/0, whose mantissa is all ones) and an inf,
+    in the input or in the weights, make the output non-finite exactly where
+    they make the plain version's (a non-finite weight reaches its whole
+    output channel: 0 * inf is NaN at the zero pad too); the finite rest is
+    within 2e-5."""
+    Cin, D, H, W = 12, 6, 7, 18
+    gen = torch.Generator(device=cuda).manual_seed(cout)
+    x = torch.randn((1, Cin, D, H, W), generator=gen, device=cuda)
+    weight = torch.randn((cout, Cin, 3, 3, 3), generator=gen, device=cuda) / (27 * Cin) ** 0.5
+    zero = torch.zeros((), device=cuda)
+    nan, inf = zero / zero, (zero + 1) / zero
+    if where == "input":
+        x[0, 3, 2, 3, 5], x[0, 7, 4, 6, 12] = nan, -inf
+    else:
+        weight[0, 2, 1, 1, 1], weight[-1, 9, 0, 2, 0] = nan, inf
+    k = weight.permute(2, 3, 4, 1, 0)
+    out = conv3d_banded(x, k, None, channels_first=True).movedim(1, -1)
+    plain = conv3d_banded_reference(x.movedim(1, -1), k)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(plain)
+    assert not finite.all() and (finite.any() or (cout, where) == (1, "weight"))
+    assert torch.equal(torch.isfinite(out), finite)
+    torch.testing.assert_close(out[finite], plain[finite], atol=2e-5, rtol=0)
 
 
 def test_k5_backward_matches_plain_version(cuda):
