@@ -37,7 +37,9 @@ CUDA toolkit (``nvcc``). Phases, each printing one JSON line:
             at vis_mvsnet's three stage shapes and K3 (fused soft-argmin) at
             its pair and fused readout shapes, each held against its plain
             version on the card, timed beside the bound, the grid_sample
-            route (K2 group) and torch.softmax (K3); vis_mvsnet on the card
+            route (K2 group) and torch.softmax (K3, with the route its C
+            entry takes for D, and required to beat torch.softmax at the
+            stage-3 pair readout); vis_mvsnet on the card
             vs the CPU (128x192, TF32 off, cuDNN deterministic) with K5 and
             with cuDNN's 3D convolutions; the CLI with vis_mvsnet on
             sample_data/, and ``model.run`` at 384x1280 with 1+2 views, with
@@ -50,7 +52,8 @@ CUDA toolkit (``nvcc``). Phases, each printing one JSON line:
             (cuDNN, TF32 off and on), and required to beat F.conv3d fp32 at
             mvsnet's conv4 and conv6; K4
             (materialised homo_warp volume) with f32 and bf16 features at
-            mvsnet's (1, 256, 96, 320, 32), beside F.grid_sample. Card-vs-CPU
+            mvsnet's (1, 256, 96, 320, 32), beside F.grid_sample, and
+            required to beat it with f32 features. Card-vs-CPU
             parity also covers mvsnet_train with conv3d_impl="banded",
             warp_impl="xla" and cvp_mvsnet with "banded"; vis_mvsnet's default
             runs K5. The main paths add mvsnet_train on K4 + K5 and vis_mvsnet
@@ -542,7 +545,8 @@ def k4_bound(src, depth):
 def phase_kernel_k4():
     """K4 with float32 and bf16 features against its plain version; the
     yardstick is one ``F.grid_sample`` (zeros padding, align_corners=False)
-    at the same coordinates, from an NCHW map into an NCHW volume."""
+    at the same coordinates, from an NCHW map into an NCHW volume. Fails if
+    K4 with f32 features is slower than it, after printing the times."""
     import torch
     import torch.nn.functional as F
 
@@ -587,6 +591,9 @@ def phase_kernel_k4():
     results["bf16"]["library_ms"] = None  # grid_sample would round the grid to bf16 too
     emit("kernel", name="warp_volume", **results)
     torch.cuda.empty_cache()
+    if not results["f32"]["ms"] < results["f32"]["library_ms"]:
+        raise AssertionError(f"K4 f32 {results['f32']['ms']} ms is slower than F.grid_sample f32 "
+                             f"{results['f32']['library_ms']} ms")
     return results
 
 
@@ -957,11 +964,17 @@ def phase_kernel_k3():
     """K3 at vis_mvsnet's readout shapes at 384x1280 with 1+2 views: the
     pair readout (2, D, h, w) and the fused one (1, D, h, w) of each stage.
     prob, expectation and entropy are held at K3_LIMITS; the window mass
-    may differ on FLIPPED_SHARE of the pixels (the mask flips at ties)."""
+    may differ on FLIPPED_SHARE of the pixels (the mask flips at ties).
+    Fails if K3 is slower than ``torch.softmax`` alone at the stage-3 pair
+    readout, after printing the times."""
     import torch
 
     from robustmvd_tpu_torch.models.vis_mvsnet import DEPTH_NUMS, FEATURE_STRIDES
-    from robustmvd_tpu_torch.ops.kernels.soft_argmin import fused_soft_argmin, fused_soft_argmin_reference
+    from robustmvd_tpu_torch.ops.kernels.soft_argmin import (
+        fused_soft_argmin,
+        fused_soft_argmin_reference,
+        soft_argmin_route,
+    )
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     results = {}
@@ -979,7 +992,8 @@ def phase_kernel_k3():
                 raise AssertionError(f"K3 stage {stage} {readout} disagrees with its plain version: {errs}, "
                                      f"mask flipped on {flipped} of the pixels")
             results[f"stage{stage}_{readout}"] = {
-                "shape": list(vol.shape), "max_abs_err": max(errs[k] for k in limits), "errors": errs,
+                "shape": list(vol.shape), "path": soft_argmin_route(D),
+                "max_abs_err": max(errs[k] for k in limits), "errors": errs,
                 "limits": limits, "prob_map_flipped_share": flipped,
                 "ms": time_ms(lambda: fused_soft_argmin(vol, window=2)),
                 "plain_ms": time_ms(lambda: fused_soft_argmin_reference(vol, window=2), runs=10, warmup=2),
@@ -987,6 +1001,10 @@ def phase_kernel_k3():
                 **k3_bound(vol),
             }
     emit("kernel", name="soft_argmin", **results)
+    pair = results["stage3_pair"]
+    if not pair["ms"] < pair["library_ms"]:
+        raise AssertionError(f"K3 at the stage-3 pair {pair['ms']} ms is slower than torch.softmax "
+                             f"{pair['library_ms']} ms")
     return results
 
 
@@ -1146,7 +1164,7 @@ def kernel_kind(name):
         return "k2_sweep_warp"
     if "homography_group_cost" in name:
         return "k2_group_cost"
-    if "soft_argmin_kernel" in name:
+    if "soft_argmin_" in name:
         return "k3_soft_argmin"
     if "HtoD" in name or "DtoH" in name:
         return "memcpy_" + ("h2d" if "HtoD" in name else "d2h")
@@ -1265,8 +1283,9 @@ def main():
         "bound_ms": k3["stage3_pair"]["bound_ms"],
         "bound_by": k3["stage3_pair"]["bound_by"],
         "library_ms": k3["stage3_pair"]["library_ms"],  # torch.softmax over D alone
-        "cases": {case: {k: r[k] for k in ("max_abs_err", "prob_map_flipped_share", "ms", "plain_ms", "library_ms",
-                                           "bound_ms", "bound_by")} for case, r in k3.items()},
+        "path": k3["stage3_pair"]["path"],
+        "cases": {case: {k: r[k] for k in ("path", "max_abs_err", "prob_map_flipped_share", "ms", "plain_ms",
+                                           "library_ms", "bound_ms", "bound_by")} for case, r in k3.items()},
     }, {
         "name": "conv3d_banded",
         "route": "cuda",

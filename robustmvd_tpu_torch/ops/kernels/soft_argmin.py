@@ -70,6 +70,16 @@ def fused_soft_argmin(volume, window=2):
 fused_soft_argmin.launches = 0
 
 
+def soft_argmin_route(D):
+    """The kernel's route for ``D`` hypotheses, as its C entry takes it:
+    ``"registers"`` (compile-time D, each pixel's column in registers) or
+    ``"generic"`` (four passes over D). Builds the kernel if it is not
+    built."""
+    fn = build.load(_NAME).soft_argmin_route
+    fn.argtypes, fn.restype = [ctypes.c_int32], ctypes.c_int
+    return "registers" if fn(D) else "generic"
+
+
 def _entry():
     fn = build.load(_NAME).soft_argmin
     if fn.argtypes is None:

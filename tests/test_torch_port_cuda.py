@@ -18,7 +18,11 @@ from robustmvd_tpu_torch.ops.kernels.planesweep_sample import (
     planesweep_sample_reference,
 )
 from robustmvd_tpu_torch.ops.homography import get_homography_coeffs, matmul_sums
-from robustmvd_tpu_torch.ops.kernels.soft_argmin import fused_soft_argmin, fused_soft_argmin_reference
+from robustmvd_tpu_torch.ops.kernels.soft_argmin import (
+    fused_soft_argmin,
+    fused_soft_argmin_reference,
+    soft_argmin_route,
+)
 from robustmvd_tpu_torch.ops.kernels.sweep_group_cost import (
     homography_group_cost,
     homography_group_cost_reference,
@@ -279,6 +283,58 @@ def test_k3_matches_plain_version(cuda, shape):
     assert ((out[3] - plain[3]).abs() > 1e-5).float().mean() <= 0.01
 
 
+def _k3_limits_hold(out, plain):
+    """chip_smoke.py's K3_LIMITS: prob atol 1e-6, expectation 1e-5 + 1e-6 D
+    (it reaches D - 1; sums over D in another order), entropy 1e-5; the
+    window mass off by more than 1e-5 on at most 1% of the pixels."""
+    D = out[0].shape[1]
+    for a, b, atol in zip(out[:3], plain[:3], (1e-6, 1e-5 + 1e-6 * D, 1e-5)):
+        torch.testing.assert_close(a, b, atol=atol, rtol=0)
+    assert ((out[3] - plain[3]).abs() > 1e-5).float().mean() <= 0.01
+
+
+@pytest.mark.parametrize("D,route", [(16, "registers"), (32, "registers"), (64, "registers"), (192, "generic"),
+                                     (8, "generic"), (48, "generic")])
+@pytest.mark.parametrize("B,H,W", [(2, 7, 13), (1, 12, 20), (2, 48, 160)])  # HW odd, even, a vis stage-1 map
+def test_k3_routes_match_plain_version(cuda, D, route, B, H, W):
+    """The register route (compile-time D) and the generic four-pass route,
+    as the C entry's route export names them, each within chip_smoke.py's
+    K3_LIMITS."""
+    assert soft_argmin_route(D) == route
+    gen = torch.Generator(device=cuda).manual_seed(D + H * W)
+    vol = torch.randn((B, D, H, W), generator=gen, device=cuda) * 3
+    before = fused_soft_argmin.launches
+    out = fused_soft_argmin(vol, window=2)
+    torch.cuda.synchronize()
+    assert fused_soft_argmin.launches == before + 1
+    assert [tuple(o.shape) for o in out] == [(B, D, H, W)] + [(B, 1, H, W)] * 3
+    _k3_limits_hold(out, fused_soft_argmin_reference(vol, window=2))
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 192])
+@pytest.mark.parametrize("HW_odd", [False, True])
+def test_k3_non_finite_columns_match_plain_version(cuda, D, HW_odd):
+    """A column with +inf, one with NaN and one with -inf beside finite
+    scores: every output is NaN exactly where the plain version's is (the
+    window mass multiplies by the mask, so a NaN column gives NaN there
+    too); the finite rest within the limits."""
+    H, W = (5, 7) if HW_odd else (4, 6)
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    vol = torch.randn((2, D, H, W), generator=gen, device=cuda) * 3
+    zero = torch.zeros((), device=cuda)
+    vol[0, 3, 1, 2] = (zero + 1) / zero
+    vol[1, D - 1, 2, 3] = zero / zero
+    vol[1, 0, 0, 0] = -(zero + 1) / zero
+    out = fused_soft_argmin(vol, window=2)
+    plain = fused_soft_argmin_reference(vol, window=2)
+    torch.cuda.synchronize()
+    for a, b in zip(out, plain):
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        assert torch.isnan(a).any()
+    finite = [torch.where(torch.isnan(a), torch.zeros_like(a), a) for a in out]
+    _k3_limits_hold(finite, [torch.where(torch.isnan(b), torch.zeros_like(b), b) for b in plain])
+
+
 @pytest.mark.parametrize("conv3d_impl,k5_launches", [("banded", 30), ("xla", 0)])
 def test_vis_mvsnet_on_card_matches_cpu(cuda, conv3d_impl, k5_launches):
     """Card vs CPU, TF32 off, 128x192 with 1+2 views, with each lowering of
@@ -421,15 +477,17 @@ def test_k5_rejects_non_float32(cuda):
         conv3d_banded(x, torch.zeros((3, 3, 3, 4, 2), device=cuda, dtype=torch.bfloat16))
 
 
-def _warp_inputs(seed, B=2, H=12, W=20, C=32, D=8):
-    """K4's arguments: a source camera shifted and turned from the key,
-    planes from 0.5 to 10 and one at depth 0 with no translation in the
-    second batch element (0/0 coordinates)."""
+def _warp_inputs(seed, B=2, H=12, W=20, C=32, D=8, focal=None):
+    """K4's arguments: a source camera shifted and turned from the key
+    (focal length 0.8 W unless given), planes from 0.5 to 10 and one at
+    depth 0 with no translation in the second batch element (0/0
+    coordinates)."""
     from scipy.spatial.transform import Rotation
 
     rng = np.random.RandomState(seed)
     src = rng.randn(B, H, W, C).astype(np.float32)
-    K = np.array([[0.8 * W, 0, W / 2], [0, 0.8 * W, H / 2], [0, 0, 1]], np.float32)
+    f = 0.8 * W if focal is None else focal
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
     key, proj = np.tile(np.eye(4, dtype=np.float32), (2, B, 1, 1))
     key[:, :3, :3] = K
     for b in range(B):
@@ -462,11 +520,50 @@ def test_k4_matches_plain_version(cuda, C, dtype):
     torch.testing.assert_close(plain.cpu(), cpu, atol=1e-6, rtol=0)
 
 
-def test_k4_unaligned_rows_take_one_channel_per_lane(cuda):
-    src, proj, inv, depth = (a.to(cuda) for a in _warp_inputs(11, C=16))
-    src_off = torch.empty(src.numel() + 1, device=cuda)[1:].view(src.shape).copy_(src)
+@pytest.mark.parametrize("shape", [dict(), dict(H=4, W=600, D=3, focal=16.0)])  # one row tile, two
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_unaligned_rows_take_one_channel_per_lane(cuda, shape, dtype):
+    """A map one element into its storage cannot be read in whole vectors:
+    the kernel takes one channel per element and agrees bit for bit."""
+    src, proj, inv, depth = (a.to(cuda) for a in _warp_inputs(11, C=16, **shape))
+    src = src.to(dtype)
+    src_off = torch.empty(src.numel() + 1, device=cuda, dtype=dtype)[1:].view(src.shape).copy_(src)
     out = homo_warp_volume(src_off, proj, inv, depth)
-    torch.testing.assert_close(out, homo_warp_volume_reference(src, proj, inv, depth), atol=1e-6, rtol=0)
+    assert torch.equal(out, homo_warp_volume_reference(src, proj, inv, depth))
+
+
+@pytest.mark.parametrize("W", [2, 13, 513])  # a row of two pixels, one odd tile, two tiles of 512 at most
+@pytest.mark.parametrize("C", [6, 8, 16, 32, 64])  # 6: one channel per element
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_row_tiles_match_plain_version(cuda, W, C, dtype):
+    """K4 walks each output row in tiles of at most 512 pixels: every W and
+    C gives the plain version's volume bit for bit (the same operations on
+    the same values), with float32 and bf16 features."""
+    # focal 20: samples shift by up to ~12 columns and ~1 row of the 5-row map
+    src, proj, inv, depth = (a.to(cuda) for a in _warp_inputs(W + C, B=2, H=5, W=W, C=C, D=3, focal=20.0))
+    src = src.to(dtype)
+    before = homo_warp_volume.launches
+    out = homo_warp_volume(src, proj, inv, depth)
+    torch.cuda.synchronize()
+    assert homo_warp_volume.launches == before + 1
+    plain = homo_warp_volume_reference(src, proj, inv, depth)
+    assert out.shape == (2, 3, 5, W, C) and torch.equal(out, plain)
+    assert (out[-1, 0] == 0).all() and (out != 0).any()
+
+
+def test_k4_at_mvsnet_shape_matches_plain_version_bit_for_bit(cuda):
+    """mvsnet_train's warp_impl="xla" volume, (1, 256, 96, 320, 32) float32
+    from a (1, 96, 320, 32) map: equal to the plain version; with bf16
+    features within 1e-5 (the same op order; equal in practice)."""
+    src, proj, inv, depth = (a.to(cuda) for a in _warp_inputs(14, B=1, H=96, W=320, C=32, D=256))
+    out = homo_warp_volume(src, proj, inv, depth)
+    torch.cuda.synchronize()
+    assert torch.equal(out, homo_warp_volume_reference(src, proj, inv, depth))
+    assert (out != 0).float().mean() > 0.3
+    del out
+    src16 = src.bfloat16()
+    torch.testing.assert_close(homo_warp_volume(src16, proj, inv, depth),
+                               homo_warp_volume_reference(src16, proj, inv, depth), atol=1e-5, rtol=0)
 
 
 def test_k4_backward_matches_plain_version(cuda):

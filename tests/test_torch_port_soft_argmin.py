@@ -44,6 +44,18 @@ def test_soft_argmin_matches_jax(rng, D, B, H, W, window):
     _check(ours, jax_reference(jnp.asarray(vol), window=window))
 
 
+# D on each side of the CUDA kernel's register route (D in 16, 32, 64), at
+# HW = 33: no multiple of 2 (its pixel pairs) or 4
+@pytest.mark.parametrize("D", [8, 48, 96, 256])
+@pytest.mark.parametrize("window", [1, 2])
+def test_soft_argmin_off_the_register_route_matches_jax(rng, D, window):
+    vol = (rng.randn(2, D, 3, 11) * 3).astype(np.float32)
+    ours = k3.fused_soft_argmin(t(vol), window=window)
+    assert [tuple(o.shape) for o in ours] == [(2, D, 3, 11)] + [(2, 1, 3, 11)] * 3
+    _check(ours, jax_fused_soft_argmin(jnp.asarray(vol), window=window, tile=128, interpret=True))
+    _check(ours, jax_reference(jnp.asarray(vol), window=window))
+
+
 def test_soft_argmin_peaked_and_flat_columns(rng):
     """A one-hot column (entropy 0, all the mass in the window) and a flat
     one (entropy log D, expectation (D - 1) / 2)."""

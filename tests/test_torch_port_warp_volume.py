@@ -10,6 +10,9 @@ motion; coordinates far outside the image, one plane at z = 1e-3):
   ulps from JAX's);
 - bfloat16 features against the TPU kernel ``homo_warp_pallas`` (interpret
   mode on the CPU): atol 1e-4, the JAX test's bound.
+The same bounds hold at the shapes where the CUDA kernel's row tiles split
+(``csrc/warp_volume.cu``: tiles of at most 512 pixels, C % 4 == 0 or one
+channel per element).
 """
 
 import jax.numpy as jnp
@@ -46,6 +49,57 @@ def _setup(rng, case, B=1, C=8):
 
 
 CASES = ["pose", "wide_span", "out_of_image"]
+
+
+def _row_setup(rng, H, W, D, C):
+    """(src, src_proj, ref_proj_inv, depths) as numpy for one (H, W, D, C):
+    a random source pose, D planes from 0.5 to 10."""
+    src = rng.rand(1, H, W, C).astype(np.float32)
+    K = np.array([[0.8 * W, 0, W / 2], [0, 0.8 * H, H / 2], [0, 0, 1]], np.float32)
+    projk = np.eye(4, dtype=np.float32)
+    projk[:3, :3] = K
+    projs = np.eye(4, dtype=np.float32)
+    projs[:3, :4] = K @ random_pose_np(rng, 0.15, 0.1)[:3, :4]
+    depths = np.linspace(0.5, 10.0, D, dtype=np.float32)[None]
+    return src, projs[None], np.linalg.inv(projk)[None].astype(np.float32), depths
+
+
+# (H, W, D): W prime, W one pixel longer than the kernel's 512-pixel tile, D = 1
+ROW_SHAPES = [(4, 37, 3), (3, 513, 2), (5, 20, 1)]
+
+
+@pytest.mark.parametrize("H,W,D", ROW_SHAPES)
+@pytest.mark.parametrize("C", [6, 64])  # 6: the kernel's one-channel route
+def test_plain_k4_float32_at_row_tiles_matches_jax_homo_warp(rng, H, W, D, C):
+    args = _row_setup(rng, H, W, D, C)
+    ours = homo_warp_volume(*(t(a) for a in args))
+    ref = np.asarray(jax_homo_warp(*(jnp.asarray(a) for a in args)))
+    assert ours.shape == ref.shape == (1, D, H, W, C)
+    np.testing.assert_allclose(ours.numpy(), ref, atol=1e-6, rtol=1e-6)
+    assert (ref != 0).mean() > 0.05
+
+
+@pytest.mark.parametrize("H,W,D", ROW_SHAPES)
+@pytest.mark.parametrize("C", [6, 64])
+def test_plain_k4_bfloat16_at_row_tiles_matches_jax_kernel(rng, H, W, D, C):
+    src, *rest = _row_setup(rng, H, W, D, C)
+    ref = np.asarray(homo_warp_pallas(jnp.asarray(src).astype(jnp.bfloat16), *(jnp.asarray(a) for a in rest)))
+    ours = homo_warp_volume(t(src).bfloat16(), *(t(a) for a in rest))
+    assert ours.dtype == torch.float32 and ours.shape == ref.shape
+    np.testing.assert_allclose(ours.numpy(), ref, atol=1e-4)
+    assert (ref != 0).mean() > 0.05
+
+
+def test_k4_one_pixel_wide_map_raises_as_jax(rng):
+    """W = 1 has no align_corners scale (W / (W - 1)): JAX's ``homo_warp``
+    and ``homo_warp_pallas`` raise ZeroDivisionError, and so does the port
+    before any kernel could launch."""
+    args = _row_setup(rng, 4, 1, 2, 8)
+    for fn in (jax_homo_warp, homo_warp_pallas):
+        with pytest.raises(ZeroDivisionError):
+            fn(*(jnp.asarray(a) for a in args))
+    with pytest.raises(ZeroDivisionError):
+        homo_warp_volume(*(t(a) for a in args))
 
 
 @pytest.mark.parametrize("case", CASES)

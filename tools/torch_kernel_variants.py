@@ -1,0 +1,224 @@
+#!/usr/bin/env python3
+"""Time design variants of the PyTorch port's K3 and K4 CUDA kernels on one GPU.
+
+    python3 tools/torch_kernel_variants.py [--baseline DIR] [--out FILE]
+
+Runs from the root of a checkout on a machine with a CUDA card and ``nvcc``.
+Builds copies of ``robustmvd_tpu_torch/csrc/soft_argmin.cu`` (K3) and
+``warp_volume.cu`` (K4), each with one constant changed (threads per block,
+K4's row tile), into ``build/variants/``; with
+``--baseline``, also the ``soft_argmin.cu`` and ``warp_volume.cu`` found in
+DIR (an earlier commit's sources). Each variant is loaded with ctypes in
+place of the built kernel, held against the plain version at
+``chip_smoke.py``'s shapes (K4 bit for bit at mvsnet's (1, 256, 96, 320, 32),
+f32 and bf16 features; K3 within ``K3_LIMITS`` at vis_mvsnet's six readout
+shapes) and timed with ``chip_smoke.time_ms``, twice, in the order
+A B C ... C B A. The library yardsticks (``F.grid_sample``, ``torch.softmax``)
+are timed in the same turns. K3 is also timed inside vis_mvsnet: its device
+time per frame in torch.profiler over ``model.run`` at 384x1280 with 1+2
+views (chip_smoke.py's main path), per variant, in the same order. Prints
+one JSON line per kernel and writes them to FILE (default
+``build/kernel_variants.jsonl``).
+"""
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402  (the shapes, limits and timer of the chip check)
+
+# variant -> {text in the source: its replacement}
+K4_VARIANTS = {
+    "tile128": {"constexpr int kMaxTile = 512;": "constexpr int kMaxTile = 128;"},
+    "tile256": {"constexpr int kMaxTile = 512;": "constexpr int kMaxTile = 256;"},
+    "threads256": {"constexpr int kThreads = 128;": "constexpr int kThreads = 256;"},
+    "threads512": {"constexpr int kThreads = 128;": "constexpr int kThreads = 512;"},
+}
+K3_VARIANTS = {
+    "threads64": {"constexpr int kThreads = 128;": "constexpr int kThreads = 64;"},
+    "threads256": {"constexpr int kThreads = 128;": "constexpr int kThreads = 256;"},
+}
+
+
+def build_variants(name, variants, baseline):
+    """{variant: library path}: the repo's source as "repo", each variant,
+    and the baseline's source; all compiled in parallel."""
+    from robustmvd_tpu_torch.ops.kernels import build
+
+    out_dir = ROOT / "build" / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    text = (build.CSRC_DIR / f"{name}.cu").read_text()
+    sources = {"repo": text}
+    for variant, edits in variants.items():
+        edited = text
+        for old, new in edits.items():
+            if old not in edited:
+                raise RuntimeError(f"{name} variant {variant}: {old!r} is not in the source")
+            edited = edited.replace(old, new)
+        sources[variant] = edited
+    if baseline:
+        sources["baseline"] = (Path(baseline) / f"{name}.cu").read_text()
+    procs = {}
+    for variant, src in sources.items():
+        cu, lib = out_dir / f"{name}_{variant}.cu", out_dir / f"lib{name}_{variant}.so"
+        cu.write_text(src)
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(cu)]
+        procs[variant] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs, ptxas = {}, {}
+    for variant, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name} {variant}:\n{log}")
+        libs[variant] = lib
+        ptxas[variant] = [line.split(":", 1)[1].strip() for line in log.splitlines() if "registers" in line]
+    return libs, ptxas
+
+
+def use(name, lib):
+    """Make the wrapper of kernel ``name`` call the library at ``lib``."""
+    from robustmvd_tpu_torch.ops.kernels import build
+
+    build._loaded[name] = ctypes.CDLL(str(lib))
+
+
+def in_turns(labels, time_one):
+    """{label: [ms first turn, ms second turn]}, in the order A B ... B A."""
+    times = {label: [] for label in labels}
+    for label in list(labels) + list(reversed(labels)):
+        times[label].append(time_one(label))
+    return times
+
+
+def k4(baseline):
+    import torch
+    import torch.nn.functional as F
+
+    from robustmvd_tpu_torch.ops.homography import plane_sweep_transform, sweep_coordinates
+    from robustmvd_tpu_torch.ops.kernels.warp_volume import homo_warp_volume, homo_warp_volume_reference
+
+    libs, ptxas = build_variants("warp_volume", K4_VARIANTS, baseline)
+    src32, proj, inv, depth = chip_smoke.k4_inputs(torch.device("cuda"))
+    B, H, W, C = src32.shape
+    D = depth.shape[1]
+    report = {"name": "warp_volume", "shape": [B, D, H, W, C], "ptxas": ptxas,
+              "bound": chip_smoke.k4_bound(src32, depth)}
+    for mode, src in (("f32", src32), ("bf16", src32.bfloat16())):
+        plain = homo_warp_volume_reference(src, proj, inv, depth)
+        for variant, lib in libs.items():
+            use("warp_volume", lib)
+            if not torch.equal(homo_warp_volume(src, proj, inv, depth), plain):
+                raise AssertionError(f"K4 {variant} {mode} differs from its plain version")
+        del plain
+        torch.cuda.empty_cache()
+
+        def time_one(variant):
+            use("warp_volume", libs[variant])
+            return chip_smoke.time_ms(lambda: homo_warp_volume(src, proj, inv, depth))
+
+        report[mode] = in_turns(list(libs), time_one)
+    rot, trans = plane_sweep_transform(proj, inv)
+    xi, yi = sweep_coordinates(rot, trans, depth, H, W, H, W)
+    grid = torch.stack([(2 * xi + 1) / W - 1, (2 * yi + 1) / H - 1], -1).reshape(B, D * H, W, 2)
+    src_c = src32.permute(0, 3, 1, 2).contiguous()
+    report["grid_sample_f32_ms"] = chip_smoke.time_ms(
+        lambda: F.grid_sample(src_c, grid, mode="bilinear", padding_mode="zeros", align_corners=False),
+        runs=10, warmup=2)
+    use("warp_volume", libs["repo"])
+    return report
+
+
+def k3(baseline):
+    import torch
+
+    from robustmvd_tpu_torch.models.vis_mvsnet import DEPTH_NUMS, FEATURE_STRIDES
+    from robustmvd_tpu_torch.ops.kernels.soft_argmin import fused_soft_argmin, fused_soft_argmin_reference
+
+    libs, ptxas = build_variants("soft_argmin", K3_VARIANTS, baseline)
+    report = {"name": "soft_argmin", "ptxas": ptxas, "cases": {}}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for stage, (D, stride) in enumerate(zip(DEPTH_NUMS, FEATURE_STRIDES), 1):
+        for readout, B in (("pair", 2), ("fused", 1)):
+            vol = torch.randn((B, D, 384 // stride, 1280 // stride), generator=gen, device="cuda") * 3
+            plain = fused_soft_argmin_reference(vol, window=2)
+            limits = (chip_smoke.K3_LIMITS[0], chip_smoke.K3_LIMITS[1] + 1e-6 * D, chip_smoke.K3_LIMITS[2])
+            for variant, lib in libs.items():
+                use("soft_argmin", lib)
+                out = fused_soft_argmin(vol, window=2)
+                errs = [float((a - b).abs().max()) for a, b in zip(out[:3], plain[:3])]
+                flipped = float(((out[3] - plain[3]).abs() > 1e-5).float().mean())
+                if not (all(e <= lim for e, lim in zip(errs, limits)) and flipped <= chip_smoke.FLIPPED_SHARE):
+                    raise AssertionError(f"K3 {variant} stage {stage} {readout}: {errs}, flipped {flipped}")
+
+            def time_one(variant):
+                if variant == "torch.softmax":
+                    return chip_smoke.time_ms(lambda: torch.softmax(vol, dim=1))
+                use("soft_argmin", libs[variant])
+                return chip_smoke.time_ms(lambda: fused_soft_argmin(vol, window=2))
+
+            report["cases"][f"stage{stage}_{readout}"] = {
+                "shape": list(vol.shape), "bound": chip_smoke.k3_bound(vol),
+                "ms": in_turns([*libs, "torch.softmax"], time_one)}
+    report["in_vis_mvsnet"] = k3_in_model(libs)
+    use("soft_argmin", libs["repo"])
+    return report
+
+
+def k3_in_model(libs, frames=5):
+    """{variant: [K3 device ms per frame, first and second turn]} over
+    vis_mvsnet frames at 384x1280, 1+2 views, from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import robustmvd_tpu_torch as rmvd
+
+    model = rmvd.create_model("vis_mvsnet")
+    sample = chip_smoke.sideways_sample(chip_smoke.np.random.RandomState(8), 384, 1280, 3)
+    chip_smoke.set_tf32(False)
+
+    def time_one(variant):
+        use("soft_argmin", libs[variant])
+        model.run(**sample)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(frames):
+                model.run(**sample)
+            torch.cuda.synchronize()
+        us = 0.0
+        for e in prof.key_averages():
+            if "soft_argmin" in e.key:
+                dev_us = getattr(e, "self_device_time_total", None)
+                us += e.self_cuda_time_total if dev_us is None else dev_us
+        return us / 1e3 / frames
+
+    return in_turns(list(libs), time_one)
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--baseline", help="a directory with an earlier soft_argmin.cu and warp_volume.cu")
+    parser.add_argument("--out", default=str(ROOT / "build" / "kernel_variants.jsonl"))
+    args = parser.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_kernel_variants: no CUDA device", file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    with open(args.out, "w") as f:
+        for report in (k4(args.baseline), k3(args.baseline)):
+            line = json.dumps({"card": card, **report})
+            print(line, flush=True)
+            f.write(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
