@@ -20,7 +20,8 @@ CUDA toolkit (``nvcc``). Phases, each printing one JSON line:
             features, cvp's coarse level (R,t mode, D=48, 24x80, C=16) and
             its finest level (dense mode, D=8, 384x1280, C=16); each held
             against the plain torch version on the card; kernel, plain and
-            grid_sample-route times; the bound.
+            grid_sample-route times; the bound and the bound share; K2 must
+            beat its grid_sample route at mvsnet_f32.
 5. parity:  robust_mvd (64x128), mvsnet_train and cvp_mvsnet (128x160) on
             the card vs on the CPU, TF32 off, 1+2 views (the family with
             cuDNN's deterministic algorithms).
@@ -37,7 +38,8 @@ CUDA toolkit (``nvcc``). Phases, each printing one JSON line:
             at vis_mvsnet's three stage shapes and K3 (fused soft-argmin) at
             its pair and fused readout shapes, each held against its plain
             version on the card, timed beside the bound, the grid_sample
-            route (K2 group) and torch.softmax (K3, with the route its C
+            route (K2 group, with the bound share, and required to beat the
+            route at stage 3) and torch.softmax (K3, with the route its C
             entry takes for D, and required to beat torch.softmax at the
             stage-3 pair readout); vis_mvsnet on the card
             vs the CPU (128x192, TF32 off, cuDNN deterministic) with K5 and
@@ -413,8 +415,13 @@ def phase_kernel_k2():
             "grid_sample_route_max_abs_diff": route_diff,
             **k2_bound(ref, src, torch.float32, depth),
         }
+        results[case]["bound_share"] = results[case]["bound_ms"] / results[case]["ms"]
         torch.cuda.empty_cache()
     emit("kernel", name="sweep_warp", **results)
+    main = results["mvsnet_f32"]
+    if not main["ms"] < main["grid_sample_route_ms"]:
+        raise AssertionError(f"K2 at mvsnet_f32 ({main['ms']} ms) is slower than its grid_sample route "
+                             f"({main['grid_sample_route_ms']} ms)")
     return results
 
 
@@ -942,8 +949,13 @@ def phase_kernel_k2_group():
             "grid_sample_route_max_abs_diff": route_diff,
             **k2_group_bound(ref, src, w, 8),
         }
+        results[case]["bound_share"] = results[case]["bound_ms"] / results[case]["ms"]
         torch.cuda.empty_cache()
     emit("kernel", name="sweep_group_cost", **results)
+    main = results["stage3"]
+    if not main["ms"] < main["grid_sample_route_ms"]:
+        raise AssertionError(f"K2 group at stage3 ({main['ms']} ms) is slower than its grid_sample route "
+                             f"({main['grid_sample_route_ms']} ms)")
     return results
 
 
@@ -1226,6 +1238,7 @@ def main():
     print(json.dumps({"kernels": [{
         "name": "planesweep_sample",
         "route": "cuda",
+        "status": "ported",
         "source": "robustmvd_tpu_torch/csrc/planesweep_sample.cu",
         "replaces": "robustmvd_tpu/ops/pallas/planesweep_sample.py:55; "
                     "robustmvd_tpu/ops/pallas/planesweep_sample_v2.py:64",
@@ -1241,6 +1254,7 @@ def main():
     }, {
         "name": "sweep_warp",
         "route": "cuda",
+        "status": "redesigned",
         "source": "robustmvd_tpu_torch/csrc/sweep_warp.cu",
         "replaces": "robustmvd_tpu/ops/pallas/sweep_warp.py:287 (_call_sweep, kernel _sweep_kernel :179; "
                     "entries warp_variance :373, warp_variance_rt :446, warp_variance_dense :465)",
@@ -1254,10 +1268,11 @@ def main():
         "library_ms": None,  # no single PyTorch call computes it; the yardstick is the grid_sample route
         "grid_sample_route_ms": k2_main["grid_sample_route_ms"],
         "cases": {case: {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "grid_sample_route_ms", "bound_ms",
-                                           "bound_by")} for case, r in k2.items()},
+                                           "bound_by", "bound_share")} for case, r in k2.items()},
     }, {
         "name": "sweep_group_cost",
         "route": "cuda",
+        "status": "redesigned",
         "source": "robustmvd_tpu_torch/csrc/sweep_group_cost.cu",
         "replaces": "robustmvd_tpu/ops/pallas/sweep_warp.py:287 (_call_sweep, kernel _sweep_kernel :179, "
                     "agg='group'; entry homography_group_cost :579)",
@@ -1270,10 +1285,11 @@ def main():
         "library_ms": None,  # no single PyTorch call computes it; the yardstick is the grid_sample route
         "grid_sample_route_ms": k2g["stage3"]["grid_sample_route_ms"],
         "cases": {case: {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "grid_sample_route_ms", "bound_ms",
-                                           "bound_by")} for case, r in k2g.items()},
+                                           "bound_by", "bound_share")} for case, r in k2g.items()},
     }, {
         "name": "soft_argmin",
         "route": "cuda",
+        "status": "redesigned",
         "source": "robustmvd_tpu_torch/csrc/soft_argmin.cu",
         "replaces": "robustmvd_tpu/ops/pallas/softargmin.py:46 (fused_soft_argmin, pallas_call :92)",
         "launches": vis["banded"]["fp32"]["launches"]["soft_argmin"],
@@ -1289,6 +1305,7 @@ def main():
     }, {
         "name": "conv3d_banded",
         "route": "cuda",
+        "status": "redesigned",
         "source": "robustmvd_tpu_torch/csrc/conv3d_banded.cu",
         "replaces": "robustmvd_tpu/ops/pallas/conv3d.py:145 (conv3d_banded_pallas; _conv3d_banded_pallas :66, "
                     "pallas_call :101)",
@@ -1307,6 +1324,7 @@ def main():
     }, {
         "name": "warp_volume",
         "route": "cuda",
+        "status": "redesigned",
         "source": "robustmvd_tpu_torch/csrc/warp_volume.cu",
         "replaces": "robustmvd_tpu/ops/pallas/warp_volume.py:216 (homo_warp_pallas; _homo_warp_pallas :169, "
                     "pallas_call :197)",

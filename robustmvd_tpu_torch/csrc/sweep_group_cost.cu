@@ -19,35 +19,52 @@
 // semantics; rmvd's interpolate() clamps to +-1.1 of the map, which differs
 // only on maps narrower than about 10 px). Every product and sum is rounded
 // on its own (__fmul_rn, __fadd_rn: no fused multiply-add), in the order of
-// the plain torch version in ops/kernels/sweep_group_cost.py, so the card and
-// the CPU round alike. Non-finite coordinates become 1e9 (all taps outside),
-// and the floor is clamped to +-2^30 before the integer cast; tap offsets are
-// 64-bit.
+// the plain torch version in ops/kernels/sweep_group_cost.py (taps 00, 01,
+// 10, 11; the group's channels in order), so the card and the CPU round
+// alike. Non-finite coordinates become 1e9 (all taps outside, zeros out),
+// and the floor is clamped to +-2^30 before the integer cast.
 //
 // Bound: bytes. The output (B*D*H*W*G values), the per-pixel multipliers w
 // (B*D*H*W) and the key and source maps are each moved once at least; the
 // work is ~45 flops per pixel for the coordinates and weights plus ~9 per
 // channel, about 9 flops per output byte at C = 32, G = 8: below the ~20
-// flop/byte at which the H100's f32 rate binds.
+// flop/byte at which the H100's f32 rate binds. Behind the bytes, the four
+// tap gathers of every (pixel, plane) are served by L1 and L2.
 //
 // Design: the TPU kernel turns sampling into x-tent matmuls over bands of
-// source rows because a TPU cannot gather; Hopper gathers. A group of lanes
-// takes one output pixel, one lane per correlation group, and each lane sums
-// its group's channels in order, so no sum crosses lanes and the op order is
-// the plain version's. Where the group's channels allow whole vectors
-// (C/G % 4 == 0, 16-byte aligned maps) a lane loads four channels per 16-byte
-// load: at C = 32, G = 8 a lane's four channels are exactly its group, the 8
-// lanes of a pixel read each 128-byte tap row together and store the pixel's
-// 8 outputs as one 32-byte row. Otherwise a lane loads one channel at a time.
-// Each lane computes its pixel's coordinates itself (no shuffles). Pixel
-// indices are 32-bit; grid-stride loop over pixels.
+// source rows because a TPU cannot gather; Hopper gathers. A block takes one
+// tile of one key row and a chunk of kPlanes planes: the tile along W from
+// blockIdx.x (W split into equal tiles of at most kMaxTile pixels, fewer
+// for wide C), the row y from blockIdx.y and b with the chunk from
+// blockIdx.z, so no index is divided per pixel. Phase 1: the block copies
+// the tile's key features (one contiguous run of n * C floats) into shared
+// memory once for all of its planes, and one thread per (pixel, plane)
+// computes the homography taps once (four int32 offsets, -1 off the map,
+// and four weights) into shared memory. Phase 2: plane by plane, the
+// threads walk the plane's n * G outputs, one (pixel, group) each; a thread
+// reads the taps (a broadcast) and the group's key channels from shared
+// memory, gathers the group's channels of the four taps with __ldg (16-byte
+// vectors where C/G % 4 == 0 and the maps are aligned, else one channel at
+// a time), sums them in channel order and writes the result with a
+// streaming store (__stcs): the G outputs of a pixel are consecutive, so a
+// warp stores contiguous rows. Where the key tile cannot fit in shared
+// memory even at one pixel (C > ~12000), it is read from global memory
+// instead. Per-map offsets are 32-bit: Hs * Ws * C < 2^31 is required.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
+
+constexpr int kThreads = 128;
+constexpr int kMaxTile = 64;       // key pixels per block
+constexpr int kPlanes = 8;         // planes per block, the key's tile loaded once for all of them
+constexpr int kTileFloats = 2048;  // the key tile's size that sets the tile for wide C
+constexpr int kSmemBytes = 48 * 1024;
 
 template <int VEC>
 __device__ __forceinline__ void load(const float* p, float (&v)[VEC]);
@@ -61,17 +78,27 @@ __device__ __forceinline__ void load<4>(const float* p, float (&v)[4]) {
   v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
 }
 
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+// The key's channels from shared memory (or, for very wide C, global memory).
+template <int VEC>
+__device__ __forceinline__ void load_key(const float* p, float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  } else {
+    v[0] = *p;
+  }
+}
 
-struct Tap {
-  int64_t offset[4];  // element offsets of the taps (00, 01, 10, 11) into the source map
-  float weight[4];    // bilinear weights; a tap outside the map has offset -1
-};
+__device__ __forceinline__ void store_streaming(float* p, float v) { __stcs(p, v); }
+__device__ __forceinline__ void store_streaming(__nv_bfloat16* p, float v) {
+  __stcs(reinterpret_cast<unsigned short*>(p), __bfloat16_as_ushort(__float2bfloat16(v)));
+}
 
-// Coordinates and taps of one pixel, in the plain version's op order.
-__device__ __forceinline__ Tap homography_taps(const float* __restrict__ A, const float* __restrict__ Bm,
-                                               float w, float xf, float yf, int Hs, int Ws, int C) {
+// Taps of one pixel, in the plain version's op order: element offsets of
+// the taps (00, 01, 10, 11) into the source map, -1 for a tap off the map,
+// and the bilinear weights.
+__device__ __forceinline__ void homography_taps(const float (&A)[9], const float (&Bm)[9], float w, float xf,
+                                                float yf, int Hs, int Ws, int C, int4& offset, float4& weight) {
   float p[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
@@ -88,104 +115,153 @@ __device__ __forceinline__ Tap homography_taps(const float* __restrict__ A, cons
   const float x0f = floorf(xi), y0f = floorf(yi);
   const float wx = __fsub_rn(xi, x0f), wy = __fsub_rn(yi, y0f);
   const float lim = 1073741824.0f;  // 2^30
-  const int64_t x0 = (int64_t)fminf(fmaxf(x0f, -lim), lim);
-  const int64_t y0 = (int64_t)fminf(fmaxf(y0f, -lim), lim);
+  const int x0 = (int)fminf(fmaxf(x0f, -lim), lim);
+  const int y0 = (int)fminf(fmaxf(y0f, -lim), lim);
   const float ux = __fsub_rn(1.0f, wx), uy = __fsub_rn(1.0f, wy);
-  const float wt[4] = {__fmul_rn(ux, uy), __fmul_rn(wx, uy), __fmul_rn(ux, wy), __fmul_rn(wx, wy)};
-  Tap tap;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int64_t xk = x0 + (k & 1), yk = y0 + (k >> 1);
-    const bool in = xk >= 0 && xk <= Ws - 1 && yk >= 0 && yk <= Hs - 1;
-    tap.offset[k] = in ? (yk * Ws + xk) * C : -1;
-    tap.weight[k] = wt[k];
-  }
-  return tap;
+  weight = make_float4(__fmul_rn(ux, uy), __fmul_rn(wx, uy), __fmul_rn(ux, wy), __fmul_rn(wx, wy));
+  const bool x0_in = x0 >= 0 && x0 <= Ws - 1, x1_in = x0 >= -1 && x0 <= Ws - 2;
+  const bool y0_in = y0 >= 0 && y0 <= Hs - 1, y1_in = y0 >= -1 && y0 <= Hs - 2;
+  // modulo 2^32, exact for every tap on the map (Hs * Ws * C < 2^31)
+  const uint32_t base = ((uint32_t)y0 * (uint32_t)Ws + (uint32_t)x0) * (uint32_t)C;
+  const uint32_t below = (uint32_t)Ws * (uint32_t)C;
+  offset = make_int4(x0_in && y0_in ? (int)base : -1, x1_in && y0_in ? (int)(base + C) : -1,
+                     x0_in && y1_in ? (int)(base + below) : -1, x1_in && y1_in ? (int)(base + below + C) : -1);
 }
 
-// A group of `lanes` threads per output pixel, lane g summing group g (and
-// g + lanes, ... where G > lanes), VEC channels per load.
-template <typename TOut, int VEC>
-__global__ void homography_group_cost_kernel(const float* __restrict__ ref,  // (B, H, W, C)
-                                             const float* __restrict__ src,  // (B, Hs, Ws, C)
-                                             const float* __restrict__ A,    // (B, 3, 3)
-                                             const float* __restrict__ Bm,   // (B, 3, 3)
-                                             const float* __restrict__ w,    // (B, D, H, W)
-                                             TOut* __restrict__ out,         // (B, D, H, W, G)
-                                             uint32_t npix, uint32_t D, uint32_t H, uint32_t W, int Hs,
-                                             int Ws, int C, int G, int lanes_log2) {
-  const int lanes = 1 << lanes_log2;
-  const int lane = threadIdx.x & (lanes - 1);
+// KEY_SMEM: the key tile is copied to shared memory (else read in place).
+template <typename TOut, int VEC, bool KEY_SMEM>
+__global__ void __launch_bounds__(kThreads)
+homography_group_cost_kernel(const float* __restrict__ ref,  // (B, H, W, C)
+                             const float* __restrict__ src,  // (B, Hs, Ws, C)
+                             const float* __restrict__ A,    // (B, 3, 3)
+                             const float* __restrict__ Bm,   // (B, 3, 3)
+                             const float* __restrict__ w,    // (B, D, H, W)
+                             TOut* __restrict__ out,         // (B, D, H, W, G)
+                             int B, int D, int H, int W, int Hs, int Ws, int C, int G, int tile, int dblocks) {
+  // taps of (plane p, pixel i) at [p * tile + i], then the key tile (n * C floats)
+  extern __shared__ int4 smem[];
+  int4* tap_offset = smem;
+  float4* tap_weight = reinterpret_cast<float4*>(smem + kPlanes * tile);
+  float* key_tile = reinterpret_cast<float*>(tap_weight + kPlanes * tile);
+  const int y = blockIdx.y;
+  const int x0 = blockIdx.x * tile;
+  const int n = min(tile, W - x0);
   const int cg = C / G;
-  const uint32_t first = (uint32_t)(((uint64_t)blockIdx.x * blockDim.x + threadIdx.x) >> lanes_log2);
-  const uint32_t stride = (uint32_t)(((uint64_t)gridDim.x * blockDim.x) >> lanes_log2);
-  for (uint32_t p = first; p < npix; p += stride) {
-    const uint32_t x = p % W;
-    uint32_t t = p / W;
-    const uint32_t y = t % H;
-    const int64_t b = t / H / D;
-    const Tap tap = homography_taps(A + b * 9, Bm + b * 9, w[p], (float)x, (float)y, Hs, Ws, C);
-    const float* refp = ref + ((b * H + y) * W + x) * C;
-    const float* map = src + b * Hs * Ws * C;
-    for (int g = lane; g < G; g += lanes) {
-      float acc = 0.0f;
-      for (int c = g * cg; c < (g + 1) * cg; c += VEC) {
-        float r[VEC], warped[VEC];
-        load<VEC>(refp + c, r);
+  const int total = n * G;
+  // this thread's first (pixel, group) and its step of kThreads outputs
+  const int first_pixel = threadIdx.x / G, first_group = threadIdx.x % G;
+  const int step_pixel = kThreads / G, step_group = kThreads % G;
+  const float yf = (float)y;
+  for (int bz = blockIdx.z; bz < B * dblocks; bz += gridDim.z) {
+    const int b = bz / dblocks;
+    const int d0 = (bz - b * dblocks) * kPlanes;
+    const int planes = min(kPlanes, D - d0);
+    const int64_t bd0 = (int64_t)b * D + d0;
+    const float* key_row = ref + (((int64_t)b * H + y) * W + x0) * C;
+    if constexpr (KEY_SMEM) {
+      for (int e = threadIdx.x * VEC; e < n * C; e += kThreads * VEC) {
+        float v[VEC];
+        load<VEC>(key_row + e, v);
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          float a[VEC];
-          if (tap.offset[k] >= 0) {
-            load<VEC>(map + tap.offset[k] + c, a);
-          } else {
-#pragma unroll
-            for (int j = 0; j < VEC; ++j) a[j] = 0.0f;
-          }
-#pragma unroll
-          for (int j = 0; j < VEC; ++j) {
-            const float term = __fmul_rn(a[j], tap.weight[k]);
-            warped[j] = k == 0 ? term : __fadd_rn(warped[j], term);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          const float prod = __fmul_rn(r[j], warped[j]);
-          acc = (c + j == g * cg) ? prod : __fadd_rn(acc, prod);  // the group's first channel
-        }
+        for (int k = 0; k < VEC; ++k) key_tile[e + k] = v[k];
       }
-      store(out + (int64_t)p * G + g, acc);
     }
+    float Am[9], Bmm[9];
+#pragma unroll
+    for (int i = 0; i < 9; ++i) Am[i] = __ldg(A + b * 9 + i), Bmm[i] = __ldg(Bm + b * 9 + i);
+    for (int s = threadIdx.x; s < planes * n; s += kThreads) {
+      const int p = s / n, i = s - p * n;
+      const float wp = __ldg(w + ((bd0 + p) * H + y) * W + x0 + i);
+      homography_taps(Am, Bmm, wp, (float)(x0 + i), yf, Hs, Ws, C, tap_offset[p * tile + i],
+                      tap_weight[p * tile + i]);
+    }
+    __syncthreads();
+    const float* map = src + (int64_t)b * Hs * Ws * C;
+    const float* key = KEY_SMEM ? key_tile : key_row;
+    for (int p = 0; p < planes; ++p) {
+      TOut* run = out + ((bd0 + p) * H + y) * W * (int64_t)G + (int64_t)x0 * G;
+      int pixel = first_pixel, g = first_group;
+      for (int j = threadIdx.x; j < total; j += kThreads) {
+        const int4 o = tap_offset[p * tile + pixel];
+        const float4 w4 = tap_weight[p * tile + pixel];
+        const int offsets[4] = {o.x, o.y, o.z, o.w};
+        const float weights[4] = {w4.x, w4.y, w4.z, w4.w};
+        const int c0 = g * cg;
+        float acc = 0.0f;
+        for (int c = c0; c < c0 + cg; c += VEC) {
+          float r[VEC], a[4][VEC];
+          load_key<VEC>(key + pixel * C + c, r);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            if (offsets[k] >= 0) {
+              load<VEC>(map + offsets[k] + c, a[k]);
+            } else {
+#pragma unroll
+              for (int e = 0; e < VEC; ++e) a[k][e] = 0.0f;
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            float warped = __fmul_rn(a[0][e], weights[0]);
+#pragma unroll
+            for (int k = 1; k < 4; ++k) warped = __fadd_rn(warped, __fmul_rn(a[k][e], weights[k]));
+            const float prod = __fmul_rn(r[e], warped);
+            acc = (c + e == c0) ? prod : __fadd_rn(acc, prod);  // the group's first channel
+          }
+        }
+        store_streaming(run + j, acc);
+        pixel += step_pixel;
+        g += step_group;
+        if (g >= G) g -= G, ++pixel;
+      }
+    }
+    __syncthreads();  // the taps and the key tile are rewritten for the next chunk
   }
 }
 
 bool aligned(const void* p, size_t bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
 
+template <typename TOut, int VEC, bool KEY_SMEM>
+int launch_tile(const float* ref, const float* src, const float* A, const float* Bm, const float* w, void* out,
+                int B, int D, int H, int W, int Hs, int Ws, int C, int G, int tile, size_t smem, void* stream) {
+  const int tiles = (W + tile - 1) / tile;
+  const int dblocks = (D + kPlanes - 1) / kPlanes;
+  const int BZ = B * dblocks;
+  const dim3 grid(tiles, H, BZ < 65535 ? BZ : 65535);  // beyond 65535 in a loop
+  homography_group_cost_kernel<TOut, VEC, KEY_SMEM><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      ref, src, A, Bm, w, static_cast<TOut*>(out), B, D, H, W, Hs, Ws, C, G, tile, dblocks);
+  return (int)cudaGetLastError();
+}
+
 template <typename TOut, int VEC>
 int launch_vec(const float* ref, const float* src, const float* A, const float* Bm, const float* w, void* out,
-               int64_t npix, int D, int H, int W, int Hs, int Ws, int C, int G, void* stream) {
-  int lanes_log2 = 0;
-  while ((1 << lanes_log2) < G && lanes_log2 < 5) ++lanes_log2;
-  const int threads = 256;
-  const int64_t per_block = threads >> lanes_log2;
-  int64_t blocks = (npix + per_block - 1) / per_block;
-  if (blocks > 65535LL * 64) blocks = 65535LL * 64;  // grid-stride beyond this
-  homography_group_cost_kernel<TOut, VEC><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      ref, src, A, Bm, w, static_cast<TOut*>(out), (uint32_t)npix, (uint32_t)D, (uint32_t)H, (uint32_t)W, Hs,
-      Ws, C, G, lanes_log2);
-  return (int)cudaGetLastError();
+               int B, int D, int H, int W, int Hs, int Ws, int C, int G, void* stream) {
+  // the row tile: at most kMaxTile pixels and about kTileFloats key floats;
+  // W split into equal tiles
+  const int cap = std::max(1, std::min(kMaxTile, kTileFloats / std::max(C, 1)));
+  const int tiles = (W + cap - 1) / cap;
+  const int tile = (W + tiles - 1) / tiles;
+  const size_t taps = (size_t)kPlanes * tile * (sizeof(int4) + sizeof(float4));
+  const size_t key = (size_t)tile * C * sizeof(float);
+  if (taps + key <= kSmemBytes) {
+    return launch_tile<TOut, VEC, true>(ref, src, A, Bm, w, out, B, D, H, W, Hs, Ws, C, G, tile, taps + key,
+                                        stream);
+  }
+  return launch_tile<TOut, VEC, false>(ref, src, A, Bm, w, out, B, D, H, W, Hs, Ws, C, G, tile, taps, stream);
 }
 
 template <typename TOut>
 int launch(const float* ref, const float* src, const float* A, const float* Bm, const float* w, void* out,
            int B, int D, int H, int W, int Hs, int Ws, int C, int G, void* stream) {
-  const int64_t npix = (int64_t)B * D * H * W;
-  if (npix == 0 || G == 0) return 0;
-  if (npix >= (1LL << 31) || C % G != 0) return (int)cudaErrorInvalidValue;
+  if ((int64_t)B * D * H * W == 0 || G == 0) return 0;
+  // int32 offsets into one map; H rows on gridDim.y
+  if (C % G != 0 || (int64_t)Hs * Ws * C >= (1LL << 31) || (int64_t)B * D >= (1LL << 31) || H > 65535)
+    return (int)cudaErrorInvalidValue;
   // 4 channels per load where each group is whole vectors and the rows are aligned
   if ((C / G) % 4 == 0 && aligned(ref, 16) && aligned(src, 16)) {
-    return launch_vec<TOut, 4>(ref, src, A, Bm, w, out, npix, D, H, W, Hs, Ws, C, G, stream);
+    return launch_vec<TOut, 4>(ref, src, A, Bm, w, out, B, D, H, W, Hs, Ws, C, G, stream);
   }
-  return launch_vec<TOut, 1>(ref, src, A, Bm, w, out, npix, D, H, W, Hs, Ws, C, G, stream);
+  return launch_vec<TOut, 1>(ref, src, A, Bm, w, out, B, D, H, W, Hs, Ws, C, G, stream);
 }
 
 }  // namespace

@@ -110,6 +110,10 @@ def homography_group_cost(ref_feat, src_feat, Amat, Bmat, w_dense, groups=8, out
     B, H, W, C = ref_feat.shape
     Hs, Ws = src_feat.shape[1:3]
     D = w_dense.shape[1]
+    if Hs * Ws * C >= 2**31:
+        raise ValueError(f"a source map of {Hs}x{Ws}x{C} elements exceeds the kernel's int32 offsets")
+    if H > 65535:
+        raise ValueError(f"{H} key rows exceed the kernel's grid (at most 65535)")
     tensors = [t.contiguous() for t in (ref_feat, src_feat, Amat, Bmat, w_dense)]
     out = torch.empty((B, D, H, W, groups), dtype=out_dtype, device=ref_feat.device)
     fn = _entry()

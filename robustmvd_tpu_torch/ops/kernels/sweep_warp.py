@@ -112,6 +112,10 @@ def sweep_variance(ref_feat, src_feats, rot, trans, depth, src_valid=None, out_d
     _, H, W, C = ref_feat.shape
     Hs, Ws = src_feats.shape[2:4]
     D = depth.shape[1]
+    if Hs * Ws * C >= 2**31:
+        raise ValueError(f"a source map of {Hs}x{Ws}x{C} elements exceeds the kernel's int32 offsets")
+    if H > 65535:
+        raise ValueError(f"{H} key rows exceed the kernel's grid (at most 65535)")
     tensors = [t.contiguous() for t in (ref_feat, src_feats, rot, trans, depth, src_valid)]
     out = torch.empty((B, D, H, W, C), dtype=out_dtype, device=ref_feat.device)
     fn = _entry()
@@ -127,6 +131,18 @@ def sweep_variance(ref_feat, src_feats, rot, trans, depth, src_valid=None, out_d
 
 
 sweep_variance.launches = 0
+
+
+def sweep_warp_tiling(V, W):
+    """The kernel's row tiling for ``V`` source views and rows of ``W``
+    pixels, as its C entry takes it: ``(tile, vc)``, the pixels of a row
+    tile and the views whose taps shared memory holds (views beyond ``vc``
+    get their taps per thread). Builds the kernel if it is not built."""
+    fn = build.load(_NAME).sweep_warp_tiling
+    fn.argtypes, fn.restype = [ctypes.c_int32, ctypes.c_int32, ctypes.POINTER(ctypes.c_int32)], None
+    tile_vc = (ctypes.c_int32 * 2)()
+    fn(V, W, tile_vc)
+    return tile_vc[0], tile_vc[1]
 
 
 def warp_variance(ref_feat, src_feats, src_projs, ref_proj_inv, depth_values, src_valid=None,

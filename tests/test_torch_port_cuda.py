@@ -27,7 +27,7 @@ from robustmvd_tpu_torch.ops.kernels.sweep_group_cost import (
     homography_group_cost,
     homography_group_cost_reference,
 )
-from robustmvd_tpu_torch.ops.kernels.sweep_warp import sweep_variance, sweep_variance_reference
+from robustmvd_tpu_torch.ops.kernels.sweep_warp import sweep_variance, sweep_variance_reference, sweep_warp_tiling
 from robustmvd_tpu_torch.ops.kernels.conv3d import conv3d_banded, conv3d_banded_path, conv3d_banded_reference
 from robustmvd_tpu_torch.ops.kernels.warp_volume import homo_warp_volume, homo_warp_volume_reference
 
@@ -162,6 +162,113 @@ def test_k2_unaligned_rows_take_one_channel_per_lane(cuda):
     torch.testing.assert_close(out, sweep_variance_reference(ref, src, rot, trans, depth, valid), atol=1e-5, rtol=1e-5)
 
 
+def _on_map_share(rot, trans, depth, H, W, Hs, Ws):
+    """Share of the first view's samples whose 00 tap lies on its map."""
+    from robustmvd_tpu_torch.ops.homography import sweep_coordinates
+
+    B, D = depth.shape[:2]
+    d = depth.reshape(B, D, H * W) if depth.dim() == 4 else depth
+    xi, yi = sweep_coordinates(rot[:, 0], trans[:, 0], d, H, W, Hs, Ws)
+    return float(((xi >= 0) & (xi <= Ws - 1) & (yi >= 0) & (yi <= Hs - 1)).float().mean())
+
+
+def _sweep_inputs_on_map(seed, V, H, W, C, D, B=1, dense=False):
+    """K2's arguments with most samples on the source maps: pixel-space
+    transforms near the identity, each source view shifted by 5-20 px at
+    depth 1 (disparity over planes 0.5..10); every view valid."""
+    rng = np.random.RandomState(seed)
+    ref = rng.randn(B, H, W, C).astype(np.float32)
+    src = rng.randn(B, V, H, W, C).astype(np.float32)
+    rot = np.tile(np.eye(3, dtype=np.float32), (B, V, 1, 1))
+    rot[:, :, :2] += rng.randn(B, V, 2, 3).astype(np.float32) * [1e-3, 1e-3, 1e-1]
+    trans = np.zeros((B, V, 3), np.float32)
+    trans[..., 0] = rng.uniform(5, 20, (B, V)) * rng.choice([-1, 1], (B, V))
+    trans[..., 1] = rng.uniform(-1, 1, (B, V))
+    depth = np.tile(np.linspace(0.5, 10.0, D, dtype=np.float32), (B, 1))
+    if dense:
+        depth = (depth[:, :, None, None] * (1 + 0.1 * rng.rand(B, D, H, W))).astype(np.float32)
+    return [torch.from_numpy(a) for a in (ref, src, rot, trans, depth, np.ones((B, V), np.float32))]
+
+
+@pytest.mark.parametrize("case", [
+    dict(V=2, H=96, W=320, C=32, D=256, dtype=torch.float32),  # mvsnet_train's volume
+    dict(V=2, H=96, W=320, C=32, D=256, dtype=torch.bfloat16),  # with bf16 features
+    dict(V=2, H=384, W=1280, C=16, D=8, dtype=torch.float32, dense=True),  # cvp_mvsnet's finest level
+], ids=["mvsnet_f32", "mvsnet_bf16", "cvp_dense"])
+def test_k2_at_main_path_shapes_matches_plain_version_bit_for_bit(cuda, case):
+    """K2 at the main paths' shapes: equal to its plain version (the same
+    operations on the same values in the same order)."""
+    case = dict(case)
+    dtype = case.pop("dtype")
+    ref, src, rot, trans, depth, valid = (a.to(cuda) for a in _sweep_inputs_on_map(15, **case))
+    ref, src = ref.to(dtype), src.to(dtype)
+    out = sweep_variance(ref, src, rot, trans, depth, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(out, sweep_variance_reference(ref, src, rot, trans, depth, valid))
+    H, W = ref.shape[1:3]
+    assert _on_map_share(rot, trans, depth, H, W, H, W) > 0.3
+
+
+@pytest.mark.parametrize("V", [1, 3, 8])
+@pytest.mark.parametrize("W", [20, 200, 513, 1100])  # one tile; two or more tiles not a multiple of the tile
+@pytest.mark.parametrize("C", [32, 12, 6])  # 32: 8 channels per vector; 12, 6: one (C % 8 != 0)
+def test_k2_row_tiles_and_views_match_plain_version(cuda, V, W, C):
+    """K2 walks each output row in tiles of at most 512 pixels, fewer for
+    many views (192 at V = 8): every W, V and C gives the plain version's
+    volume bit for bit, with the last view of the last batch element masked."""
+    ref, src, rot, trans, depth, valid = (a.to(cuda) for a in _sweep_inputs_on_map(W + V + C, V=V, H=4, W=W, C=C,
+                                                                                    D=3, B=2))
+    valid[-1, -1] = 0.0
+    before = sweep_variance.launches
+    out = sweep_variance(ref, src, rot, trans, depth, valid)
+    torch.cuda.synchronize()
+    assert sweep_variance.launches == before + 1
+    assert out.shape == (2, 3, 4, W, C)
+    assert torch.equal(out, sweep_variance_reference(ref, src, rot, trans, depth, valid))
+    assert _on_map_share(rot, trans, depth, 4, W, 4, W) > 0.1
+
+
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_one_plane_and_bf16_output_match_plain_version(cuda, dense, dtype):
+    """D = 1 (one plane per block z) with a masked view, and the bf16 output:
+    equal to the plain version's float32 result rounded to bf16."""
+    ref, src, rot, trans, depth, valid = (a.to(cuda) for a in _sweep_inputs_on_map(16, V=3, H=12, W=37, C=32, D=1,
+                                                                                    dense=dense))
+    ref, src = ref.to(dtype), src.to(dtype)
+    valid[0, 1] = 0.0
+    plain = sweep_variance_reference(ref, src, rot, trans, depth, valid)
+    assert torch.equal(sweep_variance(ref, src, rot, trans, depth, valid), plain)
+    out16 = sweep_variance(ref, src, rot, trans, depth, valid, out_dtype=torch.bfloat16)
+    assert out16.dtype == torch.bfloat16 and torch.equal(out16, plain.bfloat16())
+
+
+@pytest.mark.parametrize("C", [16, 6])
+def test_k2_views_beyond_shared_memory_match_plain_version(cuda, C):
+    """50 source views over rows of 96 pixels: three row tiles of 32 pixels,
+    the least tile, whose shared memory holds the taps of 48 views; the last
+    two views' taps are computed by each thread, in the same op order."""
+    assert sweep_warp_tiling(50, 96) == (32, 48)
+    ref, src, rot, trans, depth, valid = (a.to(cuda) for a in _sweep_inputs(17, V=50, H=4, W=96, C=C, D=2))
+    valid[0, 10] = 0.0
+    out = sweep_variance(ref, src, rot, trans, depth, valid)
+    assert torch.equal(out, sweep_variance_reference(ref, src, rot, trans, depth, valid))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_unaligned_maps_match_plain_version_bit_for_bit(cuda, dtype):
+    """Key and source maps one element into their storage: the one-channel
+    path over several row tiles, bit for bit."""
+    ref, src, rot, trans, depth, valid = (a.to(cuda) for a in _sweep_inputs(18, V=3, H=4, W=600, C=16))
+    ref, src = ref.to(dtype), src.to(dtype)
+
+    def shifted(t):
+        return torch.empty(t.numel() + 1, device=cuda, dtype=dtype)[1:].view(t.shape).copy_(t)
+
+    out = sweep_variance(shifted(ref), shifted(src), rot, trans, depth, valid, out_dtype=torch.bfloat16)
+    assert torch.equal(out, sweep_variance_reference(ref, src, rot, trans, depth, valid, out_dtype=torch.bfloat16))
+
+
 def test_k2_rejects_mixed_devices(cuda):
     ref, src, rot, trans, depth, valid = _sweep_inputs(5)
     with pytest.raises(ValueError):
@@ -214,11 +321,11 @@ def test_family_on_card_matches_cpu(cuda, name, launches):
         assert (np.abs(ug - uc) <= 1e-4 * np.abs(uc).mean()).mean() >= 0.99
 
 
-def _group_inputs(seed, B=2, H=12, W=20, C=32, D=8):
+def _group_inputs(seed, B=2, H=12, W=20, C=32, D=8, shift=(0.3, 0.1), singular=True):
     """K2 group mode's arguments from a key and a shifted, rotated source
-    cam; per-pixel w around 1 / (1..4), one pixel with w = inf (non-finite
-    coordinates) and one plane through p_z = 0 of the first batch element
-    (coordinates beyond 2^30)."""
+    cam; per-pixel w around 1 / (1..4). With ``singular``, one pixel with w =
+    inf (non-finite coordinates) and one plane through p_z = 0 of the first
+    batch element (coordinates beyond 2^30)."""
     from scipy.spatial.transform import Rotation
 
     rng = np.random.RandomState(seed)
@@ -229,15 +336,16 @@ def _group_inputs(seed, B=2, H=12, W=20, C=32, D=8):
     key[:, 1, :3, :3] = [[0.8 * W, 0, W / 2], [0, 0.8 * W, H / 2], [0, 0, 1]]
     cam = key.copy()
     cam[:, 0, :3, :3] = Rotation.from_rotvec(rng.randn(3) * 0.02).as_matrix()
-    cam[:, 0, :3, 3] = [0.3, 0.1, 0.0]
+    cam[:, 0, :3, 3] = [*shift, 0.0]
     A, Bm = get_homography_coeffs(torch.from_numpy(key), torch.from_numpy(cam))
     centres = torch.tensor([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1.0]])
     A, Bm = matmul_sums(A, centres), matmul_sums(Bm, centres)
-    A[0, 2], Bm[0, 2] = torch.tensor([0.0, 0.0, 1.0]), torch.tensor([0.0, 0.0, -1.0])  # p_z = 1 - w
     depth = 1.0 + 3.0 * rng.rand(B, D, H, W)
     w = (1.0 / (depth + 1e-9)).astype(np.float32)
-    w[0, 1] = 1.0
-    w[-1, 2, 0, 0] = np.inf
+    if singular:
+        A[0, 2], Bm[0, 2] = torch.tensor([0.0, 0.0, 1.0]), torch.tensor([0.0, 0.0, -1.0])  # p_z = 1 - w
+        w[0, 1] = 1.0
+        w[-1, 2, 0, 0] = np.inf
     return [torch.from_numpy(a) for a in (ref, src)] + [A.contiguous(), Bm.contiguous(), torch.from_numpy(w)]
 
 
@@ -264,6 +372,74 @@ def test_k2_group_unaligned_rows_take_one_channel_per_load(cuda):
     src_off = torch.empty(src.numel() + 1, device=cuda)[1:].view(src.shape).copy_(src)
     out = homography_group_cost(ref, src_off, A, Bm, w)
     torch.testing.assert_close(out, homography_group_cost_reference(ref, src, A, Bm, w), atol=1e-5, rtol=0)
+
+
+def test_k2_group_at_vis_stage3_matches_plain_version_bit_for_bit(cuda):
+    """vis_mvsnet's stage-3 pair volume, (1, 16, 192, 640) with C 32, G 8:
+    equal to the plain version."""
+    ref, src, A, Bm, w = (a.to(cuda) for a in _group_inputs(19, B=1, H=192, W=640, C=32, D=16, singular=False))
+    out = homography_group_cost(ref, src, A, Bm, w)
+    torch.cuda.synchronize()
+    assert torch.equal(out, homography_group_cost_reference(ref, src, A, Bm, w))
+    assert (out != 0).any(-1).float().mean() > 0.5
+
+
+@pytest.mark.parametrize("G", [4, 8, 16])
+@pytest.mark.parametrize("C", [32, 64])
+@pytest.mark.parametrize("W", [20, 100, 130])  # one tile; two or three tiles not a multiple of the tile
+def test_k2_group_groups_and_row_tiles_match_plain_version(cuda, G, C, W):
+    """Every G that divides C (four channels per load where C/G % 4 == 0,
+    else one) and row tiles of at most 64 pixels (32 at C = 64), over 20
+    planes in chunks of 8: bit for bit."""
+    ref, src, A, Bm, w = (a.to(cuda) for a in _group_inputs(G + C + W, H=8, W=W, C=C, D=20, shift=(0.3, 0.0),
+                                                             singular=False))
+    before = homography_group_cost.launches
+    out = homography_group_cost(ref, src, A, Bm, w, groups=G)
+    torch.cuda.synchronize()
+    assert homography_group_cost.launches == before + 1
+    assert out.shape == (2, 20, 8, W, G)
+    assert torch.equal(out, homography_group_cost_reference(ref, src, A, Bm, w, groups=G))
+    assert (out != 0).any(-1).float().mean() > 0.3
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_k2_group_non_finite_and_off_map_w_give_zeros(cuda, out_dtype):
+    """w of NaN, +-inf, 1e30 and -1e30 send every tap off the map: zeros, as
+    in the plain version; one plane (D = 1) and planes beyond a chunk."""
+    for D in (1, 11):
+        ref, src, A, Bm, w = (a.to(cuda) for a in _group_inputs(20 + D, H=6, W=70, D=D, singular=False))
+        bad = torch.tensor([float("nan"), float("inf"), -float("inf"), 1e30, -1e30], device=cuda)
+        w[:, :, 2, :5] = bad
+        w[0, -1, 4] = float("nan")
+        out = homography_group_cost(ref, src, A, Bm, w, out_dtype=out_dtype)
+        plain = homography_group_cost_reference(ref, src, A, Bm, w, out_dtype=out_dtype)
+        assert torch.equal(out, plain)
+        assert (out[:, :, 2, :5] == 0).all() and (out[0, -1, 4] == 0).all()
+        assert (out != 0).any()
+
+
+@pytest.mark.parametrize("which", ["src", "ref", "both"])
+def test_k2_group_unaligned_maps_match_plain_version_bit_for_bit(cuda, which):
+    """A key or source map one element into its storage: one channel per
+    load, bit for bit."""
+    ref, src, A, Bm, w = (a.to(cuda) for a in _group_inputs(21, H=6, W=90, C=32))
+
+    def shifted(t):
+        return torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape).copy_(t)
+
+    ref_in = shifted(ref) if which in ("ref", "both") else ref
+    src_in = shifted(src) if which in ("src", "both") else src
+    out = homography_group_cost(ref_in, src_in, A, Bm, w)
+    assert torch.equal(out, homography_group_cost_reference(ref, src, A, Bm, w))
+
+
+def test_k2_group_wide_key_read_in_place(cuda):
+    """C = 16384: the key tile does not fit in shared memory even at one
+    pixel and is read from global memory; bit for bit."""
+    ref, src, A, Bm, w = (a.to(cuda) for a in _group_inputs(22, B=1, H=3, W=5, C=16384, D=3, shift=(0.1, 0.0),
+                                                             singular=False))
+    out = homography_group_cost(ref, src, A, Bm, w, groups=4096)
+    assert torch.equal(out, homography_group_cost_reference(ref, src, A, Bm, w, groups=4096))
 
 
 @pytest.mark.parametrize("shape", [(2, 16, 12, 20), (1, 64, 5, 7), (2, 192, 3, 5), (1, 32, 48, 160)])

@@ -71,7 +71,7 @@ def _kernel_args(key, src, start, interval, D, h, w):
     return A.astype(np.float32), Bm.astype(np.float32), np.ascontiguousarray(wd)
 
 
-def _xla_route(ref, src_feat, key, src, start, interval, D):
+def _xla_route(ref, src_feat, key, src, start, interval, D, groups=8):
     """JAX's get_homographies -> homography_warping -> groupwise_correlation."""
     B, h, w, C = ref.shape
     Hs = jax_homography.get_homographies(jnp.asarray(key), jnp.asarray(src), D, jnp.asarray(start),
@@ -80,7 +80,7 @@ def _xla_route(ref, src_feat, key, src, start, interval, D):
     src_rep = jnp.broadcast_to(jnp.asarray(src_feat)[:, None], (B, D, h, w, C)).reshape(B * D, h, w, C)
     warped = jax_homography.homography_warping(src_rep, Hs).reshape(B, D, h, w, C)
     ref_vol = jnp.broadcast_to(jnp.asarray(ref)[:, None], (B, D, h, w, C))
-    return np.asarray(jax_groupwise_correlation(ref_vol, warped, 8, axis=-1))
+    return np.asarray(jax_groupwise_correlation(ref_vol, warped, groups, axis=-1))
 
 
 @pytest.mark.parametrize("B,C,D", [(1, 16, 6), (1, 32, 20), (2, 16, 20), (2, 32, 6)])
@@ -112,6 +112,34 @@ def test_group_cost_matches_jax_xla_route(rng, per_pixel):
     A, Bm, wd = _kernel_args(key, src, start, 0.5, D, h, w)
     ours = k2g.homography_group_cost(t(ref), t(src_feat), t(A), t(Bm), t(wd)).numpy()
     np.testing.assert_allclose(ours, _xla_route(ref, src_feat, key, src, start, 0.5, D), **ROUTE_TOL)
+
+
+@pytest.mark.parametrize("G,C,D,w", [
+    (4, 32, 6, 21),  # eight channels per group, odd W
+    (16, 32, 1, 19),  # two channels per group (one per load on the card), one plane
+    (4, 16, 3, 25),
+    (16, 64, 2, 17),
+    (8, 32, 9, 33),  # planes beyond one chunk of the CUDA kernel, odd W
+])
+def test_group_counts_and_row_tiles_match_jax(rng, G, C, D, w):
+    """The shapes the CUDA kernel's row tiles, plane chunks and group loads
+    make special (G 4 and 16, D = 1, odd W): the plain version the card
+    tests hold the kernel to agrees with the JAX kernel in interpret mode
+    (KERNEL_TOL) and with the JAX XLA route (ROUTE_TOL, maps of 12 px and
+    more: no clamp)."""
+    B, h = 1, 12
+    key, src = _cams(rng, B, h, w)
+    start = _depth_start(rng, B, h, w, True)
+    A, Bm, wd = _kernel_args(key, src, start, 0.25, D, h, w)
+    ref = rng.randn(B, h, w, C).astype(np.float32)
+    src_feat = rng.randn(B, h, w, C).astype(np.float32)
+    ours = k2g.homography_group_cost(t(ref), t(src_feat), t(A), t(Bm), t(wd), groups=G).numpy()
+    assert ours.shape == (B, D, h, w, G)
+    kernel = np.asarray(jax_group_cost(jnp.asarray(ref), jnp.asarray(src_feat), jnp.asarray(A), jnp.asarray(Bm),
+                                       jnp.asarray(wd), groups=G, interpret=True))
+    np.testing.assert_allclose(ours, kernel, **KERNEL_TOL)
+    np.testing.assert_allclose(ours, _xla_route(ref, src_feat, key, src, start, 0.25, D, G), **ROUTE_TOL)
+    assert (ours != 0).any(axis=-1).mean() > 0.5
 
 
 def test_small_maps_show_the_clamp_apart(rng):

@@ -191,6 +191,43 @@ def test_planes_through_z0(rng):
     np.testing.assert_allclose(ours[:, finite], path[:, finite], **PATH_TOL)
 
 
+@pytest.mark.parametrize("V,masked,D,w,dense", [
+    (1, None, 5, 23, False),  # one source view, odd W
+    (3, 1, 4, 37, False),  # three views, the middle one masked, odd W
+    (2, None, 1, 24, False),  # one plane
+    (3, 2, 1, 19, True),  # one per-pixel hypothesis, the last view masked, odd W
+    (3, 0, 3, 31, True),  # per-pixel hypotheses, the first view masked
+])
+def test_row_tile_shapes_match_jax(rng, V, masked, D, w, dense):
+    """The shapes the CUDA kernel's row tiles and view slots make special
+    (V = 1, V = 3 with a masked view, D = 1, odd W): the plain version the
+    card tests hold the kernel to agrees with the JAX kernel in interpret
+    mode (KERNEL_TOL) and with the JAX warp path (PATH_TOL)."""
+    h, C = 12, 8
+    ref, src, sp, rpi, dv = _setup(rng, 1, V, h, w, C, D)
+    valid = np.ones((1, V), np.float32)
+    if masked is not None:
+        valid[0, masked] = 0.0
+    rot, trans = _rt(sp, rpi)
+    if dense:
+        depth = (dv[:, :, None, None] * (1 + 0.1 * rng.rand(1, D, h, w))).astype(np.float32)
+        ours = k2.warp_variance_dense(t(ref), t(src), t(rot), t(trans), t(depth), src_valid=t(valid)).numpy()
+        kernel = jax_k2.warp_variance_dense(jnp.asarray(ref), jnp.asarray(src), jnp.asarray(rot), jnp.asarray(trans),
+                                            jnp.asarray(depth), src_valid=jnp.asarray(valid), dc=4, band=4,
+                                            interpret=True)
+        depth_path = depth.reshape(1, D, h * w)
+    else:
+        ours = k2.warp_variance_rt(t(ref), t(src), t(rot), t(trans), t(dv), src_valid=t(valid)).numpy()
+        kernel = jax_k2.warp_variance_rt(jnp.asarray(ref), jnp.asarray(src), jnp.asarray(rot), jnp.asarray(trans),
+                                         jnp.asarray(dv), src_valid=jnp.asarray(valid), dc=4, band=4, interpret=True)
+        depth_path = dv
+    assert ours.shape == (1, D, h, w, C)
+    np.testing.assert_allclose(ours, np.asarray(kernel), **KERNEL_TOL)
+    path = _jax_variance(ref, src, lambda v: jax_rt_warp(jnp.asarray(src[:, v]), jnp.asarray(rot[:, v]),
+                                                         jnp.asarray(trans[:, v]), jnp.asarray(depth_path)), valid)
+    np.testing.assert_allclose(ours, path, **PATH_TOL)
+
+
 def test_rejects_what_the_kernel_does_not_take(rng):
     ref, src, sp, rpi, dv = _setup(rng, 1, 2, 8, 12, 4, 4)
     with pytest.raises(TypeError):

@@ -1,24 +1,29 @@
 #!/usr/bin/env python3
-"""Time design variants of the PyTorch port's K3 and K4 CUDA kernels on one GPU.
+"""Time design variants of the PyTorch port's K2, K2 group, K3 and K4 CUDA kernels on one GPU.
 
-    python3 tools/torch_kernel_variants.py [--baseline DIR] [--out FILE]
+    python3 tools/torch_kernel_variants.py [--kernels k2,k2_group,k4,k3] [--baseline DIR] [--out FILE]
 
 Runs from the root of a checkout on a machine with a CUDA card and ``nvcc``.
-Builds copies of ``robustmvd_tpu_torch/csrc/soft_argmin.cu`` (K3) and
-``warp_volume.cu`` (K4), each with one constant changed (threads per block,
-K4's row tile), into ``build/variants/``; with
-``--baseline``, also the ``soft_argmin.cu`` and ``warp_volume.cu`` found in
-DIR (an earlier commit's sources). Each variant is loaded with ctypes in
-place of the built kernel, held against the plain version at
-``chip_smoke.py``'s shapes (K4 bit for bit at mvsnet's (1, 256, 96, 320, 32),
-f32 and bf16 features; K3 within ``K3_LIMITS`` at vis_mvsnet's six readout
-shapes) and timed with ``chip_smoke.time_ms``, twice, in the order
-A B C ... C B A. The library yardsticks (``F.grid_sample``, ``torch.softmax``)
-are timed in the same turns. K3 is also timed inside vis_mvsnet: its device
+Builds copies of ``robustmvd_tpu_torch/csrc/sweep_warp.cu`` (K2),
+``sweep_group_cost.cu`` (K2 group), ``soft_argmin.cu`` (K3) and
+``warp_volume.cu`` (K4), each with one design choice changed (threads per
+block, row tiles, planes per block, where K2 group reads the key), into
+``build/variants/``; with
+``--baseline``, also the sources of the same names found in DIR (an earlier
+commit's, e.g. from ``git show <commit>:robustmvd_tpu_torch/csrc/<name>.cu``).
+Each variant is loaded with ctypes in place of the built kernel, held
+against the plain version at ``chip_smoke.py``'s shapes (K2 and K2 group bit
+for bit at every case of ``k2_cases`` and ``k2_group_cases``; K4 bit for bit
+at mvsnet's (1, 256, 96, 320, 32), f32 and bf16 features; K3 within
+``K3_LIMITS`` at vis_mvsnet's six readout shapes) and timed with
+``chip_smoke.time_ms``, twice, in the order A B C ... C B A. The yardsticks
+(the ``grid_sample`` routes, ``F.grid_sample``, ``torch.softmax``) are timed
+in the same turns. Each kernel is also timed inside its models: its device
 time per frame in torch.profiler over ``model.run`` at 384x1280 with 1+2
-views (chip_smoke.py's main path), per variant, in the same order. Prints
-one JSON line per kernel and writes them to FILE (default
-``build/kernel_variants.jsonl``).
+views (chip_smoke.py's main paths: mvsnet_train and cvp_mvsnet for K2,
+vis_mvsnet for K2 group and K3), per variant (K2, K2 group: the repo's
+source and the baseline), in the same order. Prints one JSON line per
+kernel and writes them to FILE (default ``build/kernel_variants.jsonl``).
 """
 
 import argparse
@@ -44,6 +49,24 @@ K4_VARIANTS = {
 K3_VARIANTS = {
     "threads64": {"constexpr int kThreads = 128;": "constexpr int kThreads = 64;"},
     "threads256": {"constexpr int kThreads = 128;": "constexpr int kThreads = 256;"},
+}
+K2_VARIANTS = {
+    "tile128": {"constexpr int kMaxTile = 512;": "constexpr int kMaxTile = 128;"},
+    "tile256": {"constexpr int kMaxTile = 512;": "constexpr int kMaxTile = 256;"},
+    "planes1": {"constexpr int kPlanes = 2;": "constexpr int kPlanes = 1;"},
+    "planes4": {"constexpr int kPlanes = 2;": "constexpr int kPlanes = 4;"},
+    "threads256": {"constexpr int kThreads = 128;": "constexpr int kThreads = 256;"},
+}
+K2_GROUP_VARIANTS = {
+    "threads256": {"constexpr int kThreads = 128;": "constexpr int kThreads = 256;"},
+    "threads512": {"constexpr int kThreads = 128;": "constexpr int kThreads = 512;"},
+    "planes4": {"constexpr int kPlanes = 8;": "constexpr int kPlanes = 4;"},
+    "planes16": {"constexpr int kPlanes = 8;": "constexpr int kPlanes = 16;"},
+    "tile32": {"constexpr int kMaxTile = 64;": "constexpr int kMaxTile = 32;"},
+    "tile128": {"constexpr int kMaxTile = 64;": "constexpr int kMaxTile = 128;",
+                "constexpr int kTileFloats = 2048;": "constexpr int kTileFloats = 4096;"},
+    # the key read in place with __ldg (through L1) instead of staged in shared memory
+    "key_in_place": {"if (taps + key <= kSmemBytes) {": "if (false) {"},
 }
 
 
@@ -165,25 +188,27 @@ def k3(baseline):
             report["cases"][f"stage{stage}_{readout}"] = {
                 "shape": list(vol.shape), "bound": chip_smoke.k3_bound(vol),
                 "ms": in_turns([*libs, "torch.softmax"], time_one)}
-    report["in_vis_mvsnet"] = k3_in_model(libs)
+    report["in_vis_mvsnet"] = in_model("soft_argmin", "soft_argmin", "vis_mvsnet", libs)
     use("soft_argmin", libs["repo"])
     return report
 
 
-def k3_in_model(libs, frames=5):
-    """{variant: [K3 device ms per frame, first and second turn]} over
-    vis_mvsnet frames at 384x1280, 1+2 views, from torch.profiler."""
+def in_model(name, match, model_name, libs, frames=5):
+    """{variant: [device ms per frame of the kernels whose name holds
+    ``match``, first and second turn]} over ``model_name`` frames at
+    384x1280, 1+2 views, from torch.profiler, with kernel ``name`` loaded
+    from each library of ``libs`` in turn."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import robustmvd_tpu_torch as rmvd
 
-    model = rmvd.create_model("vis_mvsnet")
+    model = rmvd.create_model(model_name)
     sample = chip_smoke.sideways_sample(chip_smoke.np.random.RandomState(8), 384, 1280, 3)
     chip_smoke.set_tf32(False)
 
     def time_one(variant):
-        use("soft_argmin", libs[variant])
+        use(name, libs[variant])
         model.run(**sample)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(frames):
@@ -191,17 +216,91 @@ def k3_in_model(libs, frames=5):
             torch.cuda.synchronize()
         us = 0.0
         for e in prof.key_averages():
-            if "soft_argmin" in e.key:
+            if match in e.key:
                 dev_us = getattr(e, "self_device_time_total", None)
                 us += e.self_cuda_time_total if dev_us is None else dev_us
         return us / 1e3 / frames
 
-    return in_turns(list(libs), time_one)
+    times = in_turns(list(libs), time_one)
+    use(name, libs["repo"])
+    del model
+    torch.cuda.empty_cache()
+    return times
+
+
+def k2(baseline):
+    import torch
+
+    from robustmvd_tpu_torch.ops.kernels.sweep_warp import sweep_variance, sweep_variance_reference
+
+    libs, ptxas = build_variants("sweep_warp", K2_VARIANTS, baseline)
+    report = {"name": "sweep_warp", "ptxas": ptxas, "cases": {}}
+    for case, (ref, src, rot, trans, depth) in chip_smoke.k2_cases(torch.device("cuda")).items():
+        valid = torch.ones((1, src.shape[1]), device=ref.device)
+        plain = sweep_variance_reference(ref, src, rot, trans, depth, valid)
+        for variant, lib in libs.items():
+            use("sweep_warp", lib)
+            if not torch.equal(sweep_variance(ref, src, rot, trans, depth, valid), plain):
+                raise AssertionError(f"K2 {variant} {case} differs from its plain version")
+        del plain
+        torch.cuda.empty_cache()
+        route = chip_smoke.grid_sample_route(ref, src, rot, trans, depth)
+
+        def time_one(variant):
+            if variant == "grid_sample_route":
+                return chip_smoke.time_ms(route, runs=10, warmup=2)
+            use("sweep_warp", libs[variant])
+            return chip_smoke.time_ms(lambda: sweep_variance(ref, src, rot, trans, depth, valid))
+
+        report["cases"][case] = {"shape": [*ref.shape, src.shape[1], depth.shape[1]],
+                                 "bound": chip_smoke.k2_bound(ref, src, torch.float32, depth),
+                                 "ms": in_turns([*libs, "grid_sample_route"], time_one)}
+        del route
+        torch.cuda.empty_cache()
+    pair = {k: libs[k] for k in ("repo", "baseline") if k in libs}
+    report["in_models"] = {m: in_model("sweep_warp", "sweep_warp", m, pair) for m in ("mvsnet_train", "cvp_mvsnet")}
+    use("sweep_warp", libs["repo"])
+    return report
+
+
+def k2_group(baseline):
+    import torch
+
+    from robustmvd_tpu_torch.ops.kernels.sweep_group_cost import (
+        homography_group_cost,
+        homography_group_cost_reference,
+    )
+
+    libs, ptxas = build_variants("sweep_group_cost", K2_GROUP_VARIANTS, baseline)
+    report = {"name": "sweep_group_cost", "ptxas": ptxas, "cases": {}}
+    for case, (ref, src, A, Bm, w) in chip_smoke.k2_group_cases(torch.device("cuda")).items():
+        plain = homography_group_cost_reference(ref, src, A, Bm, w)
+        for variant, lib in libs.items():
+            use("sweep_group_cost", lib)
+            if not torch.equal(homography_group_cost(ref, src, A, Bm, w), plain):
+                raise AssertionError(f"K2 group {variant} {case} differs from its plain version")
+        route = chip_smoke.group_grid_sample_route(ref, src, A, Bm, w, 8)
+
+        def time_one(variant):
+            if variant == "grid_sample_route":
+                return chip_smoke.time_ms(route, runs=10, warmup=2)
+            use("sweep_group_cost", libs[variant])
+            return chip_smoke.time_ms(lambda: homography_group_cost(ref, src, A, Bm, w))
+
+        report["cases"][case] = {"shape": [*w.shape, ref.shape[3], 8],
+                                 "bound": chip_smoke.k2_group_bound(ref, src, w, 8),
+                                 "ms": in_turns([*libs, "grid_sample_route"], time_one)}
+    pair = {k: libs[k] for k in ("repo", "baseline") if k in libs}
+    report["in_models"] = {"vis_mvsnet": in_model("sweep_group_cost", "homography_group_cost", "vis_mvsnet", pair)}
+    use("sweep_group_cost", libs["repo"])
+    return report
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--baseline", help="a directory with an earlier soft_argmin.cu and warp_volume.cu")
+    parser.add_argument("--kernels", default="k2,k2_group,k4,k3",
+                        help="comma-separated, from k2, k2_group, k4, k3 (default: all, in that order)")
+    parser.add_argument("--baseline", help="a directory with earlier sources of the kernels (csrc/<name>.cu)")
     parser.add_argument("--out", default=str(ROOT / "build" / "kernel_variants.jsonl"))
     args = parser.parse_args()
     import torch
@@ -213,7 +312,8 @@ def main():
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
-        for report in (k4(args.baseline), k3(args.baseline)):
+        for kernel in args.kernels.split(","):
+            report = {"k2": k2, "k2_group": k2_group, "k4": k4, "k3": k3}[kernel](args.baseline)
             line = json.dumps({"card": card, **report})
             print(line, flush=True)
             f.write(line + "\n")
