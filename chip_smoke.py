@@ -61,7 +61,17 @@ CUDA toolkit (``nvcc``). Phases, each printing one JSON line:
             runs K5. The main paths add mvsnet_train on K4 + K5 and vis_mvsnet
             with conv3d_impl="xla" (cuDNN) beside its default, each with
             every kernel's launches per frame.
-9. the kernels line, and last the ``{"ok": true, ...}`` line.
+9. eval:    the evaluation engine (``create_evaluation("mvd")``) with
+            robust_mvd at full width over ``synthetic``: on the card vs on the
+            CPU (5 views, 128x256, 2 samples, nearest ordering, uncertainty,
+            TF32 off, cuDNN deterministic), every metric column but runtime
+            and memory within PERF.md §2's limits; then at KITTI's evaluation
+            configuration (21 views, key view 10, 375x1242, quasi-optimal
+            ordering, 3 samples, the first a burn-in sample) and at ETH3D's
+            (11 views, 1024x1536, 2 samples): model runs and K1 launches per
+            sample, the engine's runtimes, wall seconds per sample, host
+            share, peak memory.
+10. the kernels line, and last the ``{"ok": true, ...}`` line.
 
 Any failed check raises and the script exits non-zero; it does nothing
 without a CUDA device. Weights are random, from a seed.
@@ -93,6 +103,11 @@ FLIPPED_SHARE = 0.01  # uncertainty pixels whose truncated window index may diff
 # level by level. Its coarsest level (no interval) is held at MODEL_BOUNDS,
 # its final depth and uncertainty here.
 CVP_FINE_BOUNDS = (1e-2, 5e-2)
+# the evaluation's 1.03-inlier ratio counts pixels on one side of a threshold:
+# card vs CPU it may differ by this share of the pixels (PERF.md §2)
+INLIER_FLIP_SHARE = 1e-3
+EVAL_TIMING = ("runtime_model_in_sec", "runtime_model_in_msec", "runtime_model_and_io_in_sec",
+               "runtime_model_and_io_in_msec", "device_mem_peak_in_mib")
 
 
 def emit(phase, **fields):
@@ -1160,6 +1175,168 @@ def device_breakdown(model, sample, frames):
     }
 
 
+def compare_eval_tables(ours, ref, curves_ours, curves_ref):
+    """Card vs CPU evaluation results: the view counts and densities equal,
+    the 1.03-inlier ratios within INLIER_FLIP_SHARE of the pixels, the other
+    metrics (absrel, AUSE) and the per-sample sparsification curves within
+    MODEL_BOUNDS. Returns the errors; raises on a miss."""
+    errors = {}
+    if list(ours.columns) != list(ref.columns):
+        raise AssertionError(f"evaluation columns differ: {list(ours.columns)} vs {list(ref.columns)}")
+    for column in ours.columns:
+        if column[1] in EVAL_TIMING:
+            continue
+        a, b = ours[column].to_numpy(np.float64), ref[column].to_numpy(np.float64)
+        name = f"{column[0]}/{column[1]}"
+        if column[1] in ("num_views", "pred_depth_density"):
+            errors[name] = float(np.abs(a - b).max())
+            ok = np.array_equal(a, b)
+        elif column[1] == "inliers103":  # percent
+            errors[name] = float(np.abs(a - b).max() / 100)
+            ok = errors[name] <= INLIER_FLIP_SHARE
+        else:
+            errors[name] = relative_errors(a, b)
+            ok = errors[name][0] <= MODEL_BOUNDS[0] and errors[name][1] <= MODEL_BOUNDS[1]
+        if not ok:
+            raise AssertionError(f"evaluation card vs CPU, {name}: {errors[name]} ({a} vs {b})")
+    for curve in ("pred", "oracle"):
+        a, b = (c.xs(curve, level="curve").to_numpy(np.float64) for c in (curves_ours, curves_ref))
+        errors[f"curve_{curve}"] = relative_errors(a, b)
+        if not (errors[f"curve_{curve}"][0] <= MODEL_BOUNDS[0] and errors[f"curve_{curve}"][1] <= MODEL_BOUNDS[1]):
+            raise AssertionError(f"evaluation card vs CPU, {curve} sparsification curve: {errors[f'curve_{curve}']}")
+    return errors
+
+
+def phase_eval_parity(counters):
+    """create_evaluation("mvd") with robust_mvd (seeded weights) on the card
+    and on the CPU, over the same synthetic samples."""
+    import pandas as pd
+    import torch
+
+    import robustmvd_tpu_torch as rmvd
+
+    tf32 = set_tf32(False)
+    torch.backends.cudnn.deterministic = True
+    config = dict(num_views=5, height=128, width=256, num_samples=2)
+    tables, curves, launches = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for device in ("cpu", "cuda"):
+            evaluation = rmvd.create_evaluation("mvd", out_dir=os.path.join(tmp, device), inputs=["poses", "intrinsics"],
+                                                view_ordering="nearest", eval_uncertainty=True, verbose=False)
+            model = rmvd.create_model("robust_mvd", device=device, seed=0)
+            counters.reset()
+            tables[device] = evaluation(dataset=rmvd.create_dataset("synthetic.train.mvd", **config), model=model,
+                                        qualitatives=0, burn_in_samples=1)
+            launches[device] = counters.read()["planesweep_sample"]
+            curves[device] = pd.read_pickle(os.path.join(tmp, device, "per_sample", "sparsification_curves.pickle"))
+            del model
+    torch.backends.cudnn.deterministic = False
+    # nearest ordering sweeps 1..4 source views: 10 launches of K1 per sample on the card, none on the CPU
+    if launches != {"cpu": 0, "cuda": 10 * config["num_samples"]}:
+        raise AssertionError(f"evaluation K1 launches {launches}, expected 0 on the CPU and 20 on the card")
+    errors = compare_eval_tables(tables["cuda"], tables["cpu"], curves["cuda"], curves["cpu"])
+    best = tables["cuda"]["best"]
+    emit("eval_parity", tf32=tf32, **config, view_ordering="nearest", bounds=MODEL_BOUNDS,
+         inlier_flip_share=INLIER_FLIP_SHARE, k1_launches=launches, errors=errors,
+         best_absrel=best["absrel"].tolist(), best_num_views=best["num_views"].tolist(),
+         best_ause=best["ause"].tolist(), best_inliers103=best["inliers103"].tolist())
+    torch.cuda.empty_cache()
+
+
+class TimedDataset:
+    """A dataset that notes the host clock when the engine loads each sample."""
+
+    def __init__(self, dataset):
+        self.dataset = dataset
+        self.starts = []
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, index):
+        self.starts.append(time.perf_counter())
+        return self.dataset[index]
+
+
+def phase_eval_run(counters, label, num_views, keyview_idx, height, width, num_samples, cut):
+    """create_evaluation("mvd") with robust_mvd (full width, fp32, seeded
+    weights) over ``synthetic`` at a benchmark dataset's view count and image
+    size, quasi-optimal ordering, uncertainty on, the first sample a burn-in
+    sample. Each of the engine's model runs is noted with its runtimes and
+    memory; K1's launches are counted over the whole evaluation."""
+    import torch
+
+    import robustmvd_tpu_torch as rmvd
+    from robustmvd_tpu_torch.utils import numpy_collate
+
+    tf32 = set_tf32(False)
+    dataset = TimedDataset(rmvd.create_dataset("synthetic.train.mvd", num_samples=num_samples, num_views=num_views,
+                                               keyview_idx=keyview_idx, height=height, width=width))
+    model = rmvd.create_model("robust_mvd", seed=0)
+    evaluation = rmvd.create_evaluation("mvd", inputs=["poses", "intrinsics"], view_ordering="quasi-optimal",
+                                        eval_uncertainty=True, verbose=False)
+    runs = []
+    run_model = evaluation._run_model
+
+    def noted_run(sample_inputs):
+        pred, runtimes, memory = run_model(sample_inputs)
+        runs.append((evaluation.cur_sample_num, runtimes["runtime_model_in_msec"],
+                     runtimes["runtime_model_and_io_in_msec"], memory["device_mem_peak_in_mib"]))
+        return pred, runtimes, memory
+
+    evaluation._run_model = noted_run
+    counters.reset()
+    results = evaluation(dataset=dataset, model=model, qualitatives=0, burn_in_samples=1)
+    end = time.perf_counter()
+    k1 = counters.read()["planesweep_sample"]
+    # the forward with every view (the sweep's last run), alone: its peak and where its time goes
+    sample = numpy_collate([dataset.dataset[0]])
+    frame = {k: sample[k] for k in ("images", "keyview_idx", "poses", "intrinsics")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model.run(**frame)
+    all_views = {"peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+                 **device_breakdown(model, frame, frames=2)}
+    del model
+    torch.cuda.empty_cache()
+
+    sources = num_views - 1
+    runs_per_sample = sources + sources  # quasi-optimal pairs, then the sweep over 1..V-1 source views
+    k1_per_sample = sources + sources * (sources + 1) // 2
+    per_sample = [[r for r in runs if r[0] == n] for n in range(num_samples)]
+    starts = dataset.starts + [end]
+    walls = [b - a for a, b in zip(starts, starts[1:])]
+    if [len(r) for r in per_sample] != [runs_per_sample] * num_samples:
+        raise AssertionError(f"{label}: model runs per sample {[len(r) for r in per_sample]}, "
+                             f"expected {runs_per_sample}")
+    if k1 != k1_per_sample * num_samples:
+        raise AssertionError(f"{label}: K1 launched {k1} times in {num_samples} samples, "
+                             f"expected {k1_per_sample} per sample")
+    timed = [r for r in runs if r[0] >= 1]
+    # host time outside the forward: inside the run (adapters, copies) and outside the runs (data, metrics)
+    adapters_share = [sum(r[2] - r[1] for r in per_sample[n]) / 1e3 / walls[n] for n in range(1, num_samples)]
+    if not all(np.isfinite(r[1]) and np.isfinite(r[2]) and r[3] > 0 for r in timed):
+        raise AssertionError(f"{label}: a timed run has no runtime or memory figure: {timed}")
+    if not all(np.isnan(r[1]) for r in per_sample[0]):
+        raise AssertionError(f"{label}: the burn-in sample's runs were timed")
+    absrel = results["best"]["absrel"].to_numpy(np.float64)
+    if not np.isfinite(absrel).all():
+        raise AssertionError(f"{label}: absrel {absrel}")
+    host_share = [1 - sum(r[1] for r in per_sample[n]) / 1e3 / walls[n] for n in range(1, num_samples)]
+    sweep_ms = {n: float(results[n]["runtime_model_in_msec"].iloc[1:].median()) for n in (1, sources // 2, sources)}
+    emit(label, tf32=tf32, views=num_views, keyview_idx=keyview_idx, size=[height, width],
+         model_input=[-(-height // 64) * 64, -(-width // 64) * 64], samples=num_samples, burn_in_samples=1, cut=cut,
+         model_runs_per_sample=runs_per_sample, k1_launches_per_sample=k1 / num_samples,
+         runtime_model_ms_median=statistics.median(r[1] for r in timed),
+         runtime_model_and_io_ms_median=statistics.median(r[2] for r in timed),
+         runtime_model_ms_by_source_views=sweep_ms,
+         wall_s_per_sample=walls, wall_s_per_timed_sample_median=statistics.median(walls[1:]),
+         host_share=host_share, host_share_in_adapters=adapters_share,
+         device_mem_peak_mib=max(r[3] for r in timed), all_views_forward=all_views,
+         best_absrel=absrel.tolist(), best_num_views=results["best"]["num_views"].tolist())
+    return {"k1_launches": k1, "k1_launches_per_sample": k1 / num_samples}
+
+
 def kernel_kind(name):
     """Group profiler rows: convolutions (cuDNN, 2D and 3D, direct, implicit
     GEMM and FFT), GEMMs outside cuDNN (robust_mvd's score matmul; the
@@ -1227,6 +1404,13 @@ def main():
     runs = phase_main(counters)
     family = phase_family_main(counters)
     vis = phase_vis_main(counters)
+    phase_eval_parity(counters)
+    evals = {
+        "eval_kitti": phase_eval_run(counters, "eval_kitti", num_views=21, keyview_idx=10, height=375, width=1242,
+                                     num_samples=3, cut="samples: 3 (synthetic data); views and size as KITTI's"),
+        "eval_eth3d": phase_eval_run(counters, "eval_eth3d", num_views=11, keyview_idx=0, height=1024, width=1536,
+                                     num_samples=2, cut="samples: 2 (synthetic data); views and size as ETH3D's"),
+    }
 
     f32, bf16 = k1["f32"], k1["bf16"]
     k2_main = k2["mvsnet_f32"]
@@ -1243,6 +1427,9 @@ def main():
         "replaces": "robustmvd_tpu/ops/pallas/planesweep_sample.py:55; "
                     "robustmvd_tpu/ops/pallas/planesweep_sample_v2.py:64",
         "launches": runs["fp32"]["launches"]["planesweep_sample"],
+        "launches_by_path": {"robust_mvd": runs["fp32"]["launches"]["planesweep_sample"],
+                             **{path: r["k1_launches"] for path, r in evals.items()}},
+        "launches_per_eval_sample": {path: r["k1_launches_per_sample"] for path, r in evals.items()},
         "max_abs_err": f32["max_abs_err"],
         "ms": f32["ms"],
         "kernel_ms": f32["ms"],

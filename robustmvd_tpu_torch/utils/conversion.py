@@ -3,8 +3,9 @@
 The data contract (reference: rmvd/data/README.md "Data format"): a sample
 is a dict with ``images`` (list of 3HW float32, 0..255), ``poses`` (list of
 4x4 cur->key), ``intrinsics`` (list of 3x3), ``keyview_idx`` (int) and
-``depth_range`` ((min, max)). ``add_batch_dim`` turns one such sample into a
-batch of one, ``remove_batch_dim`` undoes it on the outputs.
+``depth_range`` ((min, max)). ``numpy_collate`` batches samples,
+``add_batch_dim`` turns one sample into a batch of one and
+``remove_batch_dim`` undoes it on the outputs.
 """
 
 from __future__ import annotations
@@ -15,29 +16,61 @@ import numpy as np
 import torch
 
 
-def _collate(batch):
-    """Stack a list of samples along a new leading batch axis.
+def numpy_collate(batch):
+    """Collate a list of samples into a batched sample.
 
-    Lists stay lists, each element batched (reference:
-    rmvd/utils/utils.py:170-237).
+    Dicts are collated per key; lists and tuples are transposed (a list of
+    per-view arrays stays a list, each element batched); arrays and scalars
+    are stacked along a new leading batch axis; strings stay a list
+    (reference: rmvd/utils/utils.py:170-237).
     """
     elem = batch[0]
     if elem is None:
         return None
     if isinstance(elem, np.ndarray):
         return np.stack(batch, 0)
+    if isinstance(elem, np.generic):
+        return np.array(batch)
     if isinstance(elem, float):
         return np.array(batch, dtype=np.float32)
-    if isinstance(elem, (int, np.integer, np.generic)):
+    if isinstance(elem, int):
         return np.array(batch)
+    if isinstance(elem, str):
+        return list(batch)
+    if isinstance(elem, collections.abc.Mapping):
+        return {key: numpy_collate([d[key] for d in batch]) for key in elem}
     if isinstance(elem, collections.abc.Sequence):
-        return [_collate(samples) for samples in zip(*batch)]
-    raise TypeError(f"cannot collate elements of type {type(elem)}")
+        if len({len(e) for e in batch}) != 1:
+            raise RuntimeError("numpy_collate: each list in a batch must have equal length")
+        return [numpy_collate(samples) for samples in zip(*batch)]
+    raise TypeError(f"numpy_collate: unsupported element type {type(elem)}")
 
 
 def add_batch_dim(sample):
     """Wrap a single (unbatched) sample into a batch of one."""
-    return _collate([sample])
+    return numpy_collate([sample])
+
+
+def select_by_index(views, idx):
+    """One element of a list of (possibly batched) views: ``idx`` is an int,
+    or one index per batch sample (reference: rmvd/utils/utils.py:298-321)."""
+    if isinstance(idx, (int, np.integer)):
+        return views[int(idx)]
+    indices = np.asarray(idx).reshape(-1)
+    return np.stack([views[int(i)][b] for b, i in enumerate(indices)], 0)
+
+
+def exclude_index(views, exclude_idx):
+    """All elements of a view list but one index, per batch sample
+
+    (reference: rmvd/utils/utils.py:324-347)."""
+    if isinstance(exclude_idx, (int, np.integer)):
+        return [v for i, v in enumerate(views) if i != int(exclude_idx)]
+    per_sample = [[v[b] for i, v in enumerate(views) if i != int(e)]
+                  for b, e in enumerate(np.asarray(exclude_idx).reshape(-1))]
+    if not per_sample or not all(per_sample):
+        return per_sample
+    return [np.stack(group, 0) for group in zip(*per_sample)]
 
 
 def remove_batch_dim(data):

@@ -1,9 +1,11 @@
-"""Host-side (numpy) bilinear resize with torch-interpolate semantics.
+"""Host-side (numpy) resizes with torch-interpolate semantics.
 
-Half-pixel centers, no antialias: the same values as
+Bilinear: half-pixel centers, no antialias, the same values as
 ``torch.nn.functional.interpolate(mode="bilinear", align_corners=False)``.
-The input adapter resizes images to a multiple of 64 with it, and the CLI
-resizes predictions back to the input size.
+The input adapter resizes images to a multiple of 64 with it, the CLI
+resizes predictions back to the input size, and the data layer resizes
+input images. Nearest (order 0): the data layer's target resize and the
+evaluation's prediction-to-ground-truth resize.
 """
 
 from __future__ import annotations
@@ -36,3 +38,15 @@ def resize_bilinear(img: np.ndarray, size) -> np.ndarray:
 
     rows = img[..., y0, :] * (1 - wy)[:, None] + img[..., y1, :] * wy[:, None]
     return rows[..., :, x0] * (1 - wx) + rows[..., :, x1] * wx
+
+
+def resize_nearest(img: np.ndarray, size) -> np.ndarray:
+    """Order-0 resize of (..., H, W): each output pixel takes the source pixel
+    nearest to its half-pixel center (rounded half to even)."""
+    out_h, out_w = int(size[0]), int(size[1])
+    in_h, in_w = img.shape[-2], img.shape[-1]
+    if (in_h, in_w) == (out_h, out_w):
+        return np.asarray(img)
+    ys = np.clip(np.round(_source_coords_halfpixel(out_h, in_h)).astype(np.int64), 0, in_h - 1)
+    xs = np.clip(np.round(_source_coords_halfpixel(out_w, in_w)).astype(np.int64), 0, in_w - 1)
+    return img[..., ys, :][..., :, xs]

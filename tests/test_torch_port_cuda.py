@@ -1,4 +1,5 @@
-"""The port on the card: CUDA kernels against their plain versions.
+"""The port on the card: CUDA kernels against their plain versions, the
+models and the evaluation engine against the port on the CPU.
 
 Every test here is marked ``cuda`` and skips where there is no CUDA device
 (CUDA kernels have no CPU mode). The file imports neither JAX nor the JAX
@@ -786,3 +787,76 @@ def test_family_kernel_paths_on_card_match_cpu(cuda, name, kwargs, launches):
     else:
         assert within(g, c, 1e-4, 1e-3)
         assert (np.abs(ug - uc) <= 1e-4 * np.abs(uc).mean()).mean() >= 0.99
+
+
+def _evaluate(device, out_dir=None, num_samples=2, burn_in_samples=1):
+    """The evaluation engine with robust_mvd (seeded weights) on ``device``
+    over synthetic samples (3 views, 64x128), nearest ordering."""
+    from robustmvd_tpu_torch import create_dataset, create_evaluation
+
+    evaluation = create_evaluation("mvd", out_dir=out_dir, inputs=["poses", "intrinsics"], view_ordering="nearest",
+                                   verbose=False)
+    dataset = create_dataset("synthetic.train.mvd", num_samples=num_samples, num_views=3, height=64, width=128)
+    return evaluation(dataset=dataset, model=create_model("robust_mvd", device=device), qualitatives=0,
+                      burn_in_samples=burn_in_samples)
+
+
+def test_evaluation_on_card_matches_cpu(cuda, tmp_path):
+    """Every metric column but runtime and memory within PERF.md §2's limits
+    (the 1.03-inlier ratio, a count over a threshold, within a share of 1e-3
+    of the pixels); K1 launched once per source view per run (1 + 2 per
+    sample)."""
+    import pandas as pd
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        before = planesweep_sample.launches
+        card = _evaluate("cuda", str(tmp_path / "cuda"))
+        assert planesweep_sample.launches - before == 2 * 3
+        cpu = _evaluate("cpu", str(tmp_path / "cpu"))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    timing = ("runtime_model_in_sec", "runtime_model_in_msec", "runtime_model_and_io_in_sec",
+              "runtime_model_and_io_in_msec", "device_mem_peak_in_mib")
+    assert list(card.columns) == list(cpu.columns)
+    for column in card.columns:
+        a, b = card[column].to_numpy(np.float64), cpu[column].to_numpy(np.float64)
+        if column[1] in timing:
+            continue
+        if column[1] in ("num_views", "pred_depth_density"):
+            np.testing.assert_array_equal(a, b)
+        elif column[1] == "inliers103":
+            assert np.abs(a - b).max() / 100 <= 1e-3, column
+        else:
+            scale = np.abs(b).mean()
+            assert np.abs(a - b).mean() / scale <= 1e-4 and np.abs(a - b).max() / scale <= 1e-3, column
+    for curve in ("pred", "oracle"):
+        a, b = (pd.read_pickle(tmp_path / d / "per_sample" / "sparsification_curves.pickle").xs(curve, level="curve")
+                .to_numpy(np.float64) for d in ("cuda", "cpu"))
+        scale = np.abs(b).mean()
+        assert np.abs(a - b).mean() / scale <= 1e-4 and np.abs(a - b).max() / scale <= 1e-3, curve
+
+
+def test_evaluation_times_the_forward_with_its_k1_launches(cuda):
+    """After the burn-in sample, each run's runtime_model_in_msec is finite,
+    and the runs' sum covers at least the device time of the K1 launches in
+    them (torch.profiler); device_mem_peak_in_mib is positive."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _evaluate("cuda", num_samples=1, burn_in_samples=0)  # warm-up
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        results = _evaluate("cuda", num_samples=1, burn_in_samples=0)
+    k1_us = sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+                for e in prof.key_averages() if "planesweep_sample" in e.key)
+    runtimes = results.loc[:, [(n, "runtime_model_in_msec") for n in (1, 2)]].to_numpy(np.float64)
+    assert np.isfinite(runtimes).all() and k1_us > 0
+    assert runtimes.sum() >= k1_us / 1e3
+    memory = results.loc[:, (slice(None), "device_mem_peak_in_mib")].to_numpy(np.float64)
+    assert (memory > 0).all()
+
+
+def test_evaluation_leaves_burn_in_runs_untimed(cuda):
+    results = _evaluate("cuda", num_samples=2, burn_in_samples=1)
+    runtimes = results.loc[:, (slice(None), "runtime_model_in_msec")]
+    assert runtimes.loc[0].isna().all() and np.isfinite(runtimes.loc[1].to_numpy(np.float64)).all()
+    assert np.isnan(results.loc[0, (1, "device_mem_peak_in_mib")]) and results.loc[1, (1, "device_mem_peak_in_mib")] > 0

@@ -4,7 +4,8 @@
   fresh interpreter, loads none of them: each model at its defaults, then
   the family on the K4 and K5 paths (``ops/kernels/warp_volume.py``,
   ``ops/kernels/conv3d.py``, ``ops/conv3d.py``) and vis_mvsnet on cuDNN's
-  convolutions.
+  convolutions; then a benchmark sample list (pickled with the JAX
+  package's class paths), ``synthetic`` and an evaluation of robust_mvd.
 - No source file of the package, nor ``chip_smoke.py``, imports them or
   names them in a string (``importlib`` style).
 - Entry points default to the card and raise, naming ``device='cpu'``,
@@ -21,6 +22,8 @@ import pytest
 import torch
 
 import robustmvd_tpu_torch
+from robustmvd_tpu_torch.eval.cli import main as eval_main
+from robustmvd_tpu_torch.eval.cli import parse_args as eval_parse_args
 from robustmvd_tpu_torch.inference import parse_args
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -50,6 +53,11 @@ for name, kwargs, shape in runs:
     model = r.create_model(name, device="cpu", **kwargs)
     pred, _ = model.run(images=images, keyview_idx=0, poses=[np.eye(4, dtype=np.float32), T], intrinsics=[K, K])
     assert pred["depth"].shape == shape, (name, kwargs, pred["depth"].shape)
+assert len(r.create_dataset("kitti.robustmvd.mvd", root="/nonexistent", verbose=False)) == 93
+dataset = r.create_dataset("synthetic.train.mvd", num_samples=2, num_views=3, height=64, width=64)
+results = r.create_evaluation("mvd", inputs=["poses", "intrinsics"], verbose=False)(
+    dataset=dataset, model=r.create_model("robust_mvd", device="cpu"), qualitatives=0)
+assert results.shape[0] == 2 and np.isfinite(results["best"]["absrel"]).all()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
 print("LOADED", bad)
 """ % (FORBIDDEN,)
@@ -89,6 +97,14 @@ def test_entry_points_default_to_the_card(monkeypatch):
     assert parse_args([]).device == "cuda"
 
 
+def test_eval_cli_defaults_to_the_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert eval_parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eval_main(["--eval_type", "mvd", "--dataset", "synthetic.train.mvd", "--model", "robust_mvd",
+                   "--inputs", "poses", "intrinsics", "--output", str(tmp_path)])
+
+
 @pytest.mark.parametrize("name", ["mvsnet_train", "cvp_mvsnet", "vis_mvsnet"])
 def test_family_entry_points_default_to_the_card(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -100,6 +116,14 @@ def test_family_entry_points_default_to_the_card(monkeypatch, name):
 
 
 def test_facade():
+    assert robustmvd_tpu_torch.list_evaluations() == ["mvd", "robustmvd"]
+    assert robustmvd_tpu_torch.has_dataset("kitti.robustmvd.mvd") and robustmvd_tpu_torch.has_dataset("eth3d.mvd")
+    assert robustmvd_tpu_torch.list_base_datasets() == ["dtu", "eth3d", "kitti", "scannet", "synthetic",
+                                                        "tanks_and_temples"]
+    assert robustmvd_tpu_torch.list_dataset_types() == ["mvd"]
+    assert robustmvd_tpu_torch.list_splits(base_dataset="kitti") == ["robustmvd"]
+    assert len(robustmvd_tpu_torch.list_datasets()) == 6
+    assert callable(robustmvd_tpu_torch.create_dataloader) and callable(robustmvd_tpu_torch.create_evaluation)
     assert robustmvd_tpu_torch.list_models() == ["cvp_mvsnet", "mvsnet_train", "robust_mvd", "robust_mvd_5M",
                                                  "vis_mvsnet"]
     assert robustmvd_tpu_torch.has_model("robust_mvd")

@@ -111,3 +111,56 @@ def general_mvd_sample(rng, H, W, num_views, B=1):
         sample["poses"][i] = np.tile(T, (B, 1, 1))
     sample["depth_range"] = (np.full(B, 1.0, np.float32), np.full(B, 10.0, np.float32))
     return sample
+
+
+# image size of each dataset's fixture (write_benchmark_fixtures)
+FIXTURE_IMAGE_SIZES = {"kitti": (24, 80), "dtu": (24, 32), "scannet": (30, 40), "tanks_and_temples": (28, 44),
+                       "eth3d": (24, 36)}
+
+
+def write_benchmark_fixtures(root, rng):
+    """Write the files that sample 0 of each of the five ``*.robustmvd.mvd``
+    sample lists reads, in each dataset's raw format, under ``root/<base
+    dataset>``, with the writers of ``tests/test_dataset_fixtures.py``; return
+    the roots by base dataset name. ETH3D's depth is the reader's fixed 4032 x
+    6048 raw float32."""
+    import os
+    import os.path as osp
+
+    from test_dataset_fixtures import _write_jpg, _write_pfm, _write_png
+
+    from robustmvd_tpu_torch.data import create_dataset
+
+    roots = {}
+    for name, (H, W) in FIXTURE_IMAGE_SIZES.items():
+        sample = create_dataset(f"{name}.robustmvd.mvd", root="/nonexistent", verbose=False).samples[0]
+        roots[name] = osp.join(str(root), name)
+        base = osp.join(roots[name], getattr(sample, "base", ""))
+        for item in sample.data["images"]:
+            pixels = (rng.rand(H, W, 3) * 255).astype(np.uint8)
+            (_write_png if item.path.endswith(".png") else _write_jpg)(osp.join(base, item.path), pixels)
+        depth_path = osp.join(base, sample.data["depth"].path)
+        os.makedirs(osp.dirname(depth_path), exist_ok=True)
+        if name == "kitti":  # 16-bit PNG, depth * 256, 0 = invalid
+            depth = (rng.rand(H, W) * 40 + 2) * 256
+            depth[:2] = 0
+            _write_png(depth_path, depth.astype(np.uint16))
+        elif name == "dtu":  # PFM in mm
+            depth = (rng.rand(H, W) * 500 + 400).astype(np.float32)
+            depth[:3] = np.nan
+            _write_pfm(depth_path, depth)
+        elif name == "scannet":  # 16-bit PNG in mm
+            depth = (rng.rand(H, W) * 4000 + 500).astype(np.uint16)
+            depth[:5] = 0
+            _write_png(depth_path, depth)
+        elif name == "tanks_and_temples":  # npz
+            depth = (rng.rand(H, W) * 5 + 1).astype(np.float32)
+            depth[0] = np.nan
+            with open(depth_path, "wb") as f:
+                np.savez(f, depth)
+        else:  # eth3d: raw float32 at the reader's fixed size
+            depth = (rng.rand(4032, 6048) * 5 + 1).astype(np.float32)
+            depth[:8] = np.nan
+            depth[8, :100] = np.inf
+            depth.tofile(depth_path)
+    return roots
