@@ -71,7 +71,21 @@ CUDA toolkit (``nvcc``). Phases, each printing one JSON line:
             (11 views, 1024x1536, 2 samples): model runs and K1 launches per
             sample, the engine's runtimes, wall seconds per sample, host
             share, peak memory.
-10. the kernels line, and last the ``{"ok": true, ...}`` line.
+10. train:  K1b (the backward of K1) at the recipe's shape (B = 4, 48x96
+            score images of 384x768 crops, S = 256), held against its plain
+            version, timed beside its bound and grid_sample's input gradient;
+            K1's autograd Function on the card vs the CPU; one recipe step
+            (the engine's train_step) of robust_mvd on the card vs the CPU
+            (1+2 views, 64x128, TF32 off, cuDNN deterministic) at iterations
+            0 and 2000: loss, gradients, parameters after the update; then
+            the recipe through ``create_training`` (``train_main``, the main
+            path of this slice): ``synthetic`` with 5 views at 540x960
+            through the StaticThings3D augmentations and the batch
+            augmentations, batch 4, fp32: 3 warm-up and 10 timed steps
+            (ms per step, host share, peak MiB, losses, K1 and K1b
+            launches: 4 each per step), a resume from the final snapshot,
+            and a profile of one step by kernel kind.
+11. the kernels line, and last the ``{"ok": true, ...}`` line.
 
 Any failed check raises and the script exits non-zero; it does nothing
 without a CUDA device. Weights are random, from a seed.
@@ -91,6 +105,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12  # H100 SXM data sheet, dense TF32 on the tensor cores
 MODEL_BOUNDS = (1e-4, 1e-3)  # mean, max relative error (tests/test_torch_port_model.py)
+# K1b vs its plain version, relative to the largest |dS|: atomics add the taps
+# of coinciding hypotheses in another order
+K1B_LIMIT = 1e-5
 K2_LIMIT = 1e-5  # K2 (both modes) vs its plain version: the same op order, no fused multiply-add
 # K3 vs its plain version (torch.softmax and sums over D in another order,
 # expf/logf vs torch's): prob, expectation (+ 1e-6 * D: it reaches D - 1),
@@ -1337,6 +1354,360 @@ def phase_eval_run(counters, label, num_views, keyview_idx, height, width, num_s
     return {"k1_launches": k1, "k1_launches_per_sample": k1 / num_samples}
 
 
+# --- training: K1b, card-vs-CPU parity of a recipe step, the recipe's main path ---
+
+
+def k1b_inputs(device):
+    """K1b's arguments at the recipe's shape: K1's taps for B = 4 key images
+    of 48x96 features (384x768 crops), S = 256, from a real epipolar sweep
+    (many taps coincide along it, some fall outside the image), and a random
+    gradient of K1's output."""
+    import torch
+
+    _, y0, wy, x0, wx = k1_inputs(device, H=48, W=96)
+    y0, wy, x0, wx = (a.repeat(4, 1).contiguous() for a in (y0, wy, x0, wx))
+    grad = torch.randn(y0.shape, generator=torch.Generator(device=device).manual_seed(1), device=device)
+    return grad, y0, wy, x0, wx, 48, 96
+
+
+def k1b_bound(grad, Hs, Ws):
+    """Least time for K1b: dS written once, the gradient and four tap arrays
+    read once, against ~10 flops per sample."""
+    P, S = grad.shape
+    nbytes = P * Hs * Ws * 4 + P * S * 5 * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = P * S * 10 / F32_FLOPS_PER_S * 1e3
+    return {"bytes": nbytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def phase_kernel_k1b():
+    """K1b against its plain version at the recipe's shape; the autograd
+    Function's gradient on the card against the CPU's; the yardstick is
+    grid_sample's input gradient for the same samples."""
+    import torch
+
+    from robustmvd_tpu_torch.ops.kernels.planesweep_sample import planesweep_sample_with_grad
+    from robustmvd_tpu_torch.ops.kernels.planesweep_sample_backward import (
+        planesweep_sample_backward,
+        planesweep_sample_backward_reference,
+        planesweep_sample_backward_route,
+    )
+
+    device = torch.device("cuda")
+    grad, y0, wy, x0, wx, Hs, Ws = k1b_inputs(device)
+    P, S = grad.shape
+    out = planesweep_sample_backward(grad, y0, wy, x0, wx, Hs, Ws)
+    torch.cuda.synchronize()
+    ref = planesweep_sample_backward_reference(grad, y0, wy, x0, wx, Hs, Ws)
+    scale = float(ref.abs().max())
+    limit = K1B_LIMIT * scale
+    err = float((out - ref).abs().max())
+    if not err <= limit:
+        raise AssertionError(f"K1b disagrees with its plain version: max_abs_err {err} > {limit}")
+    # the taps this gradient scatters: how many coincide and how many fall outside
+    ty, tx = y0.long(), x0.long()
+    inside = (ty >= 0) & (ty < Hs - 1) & (tx >= 0) & (tx < Ws - 1)
+    flat = (torch.arange(P, device=device)[:, None] * Hs + ty) * Ws + tx
+    distinct = int(torch.unique(flat[inside]).numel())
+    taps = {"samples_all_taps_inside": int(inside.sum()), "samples_some_tap_outside": int((~inside).sum()),
+            "distinct_top_left_taps_inside": distinct}
+    if not (distinct < taps["samples_all_taps_inside"] and taps["samples_some_tap_outside"] > 0):
+        raise AssertionError(f"K1b's inputs lack coinciding or out-of-range taps: {taps}")
+
+    # the Function on the card vs on the CPU: K1 forward, K1b backward
+    corr = torch.randn((P, Hs, Ws), generator=torch.Generator(device=device).manual_seed(2), device=device)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaf = corr.to(dev).clone().requires_grad_()
+        planesweep_sample_with_grad(leaf, *(a.to(dev) for a in (y0, wy, x0, wx))).backward(grad.to(dev))
+        grads[dev] = leaf.grad
+    function_err = float((grads["cuda"].cpu() - grads["cpu"]).abs().max())
+    if not function_err <= limit:
+        raise AssertionError(f"K1's Function gradient, card vs CPU: max_abs_err {function_err} > {limit}")
+
+    # yardstick: grid_sample's input gradient for the same samples (N = P, one channel, S points)
+    gx = (2.0 * (x0.float() + wx) + 1.0) / Ws - 1.0
+    gy = (2.0 * (y0.float() + wy) + 1.0) / Hs - 1.0
+    grid = torch.stack([gx, gy], -1)[:, None]  # (P, 1, S, 2)
+    img = corr[:, None]
+    g4 = grad[:, None, None]
+
+    def library():
+        return torch.ops.aten.grid_sampler_2d_backward(g4, img, grid, 0, 0, False, [True, False])[0]
+
+    lib_diff = float((library()[:, 0] - out).abs().max())
+    result = {
+        "max_abs_err": err, "limit": limit, "grad_scale": scale, "function_card_vs_cpu_max_abs_err": function_err,
+        "route": planesweep_sample_backward_route(Hs, Ws),
+        "ms": time_ms(lambda: planesweep_sample_backward(grad, y0, wy, x0, wx, Hs, Ws)),
+        "plain_ms": time_ms(lambda: planesweep_sample_backward_reference(grad, y0, wy, x0, wx, Hs, Ws), runs=10),
+        "library_ms": time_ms(library), "library_max_abs_diff": lib_diff, **taps, **k1b_bound(grad, Hs, Ws),
+    }
+    emit("kernel_k1b", name="planesweep_sample_backward", shape={"P": P, "Hs": Hs, "Ws": Ws, "S": S}, **result)
+    torch.cuda.empty_cache()
+    return result
+
+
+def train_batch(rng, B, V, H, W):
+    """A recipe batch as the engine feeds the model: images normalised to
+    [-0.4, 0.6], relative intrinsics, key->source poses with small rotations
+    and a lateral baseline, and inverse depth ground truth with holes."""
+    images = rng.rand(B, V, 3, H, W).astype(np.float32) - 0.4
+    K = np.tile(np.array([[0.9, 0, 0.5], [0, 1.2, 0.5], [0, 0, 1]], np.float32), (B, V, 1, 1))
+    poses = np.tile(np.eye(4, dtype=np.float32), (B, V, 1, 1))
+    for v in range(1, V):
+        angle = rng.randn(3) * 0.05
+        c, s = np.cos(angle), np.sin(angle)
+        poses[:, v, :3, :3] = (np.array([[1, 0, 0], [0, c[0], -s[0]], [0, s[0], c[0]]])
+                               @ np.array([[c[1], 0, s[1]], [0, 1, 0], [-s[1], 0, c[1]]])
+                               @ np.array([[c[2], -s[2], 0], [s[2], c[2], 0], [0, 0, 1]]))
+        poses[:, v, :3, 3] = [0.1 * v, 0.02 * rng.randn(), 0.02 * rng.randn()]
+    invdepth = (1.0 / (rng.rand(B, 1, H, W) * 8.0 + 2.0)).astype(np.float32)
+    invdepth[:, :, ::7, ::5] = 0.0
+    return ({"images": images, "poses": poses, "intrinsics": K, "keyview_idx": np.zeros(B, np.int64)},
+            {"invdepth": invdepth})
+
+
+def recipe_engine(out_dir, model, dataset, max_iterations, batch_size, num_workers=0):
+    """The recipe (train_all.sh:8-18) through create_training: adam 1e-4,
+    flownet_scheduler, clip 5, robust_mvd_loss, robust_mvd_batch_augmentations."""
+    import robustmvd_tpu_torch as rmvd
+
+    optimizer = rmvd.create_optimizer("adam", model=model, lr=1e-4)
+    return rmvd.create_training(
+        "mvd", out_dir=out_dir, model=model, dataset=dataset, optimizer=optimizer,
+        scheduler=rmvd.create_scheduler("flownet_scheduler", optimizer=optimizer),
+        loss=rmvd.create_loss("robust_mvd_loss", model=model), batch_size=batch_size,
+        max_iterations=max_iterations, inputs=["poses", "intrinsics"],
+        batch_augmentations="robust_mvd_batch_augmentations", grad_clip_max_norm=5.0, num_workers=num_workers,
+        verbose=False)
+
+
+def grad_errors(ours, ref):
+    """Per parameter, max |d| against the bound of tests/test_gradient_parity.py:
+    rtol 2e-3 and atol max(2e-3 x the leaf's max |g|, 1e-4 x the largest max |g|)."""
+    global_scale = max(float(r.abs().max()) for r in ref.values()) + 1e-12
+    worst, failed = {}, []
+    for name, r in ref.items():
+        o = ours[name]
+        atol = max(2e-3 * (float(r.abs().max()) + 1e-12), 1e-4 * global_scale)
+        excess = float(((o - r).abs() - (atol + 2e-3 * r.abs())).max())
+        worst[name] = float((o - r).abs().max())
+        if excess > 0:
+            failed.append(name)
+    return worst, failed
+
+
+def phase_train_parity(counters):
+    """One recipe step (the engine's train_step: forward, loss, backward,
+    clip, adam, schedule) of full-width robust_mvd on the card vs on the CPU:
+    same seeded weights and batch, B = 1, 1+2 views, 64x128, TF32 off, cuDNN
+    deterministic; loss, gradients and the parameters after the update, at
+    iteration 0 (MAE) and 2000 (Laplacian NLL)."""
+    import torch
+
+    import robustmvd_tpu_torch as rmvd
+
+    tf32 = set_tf32(False)
+    torch.backends.cudnn.deterministic = True
+    inputs, gt = train_batch(np.random.RandomState(3), 1, 3, 64, 128)
+    lr = 1e-4
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dataset = rmvd.create_dataset("synthetic.train.mvd", num_samples=1, num_views=3, height=64, width=128)
+        for iteration in (0, 2000):
+            steps = {}
+            for device in ("cpu", "cuda"):
+                model = rmvd.create_model("robust_mvd", device=device, seed=0, train=True)
+                training = recipe_engine(os.path.join(tmp, f"{device}_{iteration}"), model, dataset, 1, 1)
+                training.finished_iterations = iteration
+                before = {n: p.detach().clone() for n, p in model.named_parameters()}
+                counters.reset()
+                loss, _ = training.train_step({k: torch.from_numpy(v).to(device) for k, v in inputs.items()},
+                                              {k: torch.from_numpy(v).to(device) for k, v in gt.items()})
+                steps[device] = {"loss": float(loss), "launches": counters.read(),
+                                 "grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                                 "before": {n: v.cpu() for n, v in before.items()},
+                                 "after": {n: p.detach().cpu() for n, p in model.named_parameters()}}
+                del model, training
+            card, cpu = steps["cuda"], steps["cpu"]
+            loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+            if not loss_rel <= 1e-4:
+                raise AssertionError(f"train step at {iteration}: loss card {card['loss']} vs CPU {cpu['loss']}")
+            worst, failed = grad_errors(card["grads"], cpu["grads"])
+            if failed:
+                raise AssertionError(f"train step at {iteration}: gradients off the bound at {failed}")
+            # Adam's first step moves p by lr g / (|g| + eps): a gradient difference d moves it by at most
+            # lr min(2, 2 |d| / (|g| + eps)); plus float32 rounding of p
+            update_excess = []
+            for name, g in cpu["grads"].items():
+                d = (card["grads"][name] - g).abs()
+                tol = 1e-6 * cpu["before"][name].abs() + lr * (1e-4 + torch.clamp(2 * d / (g.abs() + 1e-8), max=2.0))
+                update_excess.append(float(((card["after"][name] - cpu["after"][name]).abs() - tol).max()))
+            if max(update_excess) > 0:
+                raise AssertionError(f"train step at {iteration}: parameters after the update off by "
+                                     f"{max(update_excess)} beyond their bound")
+            moved = sum(int((cpu["after"][n] != cpu["before"][n]).sum()) for n in cpu["before"])
+            if card["launches"]["planesweep_sample"] != 2 or card["launches"]["planesweep_sample_backward"] != 2:
+                raise AssertionError(f"train step on the card launched {card['launches']}, expected K1 and K1b twice")
+            results[iteration] = {"loss_card": card["loss"], "loss_cpu": cpu["loss"], "loss_rel_err": loss_rel,
+                                  "grad_max_abs_err_worst": max(worst.values()),
+                                  "grad_max_abs_err_worst_param": max(worst, key=worst.get),
+                                  "update_excess_max": max(update_excess), "params_moved": moved,
+                                  "launches_card": {k: v for k, v in card["launches"].items() if v}}
+    torch.backends.cudnn.deterministic = False
+    if results[0]["loss_cpu"] == results[2000]["loss_cpu"]:
+        raise AssertionError("iterations 0 and 2000 gave one loss: the NLL branch was not taken")
+    emit("train_parity", tf32=tf32, batch=1, views=3, shape=[64, 128], lr=lr, steps=results)
+    torch.cuda.empty_cache()
+
+
+def train_kernel_kind(name):
+    """Group a training step's kernels: K1b, K1, cuDNN's convolutions forward
+    (fprop), backward (dgrad, wgrad) and FFT (either direction), GEMMs outside
+    cuDNN (the score matmul and its backward), the optimizer, the rest."""
+    if "planesweep_sample_backward" in name:
+        return "k1b_planesweep_sample_backward"
+    if "planesweep_sample" in name:
+        return "k1_planesweep_sample"
+    if any(key in name for key in ("fft", "cf32", "region_transform")):
+        return "convolutions_fft"
+    if "dgrad" in name or "wgrad" in name:
+        return "convolutions_backward"
+    if any(key in name for key in ("fprop", "convolve", "cudnn")):
+        return "convolutions_forward"
+    if "gemm" in name:
+        return "gemm"
+    if "multi_tensor_apply" in name or "adam" in name.lower():
+        return "optimizer"
+    if "HtoD" in name or "DtoH" in name:
+        return "memcpy"
+    return "other"
+
+
+def phase_train_main(counters):
+    """The recipe through create_training on the card: synthetic.train.mvd
+    with 5 views at StaticThings3D's raw 540x960, its augmentations (384x768
+    crops), the batch augmentations, batch 4, fp32, TF32 off; 3 warm-up and
+    10 timed steps, then a resume from the final snapshot and one more step;
+    a profile of one step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import robustmvd_tpu_torch as rmvd
+
+    tf32 = set_tf32(False)
+    warmup, timed, batch = 3, 10, 4
+    workers = min(8, os.cpu_count() or 1)
+    dataset = rmvd.create_dataset("synthetic.train.mvd", num_samples=4 * batch * (warmup + timed), num_views=5,
+                                  height=540, width=960, augmentations="robust_mvd_augmentations_staticthings3d")
+    np.random.seed(42)
+    torch.manual_seed(42)
+    with tempfile.TemporaryDirectory() as out_dir:
+        model = rmvd.create_model("robust_mvd", seed=0, train=True)
+        training = recipe_engine(out_dir, model, dataset, warmup + timed, batch, num_workers=workers)
+        step = training.train_step
+        notes = []
+
+        def noted_step(sample_inputs, sample_gt):
+            if len(notes) == warmup:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            loss, sub_losses = step(sample_inputs, sample_gt)
+            end.record()
+            notes.append((t0, start, end, loss))
+            if len(notes) == warmup + timed:  # the last step ends on the card, before the final snapshots
+                torch.cuda.synchronize()
+                notes.append(time.perf_counter())
+            return loss, sub_losses
+
+        training.train_step = noted_step
+        counters.reset()
+        t_start = time.perf_counter()
+        training()
+        launches = counters.read()
+        t_end = notes.pop()
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        losses = [float(n[3]) for n in notes]
+        if len(notes) != warmup + timed or not all(np.isfinite(losses)):
+            raise AssertionError(f"train_main: {len(notes)} steps, losses {losses}")
+        per_step = {"planesweep_sample": launches["planesweep_sample"] / len(notes),
+                    "planesweep_sample_backward": launches["planesweep_sample_backward"] / len(notes)}
+        if per_step != {"planesweep_sample": 4.0, "planesweep_sample_backward": 4.0}:
+            raise AssertionError(f"train_main: launches {launches} in {len(notes)} steps, expected 4 K1 and 4 K1b "
+                                 "per step (4 source views)")
+        starts = [n[0] for n in notes] + [t_end]
+        walls = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])][warmup:]
+        device_ms = [n[1].elapsed_time(n[2]) for n in notes][warmup:]
+        host_share = [1 - d / w for d, w in zip(device_ms, walls)]
+        snaps = sorted(os.listdir(os.path.join(out_dir, "checkpoints")))
+        if snaps != [f"snapshot-iter-{warmup + timed:09d}.pt"]:
+            raise AssertionError(f"train_main: snapshots {snaps}")
+
+        # resume: a new model and engine pick up the snapshot and take one more step
+        t0 = time.perf_counter()
+        model2 = rmvd.create_model("robust_mvd", seed=1, train=True)
+        resumed = recipe_engine(out_dir, model2, dataset, warmup + timed + 1, batch, num_workers=workers)
+        resume_s = time.perf_counter() - t0
+        if resumed.finished_iterations != warmup + timed or any(
+                not torch.equal(p, q) for p, q in zip(model.state_dict().values(), model2.state_dict().values())):
+            raise AssertionError("train_main: the resumed engine did not restore the snapshot")
+        resumed_losses = []
+        resumed_step = resumed.train_step
+
+        def kept_step(sample_inputs, sample_gt):
+            loss, sub_losses = resumed_step(sample_inputs, sample_gt)
+            resumed_losses.append(float(loss))
+            return loss, sub_losses
+
+        resumed.train_step = kept_step
+        if resumed()["iteration"] != warmup + timed + 1 or not np.isfinite(resumed_losses).all():
+            raise AssertionError(f"train_main: the resumed step gave {resumed_losses}")
+
+        # one step under the profiler, on a batch prepared before it
+        inputs, gt = training.prepare_batch(rmvd.utils.numpy_collate([dataset[i] for i in range(batch)]))
+        torch.cuda.synchronize()
+        for _ in range(2):  # the first profile pays the tracer's start-up
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                step(inputs, gt)
+                torch.cuda.synchronize()
+                profiled_ms = (time.perf_counter() - t0) * 1e3
+        del model, model2, training, resumed
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = e.self_cuda_time_total
+        if dev_us > 0:
+            rows.append((e.key, dev_us / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    by_kind = {}
+    for name, ms, _ in rows:
+        by_kind[train_kernel_kind(name)] = by_kind.get(train_kernel_kind(name), 0.0) + ms
+    device_total = sum(r[1] for r in rows)
+    breakdown = {"step_ms": profiled_ms, "device_ms": device_total, "device_busy_share": device_total / profiled_ms,
+                 "device_ms_by_kind": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
+                 "top": [{"name": k[:100], "ms": ms, "calls": n} for k, ms, n in rows[:20]]}
+    result = {"ms_per_step": statistics.median(walls), "ms_per_step_mean": statistics.mean(walls),
+              "ms_per_step_min": min(walls), "ms_per_timed_step": walls, "device_ms_per_timed_step": device_ms,
+              "device_ms_per_step": statistics.median(device_ms),
+              "host_share": statistics.median(host_share), "peak_mib": peak_mib, "launches": launches,
+              "launches_per_step": per_step, "losses": losses, "resumed_losses": resumed_losses,
+              "resume_s": resume_s, "wall_s_to_last_step": t_end - t_start}
+    emit("train_main", tf32=tf32, dataset="synthetic.train.mvd", raw_size=[540, 960], crop=[384, 768], views=5,
+         batch=batch, warmup=warmup, timed=timed, workers=workers, dtype="float32", **result)
+    emit("breakdown_train", **breakdown)
+    torch.cuda.empty_cache()
+    return result
+
+
 def kernel_kind(name):
     """Group profiler rows: convolutions (cuDNN, 2D and 3D, direct, implicit
     GEMM and FFT), GEMMs outside cuDNN (robust_mvd's score matmul; the
@@ -1392,6 +1763,7 @@ def main():
     phase_build()
     phase_card()
     k1 = phase_kernel()
+    k1b = phase_kernel_k1b()
     k2 = phase_kernel_k2()
     k2g = phase_kernel_k2_group()
     k3 = phase_kernel_k3()
@@ -1411,6 +1783,8 @@ def main():
         "eval_eth3d": phase_eval_run(counters, "eval_eth3d", num_views=11, keyview_idx=0, height=1024, width=1536,
                                      num_samples=2, cut="samples: 2 (synthetic data); views and size as ETH3D's"),
     }
+    phase_train_parity(counters)
+    train = phase_train_main(counters)
 
     f32, bf16 = k1["f32"], k1["bf16"]
     k2_main = k2["mvsnet_f32"]
@@ -1428,7 +1802,8 @@ def main():
                     "robustmvd_tpu/ops/pallas/planesweep_sample_v2.py:64",
         "launches": runs["fp32"]["launches"]["planesweep_sample"],
         "launches_by_path": {"robust_mvd": runs["fp32"]["launches"]["planesweep_sample"],
-                             **{path: r["k1_launches"] for path, r in evals.items()}},
+                             **{path: r["k1_launches"] for path, r in evals.items()},
+                             "train_main": train["launches"]["planesweep_sample"]},
         "launches_per_eval_sample": {path: r["k1_launches_per_sample"] for path, r in evals.items()},
         "max_abs_err": f32["max_abs_err"],
         "ms": f32["ms"],
@@ -1438,6 +1813,23 @@ def main():
         "bound_by": f32["bound_by"],
         "library_ms": f32["library_ms"],
         "bf16": {k: bf16[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    }, {
+        "name": "planesweep_sample_backward",
+        "route": "cuda",
+        "status": "new",
+        "source": "robustmvd_tpu_torch/csrc/planesweep_sample_backward.cu",
+        "replaces": "none: the backward of robustmvd_tpu/ops/pallas/planesweep_sample.py:55, which has no Pallas "
+                    "VJP (the JAX package differentiates its XLA correlation routes)",
+        "launches": train["launches"]["planesweep_sample_backward"],
+        "launches_by_path": {"train_main": train["launches"]["planesweep_sample_backward"]},
+        "launches_per_train_step": train["launches_per_step"]["planesweep_sample_backward"],
+        "max_abs_err": k1b["max_abs_err"],
+        "ms": k1b["ms"],
+        "plain_ms": k1b["plain_ms"],
+        "bound_ms": k1b["bound_ms"],
+        "bound_by": k1b["bound_by"],
+        "library_ms": k1b["library_ms"],  # grid_sample's input gradient for the same samples
+        "kernel_route": k1b["route"],
     }, {
         "name": "sweep_warp",
         "route": "cuda",

@@ -1,21 +1,29 @@
 """The data layer: datasets by registry name, samples as numpy dicts
 
 (reference: rmvd/data/__init__.py). The five Robust MVD benchmark datasets
-and ``synthetic``; the training datasets and augmentations come with the
-training slice."""
+and ``synthetic``, the augmentation and batch augmentation presets, and the
+compound dataset; the training datasets' readers come with a later slice."""
 
-from . import datasets  # noqa: F401  (the dataset definitions register themselves)
+from . import augmentations, batch_augmentations, datasets  # noqa: F401  (they register themselves)
 from .dataset import Dataset, Sample  # noqa: F401
 from .dtu import DTURobustMVD  # noqa: F401
 from .eth3d import ETH3DTrainRobustMVD  # noqa: F401
-from .factory import create_dataloader, create_dataset  # noqa: F401
+from .factory import create_compound_dataset, create_dataloader, create_dataset  # noqa: F401
 from .kitti import KITTIRobustMVD  # noqa: F401
 from .registry import (  # noqa: F401
+    create_augmentation,
+    create_batch_augmentation,
+    has_augmentation,
+    has_batch_augmentation,
     has_dataset,
+    list_augmentations,
+    list_batch_augmentations,
     list_base_datasets,
     list_datasets,
     list_dataset_types,
     list_splits,
+    register_augmentation,
+    register_batch_augmentation,
     register_dataset,
     register_default_dataset,
 )

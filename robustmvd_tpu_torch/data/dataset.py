@@ -27,6 +27,7 @@ from ..utils import paths as paths_util
 from ..utils.geometry import compute_depth_range, invert_transform
 from .loader import DataLoader
 from .transforms import ResizeInputs, ResizeTargets
+from .registry import create_augmentation
 from .updates import PickledUpdates
 
 _PACKAGE = __name__.split(".")[0]
@@ -135,7 +136,8 @@ class Dataset(abc.ABC):
 
         self.input_resize = ResizeInputs(size=input_size) if input_size is not None else None
         self.target_resize = ResizeTargets(size=target_size) if target_size is not None else None
-        self.augmentations = augmentations or []  # callables on the sample dict
+        # callables on the sample dict, or augmentation presets by name
+        self.augmentations = [create_augmentation(a) if isinstance(a, str) else a for a in augmentations or []]
 
         self.samples = []
         self._init_samples(**kwargs)

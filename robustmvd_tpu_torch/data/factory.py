@@ -20,6 +20,13 @@ def create_dataset(dataset_name_or_path, dataset_type=None, split=None, **kwargs
     return cls(**kwargs)
 
 
+def create_compound_dataset(datasets, common_keys=None, **kwargs):
+    """Concatenate datasets (reference: rmvd/data/factory.py:93)."""
+    from .compound_dataset import CompoundDataset
+
+    return CompoundDataset(datasets=datasets, common_keys=common_keys, **kwargs)
+
+
 def create_dataloader(dataset, batch_size=1, shuffle=False, num_workers=0, drop_last=False, collate_fn=None,
                       seed=None):
     """A loader over ``dataset`` (:class:`~robustmvd_tpu_torch.data.loader.DataLoader`;

@@ -3,8 +3,8 @@
 Interface of the reference registry (rmvd/data/registry.py:8-252), as in the
 JAX package: dataset names are dotted ``base[.split][.type]`` strings; a
 registered default split resolves names like ``eth3d.mvd`` ->
-``(eth3d, mvd, robustmvd)``. The augmentation registry comes with the
-training slice.
+``(eth3d, mvd, robustmvd)``. Augmentation and batch augmentation presets
+have registries of their own, by name.
 """
 
 from __future__ import annotations
@@ -150,3 +150,46 @@ def get_dataset(dataset_name, dataset_type=None, split=None):
     if key not in _datasets:
         raise ValueError(f"Dataset {key} is not registered. Available: {sorted(_datasets)}")
     return _datasets[key]
+
+
+# augmentation presets and batch augmentation presets, by function name
+_aug_fcts = {}
+_batch_aug_fcts = {}
+
+
+def register_augmentation(fn):
+    _aug_fcts[fn.__name__] = fn
+    return fn
+
+
+def list_augmentations():
+    return sorted(_aug_fcts)
+
+
+def has_augmentation(name):
+    return name in _aug_fcts
+
+
+def create_augmentation(name, **kwargs):
+    if not has_augmentation(name):
+        raise ValueError(f'Unknown augmentation "{name}". Available: {" ".join(list_augmentations())}')
+    return _aug_fcts[name](**kwargs)
+
+
+def register_batch_augmentation(fn):
+    _batch_aug_fcts[fn.__name__] = fn
+    return fn
+
+
+def list_batch_augmentations():
+    return sorted(_batch_aug_fcts)
+
+
+def has_batch_augmentation(name):
+    return name in _batch_aug_fcts
+
+
+def create_batch_augmentation(name, **kwargs):
+    if not has_batch_augmentation(name):
+        raise ValueError(f'Unknown batch augmentation "{name}". Available: {" ".join(list_batch_augmentations())}')
+    return _batch_aug_fcts[name](**kwargs)

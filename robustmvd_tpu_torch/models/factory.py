@@ -19,7 +19,9 @@ def create_model(name, pretrained=True, weights=None, train=False, device=None, 
         pretrained: accepted for interface parity; there is no download,
             so without ``weights`` the weights are initialised from ``seed``.
         weights: path to a rmvd ``.pt`` checkpoint.
-        train: training is not part of the port yet; must be False.
+        train: build the model for training (``.train()`` mode); only
+            robust_mvd and robust_mvd_5M train in the port so far, the
+            MVSNet family raises.
         device: ``None`` (the card), ``"cuda"``, ``"cuda:N"`` or ``"cpu"``.
             Without a card, ``None`` raises instead of using the CPU.
         **kwargs: the model's own arguments; ``conv3d_impl`` and

@@ -66,7 +66,7 @@ class RobustMVD(ModelBase):
 
     intrinsics (B, V, 3, 3) relative and keyview_idx (B,)."""
 
-    def __init__(self, device, weights=None, seed=0):
+    def __init__(self, device, weights=None, seed=0, train=False):
         super().__init__()
         self.encoder = DispnetEncoder()
         self.context_encoder = DispnetContextEncoder()
@@ -77,7 +77,9 @@ class RobustMVD(ModelBase):
             init_weights(self, torch.Generator().manual_seed(seed))
         else:
             self.load_state_dict(load_checkpoint(weights))
-        self.to(device).eval()
+        # the path has no BatchNorm and no dropout: the mode only tells the
+        # caller whether the model was built for training
+        self.to(device).train(train)
 
     def forward(self, images, poses, intrinsics, keyview_idx):
         B, V, _, H, W = images.shape
@@ -142,9 +144,7 @@ class RobustMVD(ModelBase):
 
 
 def _entry(weights, train, device, seed):
-    if train:
-        raise NotImplementedError("robust_mvd training is not ported yet; use train=False")
-    return RobustMVD(device=device, weights=weights, seed=seed)
+    return RobustMVD(device=device, weights=weights, seed=seed, train=train)
 
 
 @register_model

@@ -15,11 +15,15 @@ the same order:
    a plain large product left to ``torch.matmul``;
 2. the tap coordinates ``x0, y0, wx, wy`` from :func:`planesweep_points`;
 3. K1 (``ops/kernels/planesweep_sample.py``) samples each pixel's score
-   image at its S points;
+   image at its S points; under autograd its backward is K1b, which gives
+   the scores their gradient, and ``torch.matmul``'s own backward takes it
+   on to both feature maps (the coordinates get none);
 4. the all-taps-in-bounds mask (``wsum >= 0.9999``) and the visibility mask.
 
 Source views run one after another, so only one (HW, HsWs) score matrix is
-alive at a time (about 1.2 GB at DTU's 896x1216).
+alive at a time (about 1.2 GB at DTU's 896x1216). Under autograd no score
+matrix is kept for the backward: the product saves its two inputs and K1
+only its taps.
 
 Layouts are the JAX package's: features (B, H, W, C), correlation volumes
 and masks (B, V, H, W, S).
@@ -32,7 +36,7 @@ import math
 import torch
 
 from .epipolar import make_epipolar_coeffs, planesweep_points, sampling_invdepths
-from .kernels.planesweep_sample import planesweep_sample
+from .kernels.planesweep_sample import planesweep_sample_with_grad
 
 
 def tap_coordinates(us, vs):
@@ -101,8 +105,8 @@ def planesweep_correlation_single(feat_key, feat_src, intrinsics_key, intrinsics
                           feat_src.reshape(B, Hs * Ws, C).float().transpose(1, 2))
     scores.mul_(1.0 / math.sqrt(C))
     x0, y0, wx, wy = tap_coordinates(us, vs)
-    out = planesweep_sample(scores.reshape(B * H * W, Hs, Ws), y0.reshape(-1, S),
-                            wy.reshape(-1, S), x0.reshape(-1, S), wx.reshape(-1, S))
+    out = planesweep_sample_with_grad(scores.reshape(B * H * W, Hs, Ws), y0.reshape(-1, S),
+                                      wy.reshape(-1, S), x0.reshape(-1, S), wx.reshape(-1, S))
     return finish_corr(out.reshape(B, H * W, S), vis, x0, y0, wx, wy, Hs, Ws)
 
 

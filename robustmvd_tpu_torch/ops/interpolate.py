@@ -1,4 +1,5 @@
-"""Device-side resizes: bilinear (torch semantics) and bicubic x2 (JAX's).
+"""Device-side resizes: bilinear (torch semantics), bicubic x2 (JAX's) and
+the losses' nearest resize of ground truth (:func:`resize_nearest_torch`).
 
 ``resize_bilinear``: half-pixel centers, no antialias, the semantics of the
 reference's ``F.interpolate(mode="bilinear", align_corners=False)``
@@ -59,3 +60,18 @@ def resize_bicubic_x2(x):
     wh = _bicubic_x2_weights(H, x.device)  # (H, 2H)
     ww = _bicubic_x2_weights(W, x.device)  # (W, 2W)
     return torch.matmul(torch.matmul(wh.t(), x), ww)
+
+
+def resize_nearest_torch(x, size):
+    """Nearest resize of (..., H, W) with the legacy floor rule of torch's
+
+    ``F.interpolate(mode="nearest")``, ``src = floor(dst * in / out)``, its
+    ratio and product in float32 as the JAX package's
+    ``ops/interpolate.py::resize_nearest_torch`` computes them. The losses
+    resample their ground truth this way (rmvd/loss/multi_scale_uni_laplace.py:92-99).
+    """
+    H, W = x.shape[-2:]
+    out_h, out_w = int(size[0]), int(size[1])
+    ys = torch.floor(torch.arange(out_h, dtype=torch.float32, device=x.device) * (H / out_h)).long().clamp(0, H - 1)
+    xs = torch.floor(torch.arange(out_w, dtype=torch.float32, device=x.device) * (W / out_w)).long().clamp(0, W - 1)
+    return x.index_select(-2, ys).index_select(-1, xs)

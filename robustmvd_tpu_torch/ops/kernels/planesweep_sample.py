@@ -9,6 +9,11 @@ source note says what bounds it and how it is laid out.
 For a CUDA tensor the wrapper launches the kernel or raises. For a CPU
 tensor it computes the same function with :func:`planesweep_sample_reference`,
 the plain torch version, which is also what the kernel is held against.
+
+:func:`planesweep_sample_with_grad` is K1 as a ``torch.autograd.Function``
+for training: its backward is K1b (``planesweep_sample_backward.py``) and
+gives the score images their gradient; the coordinates get none, as in the
+JAX package, where they depend on no parameter.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import ctypes
 import torch
 
 from . import build
+from .planesweep_sample_backward import planesweep_sample_backward
 
 _NAME = "planesweep_sample"
 
@@ -98,6 +104,31 @@ def planesweep_sample(corr_img, y0, wy, x0, wx):
 
 
 planesweep_sample.launches = 0
+
+
+class _PlanesweepSample(torch.autograd.Function):
+    """K1 forward, K1b backward. Saves only the taps: the (P, Hs, Ws) score
+    images are not needed for the gradient and are not kept."""
+
+    @staticmethod
+    def forward(ctx, corr_img, y0, wy, x0, wx):
+        ctx.save_for_backward(y0, wy, x0, wx)
+        ctx.score_shape = tuple(corr_img.shape[1:])
+        return planesweep_sample(corr_img, y0, wy, x0, wx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        y0, wy, x0, wx = ctx.saved_tensors
+        d_corr = None
+        if ctx.needs_input_grad[0]:
+            d_corr = planesweep_sample_backward(grad, y0, wy, x0, wx, *ctx.score_shape)
+        return d_corr, None, None, None, None
+
+
+def planesweep_sample_with_grad(corr_img, y0, wy, x0, wx):
+    """:func:`planesweep_sample`, differentiable with respect to ``corr_img``
+    (K1b on the card, the plain ``scatter_add_`` version on the CPU)."""
+    return _PlanesweepSample.apply(corr_img, y0, wy, x0, wx)
 
 
 def _entry(symbol):

@@ -1,5 +1,6 @@
 """The port on the card: CUDA kernels against their plain versions, the
-models and the evaluation engine against the port on the CPU.
+models, the evaluation engine and the training step against the port on the
+CPU.
 
 Every test here is marked ``cuda`` and skips where there is no CUDA device
 (CUDA kernels have no CPU mode). The file imports neither JAX nor the JAX
@@ -17,6 +18,12 @@ from robustmvd_tpu_torch.ops.corr import planesweep_correlation
 from robustmvd_tpu_torch.ops.kernels.planesweep_sample import (
     planesweep_sample,
     planesweep_sample_reference,
+    planesweep_sample_with_grad,
+)
+from robustmvd_tpu_torch.ops.kernels.planesweep_sample_backward import (
+    planesweep_sample_backward,
+    planesweep_sample_backward_reference,
+    planesweep_sample_backward_route,
 )
 from robustmvd_tpu_torch.ops.homography import get_homography_coeffs, matmul_sums
 from robustmvd_tpu_torch.ops.kernels.soft_argmin import (
@@ -860,3 +867,120 @@ def test_evaluation_leaves_burn_in_runs_untimed(cuda):
     runtimes = results.loc[:, (slice(None), "runtime_model_in_msec")]
     assert runtimes.loc[0].isna().all() and np.isfinite(runtimes.loc[1].to_numpy(np.float64)).all()
     assert np.isnan(results.loc[0, (1, "device_mem_peak_in_mib")]) and results.loc[1, (1, "device_mem_peak_in_mib")] > 0
+
+
+def _k1b_taps(seed, P, Hs, Ws, S):
+    """K1b's arguments: random taps, a quarter of them coinciding (one tap
+    per row repeated), some out of range and the +-1e9 sentinels."""
+    corr, y0, wy, x0, wx = _taps(seed, P, Hs, Ws, S)
+    y0[:, S // 2: S // 2 + S // 4] = y0[:, S // 2: S // 2 + 1]
+    x0[:, S // 2: S // 2 + S // 4] = x0[:, S // 2: S // 2 + 1]
+    grad = torch.from_numpy(np.random.RandomState(seed + 1).randn(P, S).astype(np.float32))
+    return grad, y0, wy, x0, wx
+
+
+# (P, Hs, Ws, S): the row in shared memory (float4 rows; odd rows; S beyond a
+# block's 256 threads; a row of two pixels), then rows beyond the block's
+# shared memory
+@pytest.mark.parametrize("shape,route", [((40, 6, 8, 16), "shared"), ((37, 6, 7, 300), "shared"),
+                                         ((1000, 12, 40, 256), "shared"), ((3, 1, 2, 9), "shared"),
+                                         ((2, 48, 96, 256), "shared"), ((5, 128, 512, 64), "global")])
+def test_k1b_matches_plain_version(cuda, shape, route):
+    """Within 1e-5 of the gradient's largest magnitude: atomics add the taps of
+    coinciding hypotheses in another order."""
+    P, Hs, Ws, S = shape
+    grad, y0, wy, x0, wx = (a.to(cuda) for a in _k1b_taps(0, P, Hs, Ws, S))
+    assert planesweep_sample_backward_route(Hs, Ws) == route
+    before = planesweep_sample_backward.launches
+    out = planesweep_sample_backward(grad, y0, wy, x0, wx, Hs, Ws)
+    torch.cuda.synchronize()
+    assert planesweep_sample_backward.launches == before + 1
+    ref = planesweep_sample_backward_reference(grad, y0, wy, x0, wx, Hs, Ws)
+    assert out.shape == (P, Hs, Ws) and ref.abs().max() > 0
+    torch.testing.assert_close(out, ref, atol=1e-5 * float(ref.abs().max()), rtol=0)
+    cpu = planesweep_sample_backward_reference(*(a.cpu() for a in (grad, y0, wy, x0, wx)), Hs, Ws)
+    torch.testing.assert_close(ref.cpu(), cpu, atol=1e-6 * float(cpu.abs().max()), rtol=0)
+
+
+def test_k1b_rejects_mixed_devices_and_wrong_types(cuda):
+    grad, y0, wy, x0, wx = _k1b_taps(1, 4, 3, 5, 8)
+    with pytest.raises(ValueError):
+        planesweep_sample_backward(grad.to(cuda), y0, wy.to(cuda), x0.to(cuda), wx.to(cuda), 3, 5)
+    with pytest.raises(ValueError):
+        planesweep_sample_backward(grad.to(cuda).double(), y0.to(cuda), wy.to(cuda), x0.to(cuda), wx.to(cuda), 3, 5)
+
+
+def test_k1_function_on_card_matches_cpu(cuda):
+    """K1 forward and K1b backward through autograd: output and the score
+    images' gradient within 1e-5 of the CPU's plain versions."""
+    corr, y0, wy, x0, wx = _taps(2, 300, 12, 20, 64)
+    grad = torch.from_numpy(np.random.RandomState(3).randn(300, 64).astype(np.float32))
+    results = {}
+    for device in ("cuda", "cpu"):
+        leaf = corr.to(device).requires_grad_()
+        before = (planesweep_sample.launches, planesweep_sample_backward.launches)
+        out = planesweep_sample_with_grad(leaf, *(a.to(device) for a in (y0, wy, x0, wx)))
+        out.backward(grad.to(device))
+        launched = (planesweep_sample.launches - before[0], planesweep_sample_backward.launches - before[1])
+        results[device] = (out.detach().cpu(), leaf.grad.cpu(), launched)
+    assert results["cuda"][2] == (1, 1) and results["cpu"][2] == (0, 0)
+    torch.testing.assert_close(results["cuda"][0], results["cpu"][0], atol=1e-5, rtol=0)
+    torch.testing.assert_close(results["cuda"][1], results["cpu"][1], atol=1e-5, rtol=0)
+
+
+def test_correlation_gradient_on_card_matches_cpu(cuda):
+    """d/d(feat_key, feat_src) of sum(w * corr), 2 source views: the score
+    matmul's backward after K1b, within rtol 1e-4 and 1e-5 of the scale."""
+    rng = np.random.RandomState(4)
+    B, V, H, W, C, S = 2, 2, 12, 20, 32, 64
+    K = np.tile(np.array([[0.9, 0, 0.5], [0, 1.2, 0.5], [0, 0, 1]], np.float32), (B, 1, 1))
+    T = np.tile(np.eye(4, dtype=np.float32), (B, V, 1, 1))
+    T[:, :, :3, 3] = rng.randn(B, V, 3) * 0.3
+    args = [torch.from_numpy(a) for a in (rng.randn(B, H, W, C).astype(np.float32),
+                                          rng.randn(B, V, H, W, C).astype(np.float32), K,
+                                          np.tile(K[:, None], (1, V, 1, 1)), T)]
+    w = torch.from_numpy(rng.randn(B, V, H, W, S).astype(np.float32))
+    grads = {}
+    for device in ("cuda", "cpu"):
+        key, src = (a.to(device).requires_grad_() for a in args[:2])
+        corr, _, _ = planesweep_correlation(key, src, *(a.to(device) for a in args[2:]), num_sampling_points=S,
+                                            min_depth=0.4, max_depth=1000.0)
+        (corr * w.to(device)).sum().backward()
+        grads[device] = (key.grad.cpu(), src.grad.cpu())
+    for ours, ref in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(ours, ref, rtol=1e-4, atol=1e-5 * float(ref.abs().max()))
+
+
+def test_training_engine_on_card(cuda, tmp_path):
+    """Two recipe steps through create_training on the card (key + 1 source
+    view: K1 and K1b once per step), finite losses, the snapshots written;
+    the final weights load onto the card."""
+    import robustmvd_tpu_torch as rmvd
+    from robustmvd_tpu_torch.data.transforms import Compose, NormalizeImagesToMinMax, NormalizeIntrinsics
+
+    model = rmvd.create_model("robust_mvd", device="cuda", train=True)
+    dataset = rmvd.create_dataset("synthetic.train.mvd", num_samples=4, num_views=2, height=64, width=64,
+                                  augmentations=[Compose([NormalizeImagesToMinMax(-0.4, 0.6), NormalizeIntrinsics()])])
+    optimizer = rmvd.create_optimizer("adam", model=model, lr=1e-4)
+    training = rmvd.create_training(
+        "mvd", out_dir=str(tmp_path), model=model, dataset=dataset, optimizer=optimizer,
+        scheduler=rmvd.create_scheduler("flownet_scheduler", optimizer=optimizer),
+        loss=rmvd.create_loss("robust_mvd_loss", model=model), batch_size=2, max_iterations=2,
+        batch_augmentations="robust_mvd_batch_augmentations", grad_clip_max_norm=5.0, num_workers=0, verbose=False)
+    losses = []
+    step = training.train_step
+
+    def kept_step(inputs, gt):
+        loss, sub_losses = step(inputs, gt)
+        losses.append(float(loss))
+        return loss, sub_losses
+
+    training.train_step = kept_step
+    before = (planesweep_sample.launches, planesweep_sample_backward.launches)
+    assert training()["iteration"] == 2
+    assert (planesweep_sample.launches - before[0], planesweep_sample_backward.launches - before[1]) == (2, 2)
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    weights = tmp_path / "weights_only_checkpoints_dir" / "snapshot-iter-000000002.pt"
+    loaded = rmvd.create_model("robust_mvd", device="cuda", weights=str(weights))
+    for k, v in model.state_dict().items():
+        assert torch.equal(loaded.state_dict()[k], v), k

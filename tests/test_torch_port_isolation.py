@@ -5,7 +5,8 @@
   the family on the K4 and K5 paths (``ops/kernels/warp_volume.py``,
   ``ops/kernels/conv3d.py``, ``ops/conv3d.py``) and vis_mvsnet on cuDNN's
   convolutions; then a benchmark sample list (pickled with the JAX
-  package's class paths), ``synthetic`` and an evaluation of robust_mvd.
+  package's class paths), ``synthetic``, an evaluation of robust_mvd, the
+  augmentation presets and a training run of robust_mvd (the train CLI).
 - No source file of the package, nor ``chip_smoke.py``, imports them or
   names them in a string (``importlib`` style).
 - Entry points default to the card and raise, naming ``device='cpu'``,
@@ -25,6 +26,8 @@ import robustmvd_tpu_torch
 from robustmvd_tpu_torch.eval.cli import main as eval_main
 from robustmvd_tpu_torch.eval.cli import parse_args as eval_parse_args
 from robustmvd_tpu_torch.inference import parse_args
+from robustmvd_tpu_torch.train.cli import main as train_main
+from robustmvd_tpu_torch.train.cli import parse_args as train_parse_args
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "robustmvd_tpu")
@@ -34,7 +37,7 @@ def _forbidden(name):
     return name.split(".")[0] in FORBIDDEN
 
 
-def test_running_the_port_loads_no_jax():
+def test_running_the_port_loads_no_jax(tmp_path):
     code = """
 import sys
 import numpy as np
@@ -58,11 +61,19 @@ dataset = r.create_dataset("synthetic.train.mvd", num_samples=2, num_views=3, he
 results = r.create_evaluation("mvd", inputs=["poses", "intrinsics"], verbose=False)(
     dataset=dataset, model=r.create_model("robust_mvd", device="cpu"), qualitatives=0)
 assert results.shape[0] == 2 and np.isfinite(results["best"]["absrel"]).all()
+for preset in r.list_augmentations():
+    sample = r.create_dataset("synthetic.train.mvd", num_samples=1, num_views=2, height=40, width=60,
+                              augmentations=preset)[0]
+    assert np.isfinite(sample["images"][0]).all(), preset
+from robustmvd_tpu_torch.train.cli import main as train_main
+train_main(["--device", "cpu", "--dataset", "synthetic.train.mvd", "--model", "robust_mvd", "--loss",
+            "robust_mvd_loss", "--batch_augmentations", "robust_mvd_batch_augmentations", "--max_iterations", "1",
+            "--batch_size", "1", "--num_workers", "0", "--output", sys.argv[1]])
 bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
 print("LOADED", bad)
 """ % (FORBIDDEN,)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=ROOT, env=env, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "LOADED []" in out.stdout, out.stdout
@@ -105,6 +116,14 @@ def test_eval_cli_defaults_to_the_card(monkeypatch, tmp_path):
                    "--inputs", "poses", "intrinsics", "--output", str(tmp_path)])
 
 
+def test_train_cli_defaults_to_the_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert train_parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_main(["--dataset", "synthetic.train.mvd", "--model", "robust_mvd", "--loss", "robust_mvd_loss",
+                    "--max_iterations", "1", "--output", str(tmp_path)])
+
+
 @pytest.mark.parametrize("name", ["mvsnet_train", "cvp_mvsnet", "vis_mvsnet"])
 def test_family_entry_points_default_to_the_card(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -128,9 +147,20 @@ def test_facade():
                                                  "vis_mvsnet"]
     assert robustmvd_tpu_torch.has_model("robust_mvd")
     assert robustmvd_tpu_torch.list_models(trainable_only=True) == ["robust_mvd"]
-    for name in ("robust_mvd", "mvsnet_train", "cvp_mvsnet", "vis_mvsnet"):
+    assert robustmvd_tpu_torch.create_model("robust_mvd", device="cpu", train=True).training
+    assert not robustmvd_tpu_torch.create_model("robust_mvd", device="cpu").training
+    for name in ("mvsnet_train", "cvp_mvsnet", "vis_mvsnet"):
         with pytest.raises(NotImplementedError):
             robustmvd_tpu_torch.create_model(name, device="cpu", train=True)
+    assert robustmvd_tpu_torch.list_losses() == ["robust_mvd_loss", "supervised_monodepth2_loss"]
+    assert robustmvd_tpu_torch.has_loss("robust_mvd_loss")
+    assert robustmvd_tpu_torch.list_optimizers() == ["adam", "rmsprop"]
+    assert robustmvd_tpu_torch.list_schedulers() == ["flownet_scheduler", "mvsnet_scheduler"]
+    assert robustmvd_tpu_torch.list_trainings() == ["mvd"]
+    assert robustmvd_tpu_torch.has_augmentation("robust_mvd_augmentations_staticthings3d")
+    assert robustmvd_tpu_torch.has_batch_augmentation("robust_mvd_batch_augmentations")
+    assert len(robustmvd_tpu_torch.list_augmentations()) == 6
+    assert callable(robustmvd_tpu_torch.create_compound_dataset) and callable(robustmvd_tpu_torch.create_training)
 
 
 def test_custom_model_gets_the_run_protocol():
