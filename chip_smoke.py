@@ -85,7 +85,23 @@ CUDA toolkit (``nvcc``). Phases, each printing one JSON line:
             (ms per step, host share, peak MiB, losses, K1 and K1b
             launches: 4 each per step), a resume from the final snapshot,
             and a profile of one step by kernel kind.
-11. the kernels line, and last the ``{"ok": true, ...}`` line.
+11. bf16:   robust_mvd at ``dtype="bfloat16"`` (bf16 convolutions and
+            correlation, float32 heads): K1b's bf16 form at the recipe's
+            shape (in phase ``kernel_k1b``: held against its plain version
+            within one bf16 step of the largest |dS|, timed beside the
+            float32 form plus a cast and beside grid_sample's bf16 input
+            gradient); ``parity_bf16`` (card vs CPU, 1+2 views, 64x128,
+            mean |d invdepth| within 0.05 of the fp32 invdepth's mean);
+            ``main_bf16`` (``model.run`` at 384x1280, 1+2 views, beside
+            phase main's fp32: ms per frame, peak, K1 v2 twice per frame);
+            ``eval_kitti_bf16`` (as eval_kitti, 2 samples, the first a
+            burn-in: K1 v2 230 times per sample, the all-views forward's
+            FFT time); ``train_bf16`` (the paper recipe as train_all.sh
+            scripts it, through the train CLI, on the StaticThings3D +
+            BlendedMVS compound over a raw-size tree that the script writes:
+            3 warm-up and 5 timed steps, K1 v2 and K1b's bf16 form 4 times
+            per step, then two profiled steps).
+12. the kernels line, and last the ``{"ok": true, ...}`` line.
 
 Any failed check raises and the script exits non-zero; it does nothing
 without a CUDA device. Weights are random, from a seed.
@@ -108,6 +124,13 @@ MODEL_BOUNDS = (1e-4, 1e-3)  # mean, max relative error (tests/test_torch_port_m
 # K1b vs its plain version, relative to the largest |dS|: atomics add the taps
 # of coinciding hypotheses in another order
 K1B_LIMIT = 1e-5
+# K1b's bf16 form vs its plain version, relative to the largest |dS|: the float32
+# sums differ as above, so a value may round to the neighbouring bf16 step
+K1B_BF16_LIMIT = 2.0**-8
+# robust_mvd at bf16 against the same weights elsewhere (the port on the CPU):
+# mean |d invdepth| / mean |invdepth at fp32|, the JAX package's bf16 bound
+# (tests/test_models.py:113-114, tests/test_torch_port_bf16.py)
+BF16_MODEL_BOUND = 0.05
 K2_LIMIT = 1e-5  # K2 (both modes) vs its plain version: the same op order, no fused multiply-add
 # K3 vs its plain version (torch.softmax and sums over D in another order,
 # expf/logf vs torch's): prob, expectation (+ 1e-6 * D: it reaches D - 1),
@@ -123,6 +146,8 @@ CVP_FINE_BOUNDS = (1e-2, 5e-2)
 # the evaluation's 1.03-inlier ratio counts pixels on one side of a threshold:
 # card vs CPU it may differ by this share of the pixels (PERF.md §2)
 INLIER_FLIP_SHARE = 1e-3
+# cuDNN's FFT convolutions by kernel name: the transforms, the complex GEMMs between them
+FFT_KERNEL_KEYS = ("fft", "cf32", "cf16", "region_transform")
 EVAL_TIMING = ("runtime_model_in_sec", "runtime_model_in_msec", "runtime_model_and_io_in_sec",
                "runtime_model_and_io_in_msec", "device_mem_peak_in_mib")
 
@@ -726,6 +751,72 @@ def phase_main(counters):
     return runs
 
 
+def phase_parity_bf16(counters):
+    """robust_mvd at bf16 on the card vs on the CPU: same seeded weights, B =
+    1, 1+2 views, 64x128; the finest invdepth's mean |d| over the mean
+    |invdepth| of the CPU's fp32 forward within BF16_MODEL_BOUND, as the JAX
+    package holds its bf16 forward (the coarser scales, down to 1x2 pixels,
+    are reported); float32 heads; K1 v2 once per source view on the card."""
+    import robustmvd_tpu_torch as rmvd
+
+    tf32 = set_tf32(False)
+    sample = kitti_like_sample(np.random.RandomState(1), 64, 128, 3)
+    outs = {}
+    for device, dtype in (("cpu", "float32"), ("cpu", "bfloat16"), ("cuda", "bfloat16")):
+        model = rmvd.create_model("robust_mvd", device=device, seed=0, dtype=dtype)
+        counters.reset()
+        outs[device, dtype] = model.run(**sample)[1]
+        launches = counters.read()
+        del model
+    if launches["planesweep_sample[bfloat16]"] != 2 or launches["planesweep_sample[float32]"] != 0:
+        raise AssertionError(f"robust_mvd bf16 on the card launched {launches}, expected K1 v2 twice")
+    ref, cpu, card = outs["cpu", "float32"], outs["cpu", "bfloat16"], outs["cuda", "bfloat16"]
+    errors = {}
+    for key in ("invdepths_all", "invdepth_log_bs_all"):
+        for scale, (g, c, f) in enumerate(zip(card[key], cpu[key], ref[key])):
+            if g.dtype != np.float32:
+                raise AssertionError(f"bf16 heads must be float32, {key}[{scale}] is {g.dtype}")
+            norm = np.abs(f).mean() + 1e-6
+            errors[f"{key}[{scale}]"] = {"card_vs_cpu": float(np.abs(g - c).mean() / norm),
+                                         "card_vs_cpu_fp32": float(np.abs(g - f).mean() / norm),
+                                         "cpu_vs_cpu_fp32": float(np.abs(c - f).mean() / norm)}
+    held = errors[f"invdepths_all[{len(card['invdepths_all']) - 1}]"]
+    if not held["card_vs_cpu"] < BF16_MODEL_BOUND:
+        raise AssertionError(f"robust_mvd bf16 card vs CPU, finest invdepth: {held} (bound {BF16_MODEL_BOUND})")
+    if not (ref["invdepth"] > 0).mean() > 0.1:
+        raise AssertionError("bf16 parity run predicts almost no positive invdepth: the check would be vacuous")
+    emit("parity_bf16", tf32=tf32, shape=[64, 128], views=3, bound=BF16_MODEL_BOUND, k1_launches_card=launches,
+         errors=errors)
+
+
+def phase_main_bf16(counters, fp32_runs):
+    """robust_mvd at bf16 through ``model.run`` at 384x1280, 1+2 views, as
+    phase ``main``: ms per frame, peak, K1 v2's launches (2 per frame), beside
+    phase main's fp32; then where a frame's time goes."""
+    import torch
+
+    import robustmvd_tpu_torch as rmvd
+
+    tf32 = set_tf32(False)
+    model = rmvd.create_model("robust_mvd", dtype="bfloat16")
+    sample = kitti_like_sample(np.random.RandomState(2), 384, 1280, 3)
+    pred, stats = timed_frames(model, sample, counters)
+    frames = stats["warmup"] + stats["frames"]
+    if stats["launches"]["planesweep_sample[bfloat16]"] != 2 * frames or stats["launches"]["planesweep_sample[float32]"]:
+        raise AssertionError(f"robust_mvd bf16: launches {stats['launches']} in {frames} frames, expected K1 v2 "
+                             "twice per frame and no float32 K1")
+    depth = pred["depth"]
+    if depth.shape != (1, 1, 192, 640) or depth.dtype != np.float32 or not np.isfinite(depth).all():
+        raise AssertionError(f"bf16 depth: shape {depth.shape}, {depth.dtype}, finite {np.isfinite(depth).all()}")
+    fp32 = {k: fp32_runs["fp32"][k] for k in ("ms_per_frame", "ms_per_frame_mean", "ms_per_frame_min", "peak_mib")}
+    emit("main_bf16", shape=[384, 1280], views=3, dtype="bfloat16", tf32=tf32, **stats,
+         k1_v2_launches_per_frame=stats["launches"]["planesweep_sample[bfloat16]"] / frames, fp32=fp32)
+    emit("breakdown_bf16", **device_breakdown(model, sample, frames=10))
+    del model
+    torch.cuda.empty_cache()
+    return stats
+
+
 # The family's main paths at 384x1280, 1+2 views: label -> (model, create_model
 # arguments, launches per frame of each kernel that must run; cvp at nscale 5)
 FAMILY = {
@@ -1183,9 +1274,10 @@ def device_breakdown(model, sample, frames):
     by_kind = {}
     for name, ms, _ in rows:
         by_kind[kernel_kind(name)] = by_kind.get(kernel_kind(name), 0.0) + ms
+    fft_ms = sum(ms for name, ms, _ in rows if any(key in name for key in FFT_KERNEL_KEYS))
     return {
         "frames": frames, "stage_ms": stage_ms, "frame_ms": frame_ms,
-        "device_ms_per_frame": device_ms,
+        "device_ms_per_frame": device_ms, "convolutions_fft_ms_per_frame": fft_ms,
         "device_busy_share": device_ms / frame_ms if device_ms else None,
         "device_ms_by_kind": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
         "top": [{"name": k[:100], "ms_per_frame": ms, "calls_per_frame": n} for k, ms, n in rows[:20]],
@@ -1275,12 +1367,13 @@ class TimedDataset:
         return self.dataset[index]
 
 
-def phase_eval_run(counters, label, num_views, keyview_idx, height, width, num_samples, cut):
-    """create_evaluation("mvd") with robust_mvd (full width, fp32, seeded
-    weights) over ``synthetic`` at a benchmark dataset's view count and image
-    size, quasi-optimal ordering, uncertainty on, the first sample a burn-in
-    sample. Each of the engine's model runs is noted with its runtimes and
-    memory; K1's launches are counted over the whole evaluation."""
+def phase_eval_run(counters, label, num_views, keyview_idx, height, width, num_samples, cut, dtype="float32"):
+    """create_evaluation("mvd") with robust_mvd (full width, seeded weights,
+    compute ``dtype``) over ``synthetic`` at a benchmark dataset's view count
+    and image size, quasi-optimal ordering, uncertainty on, the first sample
+    a burn-in sample. Each of the engine's model runs is noted with its
+    runtimes and memory; K1's launches are counted over the whole evaluation
+    (at bf16 all of them K1 v2's)."""
     import torch
 
     import robustmvd_tpu_torch as rmvd
@@ -1289,7 +1382,7 @@ def phase_eval_run(counters, label, num_views, keyview_idx, height, width, num_s
     tf32 = set_tf32(False)
     dataset = TimedDataset(rmvd.create_dataset("synthetic.train.mvd", num_samples=num_samples, num_views=num_views,
                                                keyview_idx=keyview_idx, height=height, width=width))
-    model = rmvd.create_model("robust_mvd", seed=0)
+    model = rmvd.create_model("robust_mvd", seed=0, dtype=dtype)
     evaluation = rmvd.create_evaluation("mvd", inputs=["poses", "intrinsics"], view_ordering="quasi-optimal",
                                         eval_uncertainty=True, verbose=False)
     runs = []
@@ -1305,7 +1398,10 @@ def phase_eval_run(counters, label, num_views, keyview_idx, height, width, num_s
     counters.reset()
     results = evaluation(dataset=dataset, model=model, qualitatives=0, burn_in_samples=1)
     end = time.perf_counter()
-    k1 = counters.read()["planesweep_sample"]
+    launches = counters.read()
+    k1 = launches["planesweep_sample"]
+    if launches[f"planesweep_sample[{dtype}]"] != k1:
+        raise AssertionError(f"{label}: K1 launches {launches}, expected all of them at {dtype}")
     # the forward with every view (the sweep's last run), alone: its peak and where its time goes
     sample = numpy_collate([dataset.dataset[0]])
     frame = {k: sample[k] for k in ("images", "keyview_idx", "poses", "intrinsics")}
@@ -1341,7 +1437,7 @@ def phase_eval_run(counters, label, num_views, keyview_idx, height, width, num_s
         raise AssertionError(f"{label}: absrel {absrel}")
     host_share = [1 - sum(r[1] for r in per_sample[n]) / 1e3 / walls[n] for n in range(1, num_samples)]
     sweep_ms = {n: float(results[n]["runtime_model_in_msec"].iloc[1:].median()) for n in (1, sources // 2, sources)}
-    emit(label, tf32=tf32, views=num_views, keyview_idx=keyview_idx, size=[height, width],
+    emit(label, tf32=tf32, dtype=dtype, views=num_views, keyview_idx=keyview_idx, size=[height, width],
          model_input=[-(-height // 64) * 64, -(-width // 64) * 64], samples=num_samples, burn_in_samples=1, cut=cut,
          model_runs_per_sample=runs_per_sample, k1_launches_per_sample=k1 / num_samples,
          runtime_model_ms_median=statistics.median(r[1] for r in timed),
@@ -1370,11 +1466,12 @@ def k1b_inputs(device):
     return grad, y0, wy, x0, wx, 48, 96
 
 
-def k1b_bound(grad, Hs, Ws):
-    """Least time for K1b: dS written once, the gradient and four tap arrays
-    read once, against ~10 flops per sample."""
+def k1b_bound(grad, Hs, Ws, out_bytes=4):
+    """Least time for K1b: dS written once (``out_bytes`` per element: 4 in
+    float32, 2 in bf16), the gradient and four tap arrays read once, against
+    ~10 flops per sample."""
     P, S = grad.shape
-    nbytes = P * Hs * Ws * 4 + P * S * 5 * 4
+    nbytes = P * Hs * Ws * out_bytes + P * S * 5 * 4
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = P * S * 10 / F32_FLOPS_PER_S * 1e3
     return {"bytes": nbytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
@@ -1444,9 +1541,50 @@ def phase_kernel_k1b():
         "plain_ms": time_ms(lambda: planesweep_sample_backward_reference(grad, y0, wy, x0, wx, Hs, Ws), runs=10),
         "library_ms": time_ms(library), "library_max_abs_diff": lib_diff, **taps, **k1b_bound(grad, Hs, Ws),
     }
+    result["bf16"] = kernel_k1b_bf16(grad, y0, wy, x0, wx, Hs, Ws, corr, grid)
     emit("kernel_k1b", name="planesweep_sample_backward", shape={"P": P, "Hs": Hs, "Ws": Ws, "S": S}, **result)
     torch.cuda.empty_cache()
     return result
+
+
+def kernel_k1b_bf16(grad, y0, wy, x0, wx, Hs, Ws, corr, grid):
+    """K1b's bf16 form (the backward of K1 v2) on the same inputs: held
+    against its plain version within one bf16 step of the largest |dS|
+    (K1B_BF16_LIMIT), timed beside the float32 form followed by a cast, and
+    beside grid_sample's input gradient at bf16 (bf16 image, grid and
+    gradient, so its sample positions round to bf16 too: the diff is reported,
+    not held); the bound counts the bf16 store."""
+    import torch
+
+    from robustmvd_tpu_torch.ops.kernels.planesweep_sample_backward import (
+        planesweep_sample_backward,
+        planesweep_sample_backward_reference,
+    )
+
+    bf16 = torch.bfloat16
+    out = planesweep_sample_backward(grad, y0, wy, x0, wx, Hs, Ws, dtype=bf16)
+    torch.cuda.synchronize()
+    ref = planesweep_sample_backward_reference(grad, y0, wy, x0, wx, Hs, Ws, dtype=bf16)
+    scale = float(ref.float().abs().max())
+    limit = K1B_BF16_LIMIT * scale
+    err = float((out.float() - ref.float()).abs().max())
+    if out.dtype != bf16 or not err <= limit:
+        raise AssertionError(f"K1b bf16 disagrees with its plain version: {out.dtype}, max_abs_err {err} > {limit}")
+    img16, grid16, g16 = corr.to(bf16)[:, None], grid.to(bf16), grad.to(bf16)[:, None, None]
+
+    def library():
+        return torch.ops.aten.grid_sampler_2d_backward(g16, img16, grid16, 0, 0, False, [True, False])[0]
+
+    return {
+        "max_abs_err": err, "limit": limit, "grad_scale": scale,
+        "ms": time_ms(lambda: planesweep_sample_backward(grad, y0, wy, x0, wx, Hs, Ws, dtype=bf16)),
+        "f32_then_cast_ms": time_ms(lambda: planesweep_sample_backward(grad, y0, wy, x0, wx, Hs, Ws).to(bf16)),
+        "plain_ms": time_ms(lambda: planesweep_sample_backward_reference(grad, y0, wy, x0, wx, Hs, Ws, dtype=bf16),
+                            runs=10),
+        "library_ms": time_ms(library),
+        "library_max_abs_diff": float((library()[:, 0].float() - out.float()).abs().max()),
+        **k1b_bound(grad, Hs, Ws, out_bytes=2),
+    }
 
 
 def train_batch(rng, B, V, H, W):
@@ -1571,7 +1709,7 @@ def train_kernel_kind(name):
         return "k1b_planesweep_sample_backward"
     if "planesweep_sample" in name:
         return "k1_planesweep_sample"
-    if any(key in name for key in ("fft", "cf32", "region_transform")):
+    if any(key in name for key in FFT_KERNEL_KEYS):
         return "convolutions_fft"
     if "dgrad" in name or "wgrad" in name:
         return "convolutions_backward"
@@ -1678,6 +1816,24 @@ def phase_train_main(counters):
                 torch.cuda.synchronize()
                 profiled_ms = (time.perf_counter() - t0) * 1e3
         del model, model2, training, resumed
+    breakdown = step_breakdown(prof, profiled_ms)
+    result = {"ms_per_step": statistics.median(walls), "ms_per_step_mean": statistics.mean(walls),
+              "ms_per_step_min": min(walls), "ms_per_timed_step": walls, "device_ms_per_timed_step": device_ms,
+              "device_ms_per_step": statistics.median(device_ms),
+              "host_share": statistics.median(host_share), "peak_mib": peak_mib, "launches": launches,
+              "launches_per_step": per_step, "losses": losses, "resumed_losses": resumed_losses,
+              "resume_s": resume_s, "wall_s_to_last_step": t_end - t_start}
+    emit("train_main", tf32=tf32, dataset="synthetic.train.mvd", raw_size=[540, 960], crop=[384, 768], views=5,
+         batch=batch, warmup=warmup, timed=timed, workers=workers, dtype="float32", **result)
+    emit("breakdown_train", **breakdown)
+    torch.cuda.empty_cache()
+    return result
+
+
+def step_breakdown(prof, step_ms):
+    """A profiled training step's device time by kernel kind (train_kernel_kind)."""
+    import torch
+
     rows = []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -1692,18 +1848,207 @@ def phase_train_main(counters):
     for name, ms, _ in rows:
         by_kind[train_kernel_kind(name)] = by_kind.get(train_kernel_kind(name), 0.0) + ms
     device_total = sum(r[1] for r in rows)
-    breakdown = {"step_ms": profiled_ms, "device_ms": device_total, "device_busy_share": device_total / profiled_ms,
-                 "device_ms_by_kind": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
-                 "top": [{"name": k[:100], "ms": ms, "calls": n} for k, ms, n in rows[:20]]}
+    return {"step_ms": step_ms, "device_ms": device_total, "device_busy_share": device_total / step_ms,
+            "device_ms_by_kind": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
+            "top": [{"name": k[:100], "ms": ms, "calls": n} for k, ms, n in rows[:20]]}
+
+
+# --- the recipe at bf16 over the StaticThings3D + BlendedMVS readers ---
+
+RECIPE_DATASETS = ("staticthings3d.robust_mvd.mvd", "blendedmvs.robust_mvd.mvd")
+
+
+def write_float3(path, arr):
+    """lmb-freiburg .float3: "float", the rank, the dims minor to major, raw float32."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(f"float\n{arr.ndim}\n".encode() + "".join(f"{d}\n" for d in reversed(arr.shape)).encode())
+        f.write(arr.astype(np.float32).tobytes())
+
+
+def write_pfm(path, arr):
+    """Little-endian grayscale PFM, rows bottom-up."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    h, w = arr.shape
+    with open(path, "wb") as f:
+        f.write(f"Pf\n{w} {h}\n-1.0\n".encode() + np.flipud(arr).astype("<f4").tobytes())
+
+
+def write_image(path, rng, height, width):
+    from PIL import Image
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    Image.fromarray((rng.rand(height, width, 3) * 255).astype(np.uint8)).save(path)
+
+
+def write_recipe_tree(root, rng):
+    """Raw-format trees of the recipe's two training datasets, at their raw
+    sizes, for their readers: one StaticThings3D sequence (``TRAIN/A/0000``)
+    of 22 frames at 540x960 (png, float3 depth, K and pose), enough for key
+    frames 6..15 with every source offset within +-6; one BlendedMVS training
+    scene of 11 views at 576x768 (masked jpg, MVSNet cam file, PFM depth,
+    pair.txt with 10 sources per key). Random images, depths inside the
+    augmentations' range, cameras along a line. Returns both roots."""
+    from robustmvd_tpu_torch.data.blendedmvs import BMVS_TRAIN_SCENES
+
+    seq = os.path.join(root, "staticthings3d", "TRAIN", "A", "0000")
+    K = np.array([[1050.0, 0, 479.5], [0, 1050.0, 269.5], [0, 0, 1]], np.float32)
+    for fn in range(22):
+        write_image(os.path.join(seq, "frames_cleanpass", "left", f"{fn:04d}.png"), rng, 540, 960)
+        write_float3(os.path.join(seq, "depths", "left", f"{fn:04d}.float3"), rng.rand(540, 960) * 28 + 2)
+        write_float3(os.path.join(seq, "intrinsics", "left", f"{fn:04d}.float3"), K)
+        pose = np.eye(4, dtype=np.float32)
+        pose[:3, 3] = [0.05 * fn, 0.01 * rng.randn(), 0.01 * rng.randn()]
+        write_float3(os.path.join(seq, "poses", "left", f"{fn:04d}.float3"), pose)
+    scene = os.path.join(root, "blendedmvs", BMVS_TRAIN_SCENES[0])
+    views = 11
+    for v in range(views):
+        write_image(os.path.join(scene, "blended_images", f"{v:08d}_masked.jpg"), rng, 576, 768)
+        write_pfm(os.path.join(scene, "rendered_depth_maps", f"{v:08d}.pfm"),
+                  (rng.rand(576, 768) * 2 + 1).astype(np.float32))
+        pose = np.eye(4)
+        pose[:3, 3] = [0.1 * v, 0.0, 0.0]
+        lines = ["extrinsic", *(" ".join(f"{x:.6f}" for x in row) for row in pose), "", "intrinsic",
+                 "600.0 0.0 384.0", "0.0 600.0 288.0", "0.0 0.0 1.0", "", "1.0 0.01 192 3.0", ""]
+        os.makedirs(os.path.join(scene, "cams"), exist_ok=True)
+        with open(os.path.join(scene, "cams", f"{v:08d}_cam.txt"), "w") as f:
+            f.write("\n".join(lines))
+    with open(os.path.join(scene, "cams", "pair.txt"), "w") as f:
+        f.write(f"{views}\n")
+        for v in range(views):
+            sources = [u for u in range(views) if u != v]
+            f.write(f"{v}\n{len(sources)} " + " ".join(f"{u} {10.0 - abs(u - v):.1f}" for u in sources) + "\n")
+    return os.path.join(root, "staticthings3d", "TRAIN"), os.path.join(root, "blendedmvs")
+
+
+def phase_train_bf16(counters, fp32):
+    """The paper recipe at bf16 as ``train_all.sh`` scripts it, through the
+    train CLI's code path (``robustmvd_tpu_torch.train.cli.main``): the
+    ``staticthings3d.robust_mvd.mvd`` + ``blendedmvs.robust_mvd.mvd`` compound
+    (one ``--dataset`` flag with two values), each with its augmentations
+    (384x768 crops), the batch augmentations, adam 1e-4, flownet_scheduler,
+    clip 5, robust_mvd_loss, batch 4, 8 loader workers, over a tree written at
+    the datasets' raw sizes (write_recipe_tree; the roots through the user's
+    paths file, the generated sample lists into the temporary directory).
+    3 warm-up and 5 timed steps: ms per step, CUDA-event ms, host share, peak
+    MiB, every loss finite, K1 v2 and K1b's bf16 form 4 times per step; then
+    two more steps under the profiler (the first pays its start-up)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import robustmvd_tpu_torch.data.blendedmvs as bmvs_module
+    import robustmvd_tpu_torch.data.dataset as dataset_module
+    import robustmvd_tpu_torch.data.staticthings3d as st3d_module
+    import robustmvd_tpu_torch.utils.paths as paths
+    from robustmvd_tpu_torch.train.cli import main as train_main
+    from robustmvd_tpu_torch.train.multi_view_depth_training import MultiViewDepthTraining
+
+    tf32 = set_tf32(False)
+    warmup, timed, profiled, batch = 3, 5, 2, 4
+    workers = min(8, os.cpu_count() or 1)
+    notes, profiles = [], []
+    step = MultiViewDepthTraining.train_step
+
+    def noted_step(self, sample_inputs, sample_gt):
+        if len(notes) == warmup:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        if len(notes) >= warmup + timed:  # the profiled steps, after the timed ones
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                loss, sub_losses = step(self, sample_inputs, sample_gt)
+                torch.cuda.synchronize()
+            profiles.append((prof, (time.perf_counter() - t0) * 1e3))
+            notes.append((None, None, None, loss))
+            return loss, sub_losses
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        loss, sub_losses = step(self, sample_inputs, sample_gt)
+        end.record()
+        notes.append((t0, start, end, loss))
+        if len(notes) == warmup + timed:
+            torch.cuda.synchronize()
+            notes.append(time.perf_counter())
+        return loss, sub_losses
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        st3d_root, bmvs_root = write_recipe_tree(tmp, np.random.RandomState(11))
+        tree_s = time.perf_counter() - t0
+        paths_file = os.path.join(tmp, "rmvd_data_paths.toml")
+        with open(paths_file, "w") as f:
+            f.write(f'[staticthings3d.train]\nroot = "{st3d_root}"\n\n[blendedmvs]\nroot = "{bmvs_root}"\n')
+        lists = os.path.join(tmp, "sample_lists")
+        os.makedirs(lists)
+        original = dataset_module._sample_list_path
+
+        def redirect(name):
+            return os.path.join(lists, f"{name}.pickle") if name in RECIPE_DATASETS else original(name)
+
+        saved = (paths.USER_PATHS_FILE, st3d_module._sample_list_path, bmvs_module._sample_list_path)
+        out = os.path.join(tmp, "out")
+        try:
+            paths.USER_PATHS_FILE = type(saved[0])(paths_file)
+            dataset_module._sample_list_path = st3d_module._sample_list_path = redirect
+            bmvs_module._sample_list_path = redirect
+            MultiViewDepthTraining.train_step = noted_step
+            counters.reset()
+            t_start = time.perf_counter()
+            train_main(["--training_type", "mvd", "--output", out, "--model", "robust_mvd", "--dtype", "bfloat16",
+                        "--inputs", "poses", "intrinsics", "--optimizer", "adam", "--lr", "1e-4",
+                        "--grad_clip_max_norm", "5", "--scheduler", "flownet_scheduler", "--loss", "robust_mvd_loss",
+                        "--batch_size", str(batch), "--max_iterations", str(warmup + timed + profiled),
+                        "--dataset", *RECIPE_DATASETS,
+                        "--augmentations_per_dataset", "robust_mvd_augmentations_staticthings3d",
+                        "robust_mvd_augmentations_blendedmvs",
+                        "--batch_augmentations", "robust_mvd_batch_augmentations", "--num_workers", str(workers)])
+            launches = counters.read()
+        finally:
+            paths.USER_PATHS_FILE = saved[0]
+            dataset_module._sample_list_path = original
+            st3d_module._sample_list_path, bmvs_module._sample_list_path = saved[1:]
+            MultiViewDepthTraining.train_step = step
+        with open(os.path.join(out, "log.txt")) as f:
+            dataset_line = next(line.strip() for line in f if "Dataset:" in line)
+        snaps = sorted(os.listdir(os.path.join(out, "checkpoints")))
+    steps = warmup + timed + profiled
+    t_end = notes.pop(warmup + timed)
+    losses = [float(n[3]) for n in notes]
+    if len(notes) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"train_bf16: {len(notes)} steps, losses {losses}")
+    if snaps != [f"snapshot-iter-{steps:09d}.pt"] or "+" not in dataset_line:
+        raise AssertionError(f"train_bf16: snapshots {snaps}, {dataset_line}")
+    per_step = {name: launches[name] / steps for name in ("planesweep_sample[bfloat16]", "planesweep_sample[float32]",
+                                                          "planesweep_sample_backward[bfloat16]",
+                                                          "planesweep_sample_backward[float32]")}
+    if per_step != {"planesweep_sample[bfloat16]": 4.0, "planesweep_sample[float32]": 0.0,
+                    "planesweep_sample_backward[bfloat16]": 4.0, "planesweep_sample_backward[float32]": 0.0}:
+        raise AssertionError(f"train_bf16: launches {launches} in {steps} steps, expected 4 K1 v2 and 4 K1b bf16 "
+                             "per step (4 source views) and no float32 form")
+    timed_notes = notes[:warmup + timed]
+    starts = [n[0] for n in timed_notes] + [t_end]
+    all_walls = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+    all_device_ms = [n[1].elapsed_time(n[2]) for n in timed_notes]
+    walls, device_ms = all_walls[warmup:], all_device_ms[warmup:]
     result = {"ms_per_step": statistics.median(walls), "ms_per_step_mean": statistics.mean(walls),
               "ms_per_step_min": min(walls), "ms_per_timed_step": walls, "device_ms_per_timed_step": device_ms,
               "device_ms_per_step": statistics.median(device_ms),
-              "host_share": statistics.median(host_share), "peak_mib": peak_mib, "launches": launches,
-              "launches_per_step": per_step, "losses": losses, "resumed_losses": resumed_losses,
-              "resume_s": resume_s, "wall_s_to_last_step": t_end - t_start}
-    emit("train_main", tf32=tf32, dataset="synthetic.train.mvd", raw_size=[540, 960], crop=[384, 768], views=5,
-         batch=batch, warmup=warmup, timed=timed, workers=workers, dtype="float32", **result)
-    emit("breakdown_train", **breakdown)
+              "host_share": statistics.median(1 - d / w for d, w in zip(device_ms, walls)),
+              "peak_mib": torch.cuda.max_memory_allocated() / 2**20, "launches": launches,
+              "launches_per_step": per_step, "losses": losses, "wall_s_to_last_step": t_end - t_start,
+              # the CLI's set-up and the loader's first batch, then the warm-up steps (the first one pays
+              # the bf16 kernels' first use while the loader's workers load the CPU)
+              "s_to_first_step": timed_notes[0][0] - t_start, "warmup_ms_per_step": all_walls[:warmup],
+              "warmup_device_ms_per_step": all_device_ms[:warmup], "tree_s": tree_s, "dataset": dataset_line}
+    fp32_side = {k: fp32[k] for k in ("ms_per_step", "device_ms_per_step", "host_share", "peak_mib")}
+    emit("train_bf16", tf32=tf32, datasets=RECIPE_DATASETS, raw_sizes={"staticthings3d": [540, 960],
+                                                                      "blendedmvs": [576, 768]},
+         crop=[384, 768], views=5, batch=batch, warmup=warmup, timed=timed, workers=workers, dtype="bfloat16",
+         cut="steps: 3 + 5 (+ 2 profiled); one StaticThings3D sequence and one BlendedMVS scene of random data",
+         fp32_train_main=fp32_side, **result)
+    emit("breakdown_train_bf16", **step_breakdown(*profiles[-1]))
     torch.cuda.empty_cache()
     return result
 
@@ -1728,7 +2073,7 @@ def kernel_kind(name):
         return "k3_soft_argmin"
     if "HtoD" in name or "DtoH" in name:
         return "memcpy_" + ("h2d" if "HtoD" in name else "d2h")
-    if any(key in name for key in ("fprop", "convolve", "dgrad", "cudnn", "fft", "cf32", "region_transform")):
+    if any(key in name for key in ("fprop", "convolve", "dgrad", "cudnn") + FFT_KERNEL_KEYS):
         return "convolutions"  # fft, cf32 (complex GEMM), region_transform: cuDNN's FFT convolutions
     if "gemm" in name:
         return "gemm"
@@ -1746,9 +2091,18 @@ class Counters:
     def reset(self):
         for fn in self.kernels.values():
             fn.launches = 0
+            if hasattr(fn, "launches_by_dtype"):
+                fn.launches_by_dtype = dict.fromkeys(fn.launches_by_dtype, 0)
 
     def read(self):
-        return {name: fn.launches for name, fn in self.kernels.items()}
+        """Every wrapper's launches by source name; for the wrappers with one
+        instantiation per dtype (K1, K1b) also each one's, as "name[dtype]"."""
+        counts = {}
+        for name, fn in self.kernels.items():
+            counts[name] = fn.launches
+            for dtype, n in getattr(fn, "launches_by_dtype", {}).items():
+                counts[f"{name}[{dtype}]"] = n
+        return counts
 
 
 def main():
@@ -1771,9 +2125,11 @@ def main():
     k4 = phase_kernel_k4()
     counters = Counters()
     phase_parity()
+    phase_parity_bf16(counters)
     phase_family_parity(counters)
     phase_vis_parity(counters)
     runs = phase_main(counters)
+    runs_bf16 = phase_main_bf16(counters, runs)
     family = phase_family_main(counters)
     vis = phase_vis_main(counters)
     phase_eval_parity(counters)
@@ -1783,10 +2139,19 @@ def main():
         "eval_eth3d": phase_eval_run(counters, "eval_eth3d", num_views=11, keyview_idx=0, height=1024, width=1536,
                                      num_samples=2, cut="samples: 2 (synthetic data); views and size as ETH3D's"),
     }
+    eval_bf16 = phase_eval_run(counters, "eval_kitti_bf16", num_views=21, keyview_idx=10, height=375, width=1242,
+                               num_samples=2, dtype="bfloat16",
+                               cut="samples: 2 (synthetic data); views and size as KITTI's")
     phase_train_parity(counters)
     train = phase_train_main(counters)
+    train_bf16 = phase_train_bf16(counters, train)
 
     f32, bf16 = k1["f32"], k1["bf16"]
+    # K1 v2 (the bf16 instantiation) and K1b's bf16 form on the bf16 paths
+    v2_launches = {"robust_mvd_bf16": runs_bf16["launches"]["planesweep_sample[bfloat16]"],
+                   "eval_kitti_bf16": eval_bf16["k1_launches"],
+                   "train_bf16": train_bf16["launches"]["planesweep_sample[bfloat16]"]}
+    k1b_bf16_launches = {"train_bf16": train_bf16["launches"]["planesweep_sample_backward[bfloat16]"]}
     k2_main = k2["mvsnet_f32"]
     k2_launches = {path: family[path]["fp32"]["launches"]["sweep_warp"] for path in ("mvsnet_train", "cvp_mvsnet")}
     k5_launches = {"vis_mvsnet": vis["banded"]["fp32"]["launches"]["conv3d_banded"],
@@ -1812,7 +2177,13 @@ def main():
         "bound_ms": f32["bound_ms"],
         "bound_by": f32["bound_by"],
         "library_ms": f32["library_ms"],
-        "bf16": {k: bf16[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "bf16": {**{k: bf16[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                 "replaces": "robustmvd_tpu/ops/pallas/planesweep_sample_v2.py:64",
+                 "launches": sum(v2_launches.values()), "launches_by_path": v2_launches,
+                 "launches_per_frame": runs_bf16["launches"]["planesweep_sample[bfloat16]"] / (
+                     runs_bf16["warmup"] + runs_bf16["frames"]),
+                 "launches_per_eval_sample": eval_bf16["k1_launches_per_sample"],
+                 "launches_per_train_step": train_bf16["launches_per_step"]["planesweep_sample[bfloat16]"]},
     }, {
         "name": "planesweep_sample_backward",
         "route": "cuda",
@@ -1830,6 +2201,10 @@ def main():
         "bound_by": k1b["bound_by"],
         "library_ms": k1b["library_ms"],  # grid_sample's input gradient for the same samples
         "kernel_route": k1b["route"],
+        "bf16": {**{k: k1b["bf16"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                  "library_ms", "f32_then_cast_ms")},
+                 "launches": sum(k1b_bf16_launches.values()), "launches_by_path": k1b_bf16_launches,
+                 "launches_per_train_step": train_bf16["launches_per_step"]["planesweep_sample_backward[bfloat16]"]},
     }, {
         "name": "sweep_warp",
         "route": "cuda",

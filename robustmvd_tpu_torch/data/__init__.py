@@ -1,8 +1,9 @@
 """The data layer: datasets by registry name, samples as numpy dicts
 
-(reference: rmvd/data/__init__.py). The five Robust MVD benchmark datasets
-and ``synthetic``, the augmentation and batch augmentation presets, and the
-compound dataset; the training datasets' readers come with a later slice."""
+(reference: rmvd/data/__init__.py). The five Robust MVD benchmark datasets,
+the training datasets (StaticThings3D, BlendedMVS, FlyingThings3D, DTU's
+and KITTI's training splits) and ``synthetic``, the augmentation and batch
+augmentation presets, and the compound dataset."""
 
 from . import augmentations, batch_augmentations, datasets  # noqa: F401  (they register themselves)
 from .dataset import Dataset, Sample  # noqa: F401

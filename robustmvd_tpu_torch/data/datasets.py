@@ -1,3 +1,13 @@
 """Imports the dataset definitions, which register themselves."""
 
-from . import dtu, eth3d, kitti, scannet, synthetic, tanks_and_temples  # noqa: F401
+from . import (  # noqa: F401
+    blendedmvs,
+    dtu,
+    eth3d,
+    flyingthings3d,
+    kitti,
+    scannet,
+    staticthings3d,
+    synthetic,
+    tanks_and_temples,
+)

@@ -1,9 +1,9 @@
-"""DTU, the Robust MVD split (reference: rmvd/data/dtu.py:255-502): 110
+"""DTU (reference: rmvd/data/dtu.py:255-502): the Robust MVD split (110
 
-samples, pair.txt view selection, 7 light conditions, PFM depths / 1000,
-foreground masks. The 79 training scene names are the package's own
-``meta/dtu_scenes.json``. The MVSNet training split waits for the training
-slice.
+samples) and the MVSNet training split (``train_mvsnet``, key + the 2 best
+source views), pair.txt view selection, 7 light conditions, PFM depths /
+1000, foreground masks. The 79 training scene names are the package's own
+``meta/dtu_scenes.json``; both sample lists are the package's own copies.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import numpy as np
 
 from .dataset import Dataset, Sample, _sample_list_path
 from .layouts import AllImagesLayout, MVDUnstructuredDefaultLayout
-from .registry import register_default_dataset
+from .registry import register_dataset, register_default_dataset
 
 with open(osp.join(osp.dirname(__file__), "meta", "dtu_scenes.json")) as _f:
     DTU_TRAIN_SCENES = json.load(_f)["dtu_train_scenes"]
@@ -299,6 +299,28 @@ class DTURobustMVD(DTU):
         super().__init__(
             scene_names=DTU_TRAIN_SCENES,
             num_source_views=2,
+            root=root,
+            layouts=layouts,
+            **kwargs,
+        )
+
+
+@register_dataset
+class DTUMvsnetTrain(DTU):
+    split = "train_mvsnet"
+    dataset_type = "mvd"
+
+    def __init__(self, root=None, layouts=None, **kwargs):
+        root = root if root is not None else self._get_path("dtu", "root")
+        default_layouts = [
+            MVDUnstructuredDefaultLayout("default", num_views=11, max_views=4),
+            AllImagesLayout("all_images", num_views=11),
+        ]
+        layouts = default_layouts + layouts if layouts is not None else default_layouts
+        super().__init__(
+            scene_names=DTU_TRAIN_SCENES,
+            num_source_views=2,
+            all_combinations=False,
             root=root,
             layouts=layouts,
             **kwargs,

@@ -1,8 +1,9 @@
-"""KITTI, the Robust MVD split (reference: rmvd/data/kitti.py:62-77): 93
+"""KITTI (reference: rmvd/data/kitti.py): the Robust MVD split (:62-77), 93
 
-samples of 21 sequential views, key view 10, 16-bit PNG depths / 256. The
-class names are the JAX package's, which the sample list's pickle names.
-The Eigen dense-depth splits wait for the training slice.
+samples of 21 sequential views, key view 10, 16-bit PNG depths / 256; and
+the Eigen dense-depth splits (:80-116), single views whose sample lists the
+user generates (neither the reference nor the JAX package bundles them). The
+class names are the JAX package's, which the sample lists' pickles name.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import numpy as np
 
 from .dataset import Dataset, Sample
 from .layouts import AllImagesLayout, MVDSequentialDefaultLayout
-from .registry import register_default_dataset
+from .registry import register_dataset, register_default_dataset
 
 
 class KITTIImage:
@@ -75,3 +76,31 @@ class KITTIRobustMVD(Dataset):
         ]
         layouts = default_layouts + layouts if layouts is not None else default_layouts
         super().__init__(root=root, layouts=layouts, **kwargs)
+
+
+class _KITTIEigenDenseDepth(Dataset):
+    """KITTI's Eigen split with dense (annotated) depth: single-view samples
+    (key view 0) from ``kitti.eigen_dense_depth_{test,train}.mvd.pickle`` in
+    the package's sample lists (reference: rmvd/data/kitti.py:80-116)."""
+
+    base_dataset = "kitti"
+    dataset_type = "mvd"
+
+    def __init__(self, root=None, layouts=None, **kwargs):
+        root = root if root is not None else self._get_path("kitti", "root")
+        default_layouts = [
+            MVDSequentialDefaultLayout("default", num_views=1, keyview_idx=0),
+            AllImagesLayout("all_images", num_views=1),
+        ]
+        layouts = default_layouts + layouts if layouts is not None else default_layouts
+        super().__init__(root=root, layouts=layouts, **kwargs)
+
+
+@register_dataset
+class KITTIEigenDenseDepthTest(_KITTIEigenDenseDepth):
+    split = "eigen_dense_depth_test"
+
+
+@register_dataset
+class KITTIEigenDenseDepthTrain(_KITTIEigenDenseDepth):
+    split = "eigen_dense_depth_train"

@@ -4,7 +4,8 @@ root ``eval.py``): evaluate a model on one dataset (``--eval_type mvd``) or
 on the five-dataset Robust MVD benchmark (``--eval_type robustmvd``):
 
     python -m robustmvd_tpu_torch.eval --eval_type mvd --dataset synthetic.train.mvd \\
-        --model robust_mvd --inputs poses intrinsics --output out/ [--num_samples N] [--device cuda]
+        --model robust_mvd --inputs poses intrinsics --output out/ [--num_samples N] [--dtype bfloat16] \\
+        [--device cuda]
 
 The model runs on the card unless ``--device cpu`` is given; without a card
 the default raises. Outputs: ``results.csv`` / ``.pickle`` and the rest of
@@ -22,7 +23,7 @@ import sys
 import numpy as np
 
 from ..data import create_dataset, list_datasets
-from ..models import create_model, list_models
+from ..models import cli_model_kwargs, create_model, list_models
 from ..utils import logging
 from . import create_evaluation, list_evaluations
 
@@ -42,6 +43,8 @@ def evaluate(args, argv):
         logging.info(f"No dataset specified. Available datasets: {', '.join(datasets)}")
         return
 
+    model_kwargs = cli_model_kwargs(args.model, args.dtype)
+
     os.makedirs(args.output, exist_ok=True)
     log_file_path = osp.join(args.output, "log.txt")
     logging.add_log_file(log_file_path, flush_line=True)
@@ -52,7 +55,8 @@ def evaluate(args, argv):
     if args.eval_type != "robustmvd":
         dataset = create_dataset(dataset_name_or_path=args.dataset, dataset_type=args.eval_type,
                                  input_size=args.input_size)
-    model = create_model(name=args.model, weights=args.weights, train=False, device=args.device)
+    model = create_model(name=args.model, weights=args.weights, train=False, device=args.device,
+                         **model_kwargs)
     evaluation = create_evaluation(
         args.eval_type, out_dir=args.output, inputs=args.inputs, alignment=args.alignment,
         view_ordering=args.view_ordering, min_source_views=args.min_source_views,
@@ -74,6 +78,9 @@ def evaluate(args, argv):
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--model", help=f"Model. Available: {', '.join(list_models())}")
+    parser.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
+                        help="Compute dtype of the robust_mvd family (float32 by default; bfloat16 runs the "
+                             "convolutions and the correlation in bf16 with float32 sums and float32 heads).")
     parser.add_argument("--weights", help="Path to rmvd model weights (.pt). Optional.")
     parser.add_argument("--eval_type", help="mvd | robustmvd")
     parser.add_argument("--dataset", help="Dataset name (for eval_type=mvd).")

@@ -5,7 +5,7 @@ Runs a model on a folder with a key view and source views
 predicted depth, inverse depth and uncertainty as .npy and turbo PNGs:
 
     python -m robustmvd_tpu_torch.inference --model robust_mvd|mvsnet_train|cvp_mvsnet|vis_mvsnet \
-        --input_path sample_data --output_path out/ [--weights x.pt] [--device cuda]
+        --input_path sample_data --output_path out/ [--weights x.pt] [--dtype bfloat16] [--device cuda]
 
 Each model's depth range defaults as in its JAX module (0.2..100 for the
 MVSNet family).
@@ -20,7 +20,7 @@ import sys
 
 import numpy as np
 
-from .models import create_model, list_models
+from .models import cli_model_kwargs, create_model, list_models
 from .utils import invert_transform, resize_bilinear
 from .utils.vis import vis
 
@@ -80,7 +80,8 @@ def run(args, argv):
     with open(osp.join(args.output_path, "cmd.txt"), "w") as f:
         f.write("python -m robustmvd_tpu_torch.inference " + " ".join(argv))
 
-    model = create_model(name=args.model, weights=args.weights, train=False, device=args.device)
+    model = create_model(name=args.model, weights=args.weights, train=False, device=args.device,
+                         **cli_model_kwargs(args.model, args.dtype))
     sample, h_orig, w_orig = load_data(args.input_path)
     pred, _ = model.run(**sample)
     write_pred(pred, args.output_path, h_orig, w_orig)
@@ -92,6 +93,9 @@ def parse_args(argv=None):
     parser.add_argument("--input_path", default="sample_data", help="Path to folder with input data.")
     parser.add_argument("--output_path", default="sample_data/out", help="Path to folder for output data.")
     parser.add_argument("--model", help=f"Model. Available: {', '.join(list_models())}")
+    parser.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
+                        help="Compute dtype of the robust_mvd family (float32 by default; bfloat16 runs the "
+                             "convolutions and the correlation in bf16 with float32 sums and float32 heads).")
     parser.add_argument("--weights", help="Path to rmvd model weights (.pt). Optional.")
     parser.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu.")
     return parser.parse_args(argv)

@@ -1,4 +1,4 @@
-from .factory import create_model, prepare_custom_model  # noqa: F401
+from .factory import cli_model_kwargs, create_model, prepare_custom_model  # noqa: F401
 from .helpers import ModelBase, add_run_function  # noqa: F401
 from .registry import has_model, list_models, register_model  # noqa: F401
 

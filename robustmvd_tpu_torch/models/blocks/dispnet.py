@@ -12,6 +12,13 @@ reference, so ``state_dict()`` keys are the rmvd checkpoint's
 Weights are initialised as in the reference (rmvd/models/robust_mvd.py:39-55):
 kaiming-normal with a=0.2 over fan-in for every conv and deconv, biases zero,
 drawn from an explicit ``torch.Generator``.
+
+Each block takes a compute ``dtype``, as the JAX blocks take flax's
+``dtype=``: parameters stay float32, and each convolution casts its input,
+weight and bias to the compute dtype (bf16: one rounding of a float32 sum
+per output). The prediction heads always run in float32 (``pred_block``).
+The casts are explicit per module, not ``torch.autocast``, whose own choice
+of float32 ops would differ from the JAX package's.
 """
 
 from __future__ import annotations
@@ -25,26 +32,52 @@ import torch.nn.functional as F
 from ...ops.interpolate import resize_bilinear
 
 
-def conv_lrelu(in_ch, out_ch, kernel_size=3, stride=1):
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing at ``dtype``: input, weight and bias are cast to
+    it (flax ``nn.Conv(dtype=...)``); the parameters stay float32."""
+
+    def __init__(self, *args, dtype=torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return self._conv_forward(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` computing at ``dtype``, as :class:`Conv2d`."""
+
+    def __init__(self, *args, dtype=torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), self.bias.to(dt), self.stride, self.padding,
+                                  self.output_padding, self.groups, self.dilation)
+
+
+def conv_lrelu(in_ch, out_ch, kernel_size=3, stride=1, dtype=torch.float32):
     """Conv(k, s, symmetric padding) + LeakyReLU(0.2)
 
     (reference: rmvd/models/blocks/utils.py:14-27 `conv`)."""
     return nn.Sequential(
-        nn.Conv2d(in_ch, out_ch, kernel_size, stride=stride, padding=(kernel_size - 1) // 2),
+        Conv2d(in_ch, out_ch, kernel_size, stride=stride, padding=(kernel_size - 1) // 2, dtype=dtype),
         nn.LeakyReLU(0.2),
     )
 
 
-def deconv_lrelu(in_ch, out_ch):
+def deconv_lrelu(in_ch, out_ch, dtype=torch.float32):
     """ConvTranspose(k4, s2, p1) + LeakyReLU(0.2): output = 2x input
 
     (reference: dispnet_decoder.py:25-33 `deconv`)."""
-    return nn.Sequential(nn.ConvTranspose2d(in_ch, out_ch, 4, stride=2, padding=1), nn.LeakyReLU(0.2))
+    return nn.Sequential(ConvTranspose2d(in_ch, out_ch, 4, stride=2, padding=1, dtype=dtype), nn.LeakyReLU(0.2))
 
 
-def iconv_block(in_ch, out_ch):
+def iconv_block(in_ch, out_ch, dtype=torch.float32):
     """3x3 conv + LeakyReLU(0.2) on a skip concat (dispnet_decoder.py:8-14)."""
-    return conv_lrelu(in_ch, out_ch, 3, 1)
+    return conv_lrelu(in_ch, out_ch, 3, 1, dtype)
 
 
 class ReLUAndSigmoid(nn.Module):
@@ -64,10 +97,12 @@ class ReLUAndSigmoid(nn.Module):
 
 
 def pred_block(in_ch):
-    """3x3 conv -> (invdepth, log_b) + ReLUAndSigmoid(+-10)
+    """3x3 conv -> (invdepth, log_b) + ReLUAndSigmoid(+-10), in float32 at any
 
+    compute dtype, as the JAX ``PredBlock``: depth = 1/invdepth would carry
+    bf16's relative error into the benchmark's metrics
     (reference: dispnet_decoder.py:17-23 `pred_block`)."""
-    return nn.Sequential(nn.Conv2d(in_ch, 2, 3, padding=1), ReLUAndSigmoid(-10.0, 10.0))
+    return nn.Sequential(Conv2d(in_ch, 2, 3, padding=1), ReLUAndSigmoid(-10.0, 10.0))
 
 
 def init_weights(module, generator):
@@ -90,11 +125,11 @@ class DispnetEncoder(nn.Module):
 
     (reference: rmvd/models/blocks/dispnet_encoder.py:6-27)."""
 
-    def __init__(self):
+    def __init__(self, dtype=torch.float32):
         super().__init__()
-        self.conv1 = conv_lrelu(3, 64, 7, 2)
-        self.conv2 = conv_lrelu(64, 128, 5, 2)
-        self.conv3 = conv_lrelu(128, 256, 3, 2)
+        self.conv1 = conv_lrelu(3, 64, 7, 2, dtype)
+        self.conv2 = conv_lrelu(64, 128, 5, 2, dtype)
+        self.conv3 = conv_lrelu(128, 256, 3, 2, dtype)
 
     def forward(self, image):
         conv1 = self.conv1(image)
@@ -106,9 +141,9 @@ class DispnetEncoder(nn.Module):
 class DispnetContextEncoder(nn.Module):
     """1x1 conv 256 -> 32 on key features (dispnet_context_encoder.py:6-13)."""
 
-    def __init__(self):
+    def __init__(self, dtype=torch.float32):
         super().__init__()
-        self.conv_redir = conv_lrelu(256, 32, 1, 1)
+        self.conv_redir = conv_lrelu(256, 32, 1, 1, dtype)
 
     def forward(self, conv3):
         return self.conv_redir(conv3)
@@ -118,15 +153,16 @@ class LearnedFusion(nn.Module):
     """Per-view weight CNN + softmax across views + mask-weighted average
 
     (reference: rmvd/models/blocks/learned_fusion.py:5-54). corrs and masks
-    are (B, V, S, H, W); returns the fused (B, S, H, W) corr and mask.
+    are (B, V, S, H, W); returns the fused (B, S, H, W) corr and mask. The
+    weights, their softmax over views and the sums run at the compute dtype.
     """
 
-    def __init__(self, num_sampling_points=256):
+    def __init__(self, num_sampling_points=256, dtype=torch.float32):
         super().__init__()
         self.corr_to_view_weight = nn.Sequential(
-            nn.Conv2d(num_sampling_points, 128, 3, padding=1),
+            Conv2d(num_sampling_points, 128, 3, padding=1, dtype=dtype),
             nn.ReLU(),
-            nn.Conv2d(128, 1, 1),
+            Conv2d(128, 1, 1, dtype=dtype),
         )
 
     def forward(self, corrs, masks):
@@ -149,18 +185,18 @@ class DispnetCostvolumeEncoder(nn.Module):
 
     (reference: rmvd/models/blocks/dispnet_costvolume_encoder.py:7-50)."""
 
-    def __init__(self, num_sampling_points=256):
+    def __init__(self, num_sampling_points=256, dtype=torch.float32):
         super().__init__()
-        self.conv3_1 = conv_lrelu(32 + num_sampling_points, 256)
-        self.conv4 = conv_lrelu(256, 512, stride=2)
-        self.conv4_1 = conv_lrelu(512, 512)
-        self.conv5 = conv_lrelu(512, 512, stride=2)
-        self.conv5_1 = conv_lrelu(512, 512)
-        self.conv6 = conv_lrelu(512, 1024, stride=2)
-        self.conv6_1 = conv_lrelu(1024, 1024)
+        self.conv3_1 = conv_lrelu(32 + num_sampling_points, 256, dtype=dtype)
+        self.conv4 = conv_lrelu(256, 512, stride=2, dtype=dtype)
+        self.conv4_1 = conv_lrelu(512, 512, dtype=dtype)
+        self.conv5 = conv_lrelu(512, 512, stride=2, dtype=dtype)
+        self.conv5_1 = conv_lrelu(512, 512, dtype=dtype)
+        self.conv6 = conv_lrelu(512, 1024, stride=2, dtype=dtype)
+        self.conv6_1 = conv_lrelu(1024, 1024, dtype=dtype)
 
     def forward(self, corr, ctx):
-        merged = torch.cat([ctx, corr], 1)
+        merged = torch.cat([ctx, corr.to(ctx.dtype)], 1)
         out = {"merged": merged}
         x = merged
         for name in ("conv3_1", "conv4", "conv4_1", "conv5", "conv5_1", "conv6", "conv6_1"):
@@ -173,20 +209,21 @@ class DispnetDecoder(nn.Module):
 
     heads (reference: rmvd/models/blocks/dispnet_decoder.py:37-138). The
     upsampled predictions are detached before re-injection, as in the
-    reference (:88-121).
+    reference (:88-121), and cast to the features' dtype for the concat; the
+    heads are float32.
     """
 
     # (deconv out channels, skip feature name, skip channels) per scale 1..5
     _SCALES = ((512, "conv5_1", 512), (256, "conv4_1", 512), (128, "conv3_1", 256),
                (64, "conv2", 128), (32, "conv1", 64))
 
-    def __init__(self):
+    def __init__(self, dtype=torch.float32):
         super().__init__()
         self.pred_0 = pred_block(1024)
         in_ch = 1024
         for i, (ch, _, skip_ch) in enumerate(self._SCALES, start=1):
-            setattr(self, f"deconv_{i}", deconv_lrelu(in_ch, ch))
-            setattr(self, f"rfeat{i}", iconv_block(skip_ch + ch + 2, ch))
+            setattr(self, f"deconv_{i}", deconv_lrelu(in_ch, ch, dtype))
+            setattr(self, f"rfeat{i}", iconv_block(skip_ch + ch + 2, ch, dtype))
             setattr(self, f"pred_{i}", pred_block(ch))
             in_ch = ch
 
@@ -209,7 +246,7 @@ class DispnetDecoder(nn.Module):
         x = enc_fused
         for i, (_, skip, _) in enumerate(self._SCALES, start=1):
             deconv = getattr(self, f"deconv_{i}")(x)
-            up = resize_bilinear(pred, deconv.shape[-2:]).detach()
+            up = resize_bilinear(pred, deconv.shape[-2:]).detach().to(deconv.dtype)
             x = getattr(self, f"rfeat{i}")(torch.cat([all_enc[skip], deconv, up], 1))
             pred = getattr(self, f"pred_{i}")(x)
             add_outputs(pred)

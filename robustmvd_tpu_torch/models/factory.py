@@ -36,6 +36,18 @@ def create_model(name, pretrained=True, weights=None, train=False, device=None, 
     return model
 
 
+def cli_model_kwargs(model_name, dtype=None):
+    """The CLIs' model options as create_model arguments (the JAX package's
+    ``cli_model_kwargs``): ``--dtype`` exists only for the robust_mvd family
+    and exits with a message for any other model. JAX's ``--no_remat`` has no
+    counterpart: the port does not rematerialise."""
+    if dtype is None:
+        return {}
+    if not str(model_name).startswith("robust_mvd"):
+        raise SystemExit(f"--dtype is only supported by the robust_mvd family, not {model_name}")
+    return {"dtype": dtype}
+
+
 def prepare_custom_model(model):
     """Prepare a duck-typed custom model (input_adapter / __call__ /
     output_adapter) for the run protocol (reference: rmvd/models/factory.py:32-61)."""

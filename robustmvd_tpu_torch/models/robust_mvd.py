@@ -12,6 +12,12 @@ Counterpart of the JAX package's ``models/robust_mvd.py``. NCHW inside; the
 correlation op keeps the JAX layouts at its interface. The view list is not
 padded to a bucket size (that bounds XLA compiles only), so the forward has
 no ``num_views`` masking.
+
+``dtype="bfloat16"`` is JAX's mixed precision: the parameters, the input
+pipeline, the epipolar coordinate math and the prediction heads stay
+float32; images are cast to bf16 at the top of the forward, and the
+convolutions, the correlation (bf16 scores sampled by K1 v2) and the fusion
+run in bf16. ``depth`` and ``depth_uncertainty`` are float32.
 """
 
 from __future__ import annotations
@@ -54,6 +60,10 @@ def split_key_sources(stacked, keyview_idx):
     return key, take(order[:, : V - 1])
 
 
+# the compute dtypes a ``dtype`` argument names (the JAX package's names)
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
+
+
 # plane-sweep hypotheses: linear in inverse depth over [1/MAX_DEPTH, 1/MIN_DEPTH]
 # (rmvd/models/robust_mvd.py:71-80)
 NUM_SAMPLING_POINTS = 256
@@ -64,15 +74,20 @@ MAX_DEPTH = 1000.0
 class RobustMVD(ModelBase):
     """The forward takes images (B, V, 3, H, W) normalised, poses (B, V, 4, 4),
 
-    intrinsics (B, V, 3, 3) relative and keyview_idx (B,)."""
+    intrinsics (B, V, 3, 3) relative and keyview_idx (B,). ``dtype`` names
+    the compute dtype (``COMPUTE_DTYPES``); parameters are float32 either
+    way, so the state dict and the weight bridge do not depend on it."""
 
-    def __init__(self, device, weights=None, seed=0, train=False):
+    def __init__(self, device, weights=None, seed=0, train=False, dtype="float32"):
         super().__init__()
-        self.encoder = DispnetEncoder()
-        self.context_encoder = DispnetContextEncoder()
-        self.fusion_block = LearnedFusion(NUM_SAMPLING_POINTS)
-        self.fusion_enc_block = DispnetCostvolumeEncoder(NUM_SAMPLING_POINTS)
-        self.decoder = DispnetDecoder()
+        if dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"robust_mvd computes in float32 or bfloat16 (bf16), not {dtype!r}")
+        self.compute_dtype = cdt = COMPUTE_DTYPES[dtype]
+        self.encoder = DispnetEncoder(cdt)
+        self.context_encoder = DispnetContextEncoder(cdt)
+        self.fusion_block = LearnedFusion(NUM_SAMPLING_POINTS, cdt)
+        self.fusion_enc_block = DispnetCostvolumeEncoder(NUM_SAMPLING_POINTS, cdt)
+        self.decoder = DispnetDecoder(cdt)
         if weights is None:
             init_weights(self, torch.Generator().manual_seed(seed))
         else:
@@ -83,6 +98,7 @@ class RobustMVD(ModelBase):
 
     def forward(self, images, poses, intrinsics, keyview_idx):
         B, V, _, H, W = images.shape
+        images = images.to(self.compute_dtype)
         all_enc, _ = self.encoder(images.reshape(B * V, *images.shape[2:]))
         all_enc = {k: v.reshape(B, V, *v.shape[1:]) for k, v in all_enc.items()}
 
@@ -143,18 +159,19 @@ class RobustMVD(ModelBase):
         }
 
 
-def _entry(weights, train, device, seed):
-    return RobustMVD(device=device, weights=weights, seed=seed, train=train)
+def _entry(weights, train, device, seed, dtype):
+    return RobustMVD(device=device, weights=weights, seed=seed, train=train, dtype=dtype)
 
 
 @register_model
-def robust_mvd(pretrained=True, weights=None, train=False, device="cuda", seed=0):
+def robust_mvd(pretrained=True, weights=None, train=False, device="cuda", seed=0, dtype="float32"):
     """The paper's baseline (rmvd/models/robust_mvd.py:151-158). There is no
-    download: pass a rmvd ``.pt`` as ``weights``, or get weights from ``seed``."""
-    return _entry(weights, train, device, seed)
+    download: pass a rmvd ``.pt`` as ``weights``, or get weights from ``seed``.
+    ``dtype``: "float32" or "bfloat16" ("bf16"), the compute dtype."""
+    return _entry(weights, train, device, seed, dtype)
 
 
 @register_model(trainable=False)
-def robust_mvd_5M(pretrained=True, weights=None, train=False, device="cuda", seed=0):
+def robust_mvd_5M(pretrained=True, weights=None, train=False, device="cuda", seed=0, dtype="float32"):
     """The 5M-iteration variant (rmvd/models/robust_mvd.py:139-148)."""
-    return _entry(weights, train, device, seed)
+    return _entry(weights, train, device, seed, dtype)

@@ -25,6 +25,18 @@ alive at a time (about 1.2 GB at DTU's 896x1216). Under autograd no score
 matrix is kept for the backward: the product saves its two inputs and K1
 only its taps.
 
+Features may be float32 or bfloat16 (robust_mvd's ``dtype="bfloat16"``).
+With bf16 features the score product runs on bf16 operands (cuBLAS sums in
+float32 and rounds once to bf16) and is then scaled in bf16. The JAX
+package instead scales the float32 product and then rounds it; at
+robust_mvd's C = 256 the scale is 1/16, a power of two, so both orders give
+the same bits outside the subnormal range. K1 v2, the bf16 instantiation,
+samples the bf16 scores with bf16 row weights; corrs and masks come out in
+the feature dtype, as in JAX's ``_finish_corr``. Of the JAX routes, bf16
+matches ``corr_impl="pixelscan"`` (the default) and ``"matmul"``, which
+both sample bf16 scores; ``"pallas"`` samples float32 scores even for bf16
+features (its v1 kernel), so it is not this route's reference at bf16.
+
 Layouts are the JAX package's: features (B, H, W, C), correlation volumes
 and masks (B, V, H, W, S).
 """
@@ -56,11 +68,12 @@ def tap_coordinates(us, vs):
     return x0i, y0i, x - x0, y - y0
 
 
-def finish_corr(out, vis, x0, y0, wx, wy, Hs, Ws):
+def finish_corr(out, vis, x0, y0, wx, wy, Hs, Ws, dtype):
     """Apply the all-taps-in-bounds and visibility masks.
 
     out, x0, y0, wx, wy: (B, HW, S); vis: (B, S, H, W) bool.
-    Returns corr, mask: (B, H, W, S) float32 (``_finish_corr`` rules).
+    Returns corr, mask: (B, H, W, S) of ``dtype``, the features' dtype
+    (``_finish_corr`` rules).
     """
     B, S, H, W = vis.shape
     x0, y0 = x0.long(), y0.long()
@@ -73,10 +86,10 @@ def finish_corr(out, vis, x0, y0, wx, wy, Hs, Ws):
         return wxx * wyy * valid.float()
 
     wsum = tap_valid(0, 0) + tap_valid(0, 1) + tap_valid(1, 0) + tap_valid(1, 1)
-    in_bounds = (wsum >= 0.9999).float()
-    vis = vis.permute(0, 2, 3, 1).reshape(B, H * W, S).float()
+    in_bounds = (wsum >= 0.9999).to(dtype)
+    vis = vis.permute(0, 2, 3, 1).reshape(B, H * W, S).to(dtype)
     mask = in_bounds * vis
-    corr = out * mask
+    corr = out.to(dtype) * mask
     return corr.reshape(B, H, W, S), mask.reshape(B, H, W, S)
 
 
@@ -85,13 +98,13 @@ def planesweep_correlation_single(feat_key, feat_src, intrinsics_key, intrinsics
     """Correlation volume for one source view.
 
     Args:
-        feat_key: (B, H, W, C); feat_src: (B, Hs, Ws, C).
+        feat_key: (B, H, W, C); feat_src: (B, Hs, Ws, C), float32 or bfloat16.
         intrinsics_key, intrinsics_src: (B, 3, 3) relative intrinsics.
         key_to_source_transform: (B, 4, 4).
         invdepths: (B, S).
 
     Returns:
-        corr, mask: (B, H, W, S) float32.
+        corr, mask: (B, H, W, S) in the features' dtype.
     """
     B, H, W, C = feat_key.shape
     Hs, Ws = feat_src.shape[1], feat_src.shape[2]
@@ -101,13 +114,12 @@ def planesweep_correlation_single(feat_key, feat_src, intrinsics_key, intrinsics
     S = us.shape[1]
 
     # scaled in place: the (B, HW, HsWs) score matrix is the largest buffer
-    scores = torch.matmul(feat_key.reshape(B, H * W, C).float(),
-                          feat_src.reshape(B, Hs * Ws, C).float().transpose(1, 2))
+    scores = torch.matmul(feat_key.reshape(B, H * W, C), feat_src.reshape(B, Hs * Ws, C).transpose(1, 2))
     scores.mul_(1.0 / math.sqrt(C))
     x0, y0, wx, wy = tap_coordinates(us, vs)
     out = planesweep_sample_with_grad(scores.reshape(B * H * W, Hs, Ws), y0.reshape(-1, S),
                                       wy.reshape(-1, S), x0.reshape(-1, S), wx.reshape(-1, S))
-    return finish_corr(out.reshape(B, H * W, S), vis, x0, y0, wx, wy, Hs, Ws)
+    return finish_corr(out.reshape(B, H * W, S), vis, x0, y0, wx, wy, Hs, Ws, feat_key.dtype)
 
 
 def planesweep_correlation(feat_key, feat_sources, intrinsics_key, intrinsics_sources,

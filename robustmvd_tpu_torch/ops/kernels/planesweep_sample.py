@@ -100,20 +100,26 @@ def planesweep_sample(corr_img, y0, wy, x0, wx):
     if err != 0:
         raise RuntimeError(f"planesweep_sample kernel launch failed: cudaError {err}")
     planesweep_sample.launches += 1
+    planesweep_sample.launches_by_dtype[str(corr_img.dtype).removeprefix("torch.")] += 1
     return out
 
 
+# every launch, and the launches of each instantiation by score dtype (float32:
+# K1, the TPU's v1; bfloat16: K1 v2)
 planesweep_sample.launches = 0
+planesweep_sample.launches_by_dtype = {"float32": 0, "bfloat16": 0}
 
 
 class _PlanesweepSample(torch.autograd.Function):
     """K1 forward, K1b backward. Saves only the taps: the (P, Hs, Ws) score
-    images are not needed for the gradient and are not kept."""
+    images are not needed for the gradient and are not kept. The gradient
+    has the score images' dtype (bf16 for K1 v2)."""
 
     @staticmethod
     def forward(ctx, corr_img, y0, wy, x0, wx):
         ctx.save_for_backward(y0, wy, x0, wx)
         ctx.score_shape = tuple(corr_img.shape[1:])
+        ctx.score_dtype = corr_img.dtype
         return planesweep_sample(corr_img, y0, wy, x0, wx)
 
     @staticmethod
@@ -121,7 +127,8 @@ class _PlanesweepSample(torch.autograd.Function):
         y0, wy, x0, wx = ctx.saved_tensors
         d_corr = None
         if ctx.needs_input_grad[0]:
-            d_corr = planesweep_sample_backward(grad, y0, wy, x0, wx, *ctx.score_shape)
+            d_corr = planesweep_sample_backward(grad, y0, wy, x0, wx, *ctx.score_shape,
+                                                dtype=ctx.score_dtype)
         return d_corr, None, None, None, None
 
 

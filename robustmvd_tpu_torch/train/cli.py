@@ -28,7 +28,7 @@ import torch
 
 from ..data import create_compound_dataset, create_dataset, list_datasets
 from ..loss import create_loss, list_losses
-from ..models import create_model, list_models
+from ..models import cli_model_kwargs, create_model, list_models
 from ..optim import create_optimizer, create_scheduler, list_optimizers, list_schedulers
 from ..utils import logging
 from . import create_training, list_trainings
@@ -67,6 +67,8 @@ def train(args, argv):
         raise NotImplementedError("--data_parallel over more than one card is not ported yet; "
                                   "make one card visible (CUDA_VISIBLE_DEVICES)")
 
+    model_kwargs = cli_model_kwargs(args.model, args.dtype)
+
     os.makedirs(args.output, exist_ok=True)
     log_file_path = osp.join(args.output, "log.txt")
     logging.add_log_file(log_file_path, flush_line=True)
@@ -82,7 +84,8 @@ def train(args, argv):
                                            target_size=args.target_size, augmentations=augmentation))
         dataset = datasets[0] if len(datasets) == 1 else create_compound_dataset(datasets)
 
-        model = create_model(name=args.model, pretrained=False, weights=args.weights, train=True, device=args.device)
+        model = create_model(name=args.model, pretrained=False, weights=args.weights, train=True, device=args.device,
+                             **model_kwargs)
         optimizer = create_optimizer(name=args.optimizer, model=model, lr=args.lr)
         scheduler = create_scheduler(name=args.scheduler, optimizer=optimizer)
         loss = create_loss(name=args.loss, model=model)
@@ -102,6 +105,9 @@ def train(args, argv):
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--model", help="Model to train.")
+    parser.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
+                        help="Compute dtype of the robust_mvd family (float32 by default; bfloat16 runs the "
+                             "convolutions and the correlation in bf16 with float32 sums and float32 heads).")
     parser.add_argument("--weights", help="Initial weights (a rmvd .pt). Optional.")
     parser.add_argument("--training_type", default="mvd")
     parser.add_argument("--dataset", nargs="*", help="Training dataset(s).")

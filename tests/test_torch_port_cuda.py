@@ -984,3 +984,100 @@ def test_training_engine_on_card(cuda, tmp_path):
     loaded = rmvd.create_model("robust_mvd", device="cuda", weights=str(weights))
     for k, v in model.state_dict().items():
         assert torch.equal(loaded.state_dict()[k], v), k
+
+
+# --- bf16: K1b's bf16 form, K1 v2 through the correlation, a bf16 train step ---
+
+# K1b's bf16 form vs its plain version (float32 sums, one rounding): the sums
+# differ by the atomics' order, so a value may round to the neighbouring bf16
+# step, 2^-8 of its magnitude at most
+K1B_BF16_LIMIT = 2.0**-8
+
+
+@pytest.mark.parametrize("shape,route", [((37, 6, 7, 300), "shared"), ((2, 48, 96, 256), "shared"),
+                                         ((5, 128, 512, 64), "global")])
+def test_k1b_bf16_matches_plain_version(cuda, shape, route):
+    """Odd rows (scalar stores), the recipe's 48x96 rows (16-byte stores of
+    eight bf16), and rows beyond shared memory (float32 scratch, then one
+    rounding pass)."""
+    P, Hs, Ws, S = shape
+    grad, y0, wy, x0, wx = (a.to(cuda) for a in _k1b_taps(5, P, Hs, Ws, S))
+    assert planesweep_sample_backward_route(Hs, Ws) == route
+    before = dict(planesweep_sample_backward.launches_by_dtype)
+    out = planesweep_sample_backward(grad, y0, wy, x0, wx, Hs, Ws, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert planesweep_sample_backward.launches_by_dtype == {**before, "bfloat16": before["bfloat16"] + 1}
+    ref = planesweep_sample_backward_reference(grad, y0, wy, x0, wx, Hs, Ws, dtype=torch.bfloat16)
+    assert out.dtype == ref.dtype == torch.bfloat16 and out.shape == (P, Hs, Ws)
+    scale = float(ref.float().abs().max())
+    assert scale > 0
+    torch.testing.assert_close(out.float(), ref.float(), atol=K1B_BF16_LIMIT * scale, rtol=0)
+    # the row weights are rounded as K1 v2 rounds them: the float32 form differs
+    f32 = planesweep_sample_backward(grad, y0, wy, x0, wx, Hs, Ws)
+    assert not torch.equal(f32.bfloat16(), out)
+
+
+def test_correlation_bf16_on_card_matches_cpu(cuda):
+    """bf16 features: the bf16 score product, K1 v2 (one launch per source
+    view) and bf16 corrs and masks, card vs CPU within 1e-2 of max |corr|."""
+    rng = np.random.RandomState(6)
+    B, V, H, W, C, S = 2, 2, 12, 20, 256, 64
+    K = np.tile(np.array([[0.9, 0, 0.5], [0, 1.2, 0.5], [0, 0, 1]], np.float32), (B, 1, 1))
+    T = np.tile(np.eye(4, dtype=np.float32), (B, V, 1, 1))
+    T[:, :, :3, 3] = rng.randn(B, V, 3) * 0.3
+    args = [torch.from_numpy(rng.randn(B, H, W, C).astype(np.float32)).bfloat16(),
+            torch.from_numpy(rng.randn(B, V, H, W, C).astype(np.float32)).bfloat16()]
+    args += [torch.from_numpy(a) for a in (K, np.tile(K[:, None], (1, V, 1, 1)), T)]
+    kw = dict(num_sampling_points=S, min_depth=0.4, max_depth=1000.0)
+    before = dict(planesweep_sample.launches_by_dtype)
+    corr_g, mask_g, _ = planesweep_correlation(*(a.to(cuda) for a in args), **kw)
+    torch.cuda.synchronize()
+    assert planesweep_sample.launches_by_dtype == {**before, "bfloat16": before["bfloat16"] + V}
+    corr_c, mask_c, _ = planesweep_correlation(*args, **kw)
+    assert corr_g.dtype == mask_g.dtype == corr_c.dtype == torch.bfloat16
+    torch.testing.assert_close(mask_g.cpu(), mask_c, atol=0, rtol=0)
+    assert float(mask_c.float().mean()) > 0.05
+    scale = float(corr_c.float().abs().max())
+    torch.testing.assert_close(corr_g.cpu().float(), corr_c.float(), atol=1e-2 * scale, rtol=0)
+
+
+def test_bf16_train_step_on_card_matches_cpu(cuda, tmp_path):
+    """One recipe step (the engine's train_step) of robust_mvd at bf16, B = 1,
+    1+2 views, 64x128, same weights and batch: K1 v2 and K1b's bf16 form twice
+    each on the card; the loss within 1e-2 relative and the gradients at a
+    cosine > 0.99 of the CPU's (bf16 convolutions round in other places on
+    cuDNN and on the CPU); the parameters and their gradients float32."""
+    import robustmvd_tpu_torch as rmvd
+
+    rng = np.random.RandomState(7)
+    B, V, H, W = 1, 3, 64, 128
+    images = rng.rand(B, V, 3, H, W).astype(np.float32) - 0.4
+    K = np.tile(np.array([[0.9, 0, 0.5], [0, 1.2, 0.5], [0, 0, 1]], np.float32), (B, V, 1, 1))
+    poses = np.tile(np.eye(4, dtype=np.float32), (B, V, 1, 1))
+    poses[:, 1:, 0, 3] = [0.1, -0.1]
+    invdepth = (1.0 / (rng.rand(B, 1, H, W) * 8.0 + 2.0)).astype(np.float32)
+    inputs = {"images": images, "poses": poses, "intrinsics": K, "keyview_idx": np.zeros(B, np.int64)}
+    dataset = rmvd.create_dataset("synthetic.train.mvd", num_samples=1, num_views=V, height=H, width=W)
+    steps = {}
+    for device in ("cpu", "cuda"):
+        model = rmvd.create_model("robust_mvd", device=device, train=True, dtype="bfloat16")
+        optimizer = rmvd.create_optimizer("adam", model=model, lr=1e-4)
+        training = rmvd.create_training(
+            "mvd", out_dir=str(tmp_path / device), model=model, dataset=dataset, optimizer=optimizer,
+            scheduler=rmvd.create_scheduler("flownet_scheduler", optimizer=optimizer),
+            loss=rmvd.create_loss("robust_mvd_loss", model=model), batch_size=1, max_iterations=1,
+            grad_clip_max_norm=5.0, num_workers=0, verbose=False)
+        before = (dict(planesweep_sample.launches_by_dtype), dict(planesweep_sample_backward.launches_by_dtype))
+        loss, _ = training.train_step({k: torch.from_numpy(v).to(device) for k, v in inputs.items()},
+                                      {"invdepth": torch.from_numpy(invdepth).to(device)})
+        launched = (planesweep_sample.launches_by_dtype["bfloat16"] - before[0]["bfloat16"],
+                    planesweep_sample_backward.launches_by_dtype["bfloat16"] - before[1]["bfloat16"])
+        assert all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
+                   for p in model.parameters() if p.grad is not None)
+        grads = torch.cat([p.grad.flatten().double().cpu() for p in model.parameters() if p.grad is not None])
+        steps[device] = (float(loss), grads, launched)
+    assert steps["cuda"][2] == (2, 2) and steps["cpu"][2] == (0, 0)
+    assert np.isfinite(steps["cuda"][0]) and torch.isfinite(steps["cuda"][1]).all()
+    assert abs(steps["cuda"][0] - steps["cpu"][0]) <= 1e-2 * abs(steps["cpu"][0])
+    g, c = steps["cuda"][1], steps["cpu"][1]
+    assert float(g @ c / (g.norm() * c.norm())) > 0.99

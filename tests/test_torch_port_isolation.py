@@ -4,9 +4,10 @@
   fresh interpreter, loads none of them: each model at its defaults, then
   the family on the K4 and K5 paths (``ops/kernels/warp_volume.py``,
   ``ops/kernels/conv3d.py``, ``ops/conv3d.py``) and vis_mvsnet on cuDNN's
-  convolutions; then a benchmark sample list (pickled with the JAX
-  package's class paths), ``synthetic``, an evaluation of robust_mvd, the
-  augmentation presets and a training run of robust_mvd (the train CLI).
+  convolutions, and robust_mvd at bf16; then a benchmark sample list and
+  DTU's MVSNet training list (pickled with the JAX package's class paths),
+  ``synthetic``, an evaluation of robust_mvd, the augmentation presets and
+  a training run of robust_mvd at bf16 (the train CLI).
 - No source file of the package, nor ``chip_smoke.py``, imports them or
   names them in a string (``importlib`` style).
 - Entry points default to the card and raise, naming ``device='cpu'``,
@@ -51,12 +52,13 @@ runs = (("robust_mvd", {}, (1, 32, 32)), ("mvsnet_train", {}, (1, 16, 16)),
         # the family on K4's and K5's paths (plain versions here) and vis on cuDNN's convolutions
         ("mvsnet_train", {"conv3d_impl": "banded", "warp_impl": "xla"}, (1, 16, 16)),
         ("cvp_mvsnet", {"nscale": 3, "conv3d_impl": "banded"}, (1, 64, 64)),
-        ("vis_mvsnet", {"conv3d_impl": "xla"}, (1, 32, 32)))
+        ("vis_mvsnet", {"conv3d_impl": "xla"}, (1, 32, 32)), ("robust_mvd", {"dtype": "bfloat16"}, (1, 32, 32)))
 for name, kwargs, shape in runs:
     model = r.create_model(name, device="cpu", **kwargs)
     pred, _ = model.run(images=images, keyview_idx=0, poses=[np.eye(4, dtype=np.float32), T], intrinsics=[K, K])
     assert pred["depth"].shape == shape, (name, kwargs, pred["depth"].shape)
 assert len(r.create_dataset("kitti.robustmvd.mvd", root="/nonexistent", verbose=False)) == 93
+assert len(r.create_dataset("dtu.train_mvsnet.mvd", root="/nonexistent", verbose=False)) == 27097
 dataset = r.create_dataset("synthetic.train.mvd", num_samples=2, num_views=3, height=64, width=64)
 results = r.create_evaluation("mvd", inputs=["poses", "intrinsics"], verbose=False)(
     dataset=dataset, model=r.create_model("robust_mvd", device="cpu"), qualitatives=0)
@@ -66,7 +68,7 @@ for preset in r.list_augmentations():
                               augmentations=preset)[0]
     assert np.isfinite(sample["images"][0]).all(), preset
 from robustmvd_tpu_torch.train.cli import main as train_main
-train_main(["--device", "cpu", "--dataset", "synthetic.train.mvd", "--model", "robust_mvd", "--loss",
+train_main(["--device", "cpu", "--dataset", "synthetic.train.mvd", "--model", "robust_mvd", "--dtype", "bfloat16", "--loss",
             "robust_mvd_loss", "--batch_augmentations", "robust_mvd_batch_augmentations", "--max_iterations", "1",
             "--batch_size", "1", "--num_workers", "0", "--output", sys.argv[1]])
 bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
@@ -137,11 +139,12 @@ def test_family_entry_points_default_to_the_card(monkeypatch, name):
 def test_facade():
     assert robustmvd_tpu_torch.list_evaluations() == ["mvd", "robustmvd"]
     assert robustmvd_tpu_torch.has_dataset("kitti.robustmvd.mvd") and robustmvd_tpu_torch.has_dataset("eth3d.mvd")
-    assert robustmvd_tpu_torch.list_base_datasets() == ["dtu", "eth3d", "kitti", "scannet", "synthetic",
-                                                        "tanks_and_temples"]
+    assert robustmvd_tpu_torch.list_base_datasets() == ["blendedmvs", "dtu", "eth3d", "flyingthings3d", "kitti",
+                                                        "scannet", "staticthings3d", "synthetic", "tanks_and_temples"]
     assert robustmvd_tpu_torch.list_dataset_types() == ["mvd"]
-    assert robustmvd_tpu_torch.list_splits(base_dataset="kitti") == ["robustmvd"]
-    assert len(robustmvd_tpu_torch.list_datasets()) == 6
+    assert robustmvd_tpu_torch.list_splits(base_dataset="kitti") == ["eigen_dense_depth_test",
+                                                                     "eigen_dense_depth_train", "robustmvd"]
+    assert len(robustmvd_tpu_torch.list_datasets()) == 13
     assert callable(robustmvd_tpu_torch.create_dataloader) and callable(robustmvd_tpu_torch.create_evaluation)
     assert robustmvd_tpu_torch.list_models() == ["cvp_mvsnet", "mvsnet_train", "robust_mvd", "robust_mvd_5M",
                                                  "vis_mvsnet"]
