@@ -101,7 +101,26 @@ CUDA toolkit (``nvcc``). Phases, each printing one JSON line:
             BlendedMVS compound over a raw-size tree that the script writes:
             3 warm-up and 5 timed steps, K1 v2 and K1b's bf16 form 4 times
             per step, then two profiled steps).
-12. the kernels line, and last the ``{"ok": true, ...}`` line.
+12. family bf16: the MVSNet family at ``dtype="bfloat16"`` (bf16
+            convolutions and cost volumes, float32 parameters, heads and
+            variance sums): K5's bf16 form at phase 8's shapes with Cout > 4
+            (in phase ``kernel`` conv3d_banded: held against its plain
+            version within one bf16 step of the largest |out|, timed beside
+            K5 fp32 and cuDNN's bf16 ``F.conv3d``, the bound at the dense bf16
+            rate); K2 group's bf16 form (bf16 features, vis's bf16 fused
+            route) at phase 7's shapes in phase ``kernel`` sweep_group_cost
+            (held against its plain version, timed beside the float32 form);
+            ``parity_family_bf16`` (the three models with conditioned score
+            heads card vs CPU at 128x192, cvp and vis on both warp routes,
+            scored as the benchmark scores depth: absrel < 0.5 points,
+            1.03-inliers > 99%); ``main_family_bf16`` (``model.run`` at
+            384x1280, 1+2 views, 3 + 20 frames, beside phases main_family /
+            main_vis's fp32, with each kernel's launches per frame by dtype:
+            vis's default launches K2 group's bf16 form 6 times and K5's 24
+            times, its score heads 6 in float32) with
+            ``breakdown_family_bf16``; ``main_family_xla`` (cvp's and vis's
+            ``warp_impl="xla"`` routes at fp32 beside their fused routes).
+13. the kernels line, and last the ``{"ok": true, ...}`` line.
 
 Any failed check raises and the script exits non-zero; it does nothing
 without a CUDA device. Weights are random, from a seed.
@@ -120,6 +139,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12  # H100 SXM data sheet, dense TF32 on the tensor cores
+BF16_FLOPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 on the tensor cores
 MODEL_BOUNDS = (1e-4, 1e-3)  # mean, max relative error (tests/test_torch_port_model.py)
 # K1b vs its plain version, relative to the largest |dS|: atomics add the taps
 # of coinciding hypotheses in another order
@@ -496,6 +516,10 @@ K5_CASES = {
 }
 # the shapes where K5 on the CUDA cores alone was slower than cuDNN fp32 (1.7x, 2.6x)
 K5_MUST_BEAT_LIBRARY = ("mvsnet_conv4", "mvsnet_conv6")
+# K5's bf16 form vs its plain version, relative to max |plain|: 2^-8 for the one
+# rounding to bf16, and 2^-8 of slack for the float32 sums' other order, which
+# can put a value on the other side of a rounding boundary (one bf16 step)
+K5_BF16_LIMIT = 2.0**-7
 
 
 def k5_bound(x, cout, bias):
@@ -522,12 +546,61 @@ def k5_bound(x, cout, bias):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+def k5_bound_bf16(x, cout):
+    """Least time for K5's bf16 form: bf16 input, weights and output moved
+    once at the HBM rate, against 54 Cin Cout flops per output voxel at the
+    dense bf16 tensor-core rate."""
+    B, cin, D, H, W = x.shape
+    voxels = B * D * H * W
+    nbytes = 2 * (x.numel() + 27 * cin * cout + voxels * cout)
+    flops = voxels * cout * 54 * cin
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    return {"path": "bf16_mma", "bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def k5_case_bf16(x, weight, cout):
+    """K5's bf16 form at one shape (Cout > 4; no bias, as the family's bf16
+    convolutions): held against its plain version within K5_BF16_LIMIT, timed
+    beside cuDNN's ``F.conv3d`` at bf16 (the same rounding of float32 sums)."""
+    import torch
+    import torch.nn.functional as F
+
+    from robustmvd_tpu_torch.ops.kernels.conv3d import conv3d_banded, conv3d_banded_reference
+
+    xb, wb = x.to(torch.bfloat16), weight.to(torch.bfloat16)
+    kb = wb.permute(2, 3, 4, 1, 0)  # cast once, as the wrapper casts an fp32 kernel
+    out = conv3d_banded(xb, kb, None, channels_first=True)
+    torch.cuda.synchronize()
+    plain = conv3d_banded_reference(xb.movedim(1, -1), kb).movedim(-1, 1)
+    if out.dtype != torch.bfloat16:
+        raise AssertionError(f"K5 bf16 wrote {out.dtype}")
+    diff = (out.float() - plain.float()).abs()
+    scale = float(plain.float().abs().max())
+    err = float(diff.max())
+    if not (err <= K5_BF16_LIMIT * scale and torch.isfinite(out).all()):
+        raise AssertionError(f"K5 bf16 disagrees with its plain version: max_abs_err {err} > {K5_BF16_LIMIT} x {scale}")
+    flipped = float((diff > 0).float().mean())
+    del plain, diff
+
+    def library():
+        return F.conv3d(xb, wb, None, padding=1)
+
+    lib_diff = float((library().float() - out.float()).abs().max())
+    return {"max_abs_err": err, "limit": K5_BF16_LIMIT * scale, "max_abs_ref": scale, "differing_share": flipped,
+            "ms": time_ms(lambda: conv3d_banded(xb, kb, None, channels_first=True)),
+            "plain_ms": time_ms(lambda: conv3d_banded_reference(xb.movedim(1, -1), kb), runs=10, warmup=2),
+            "library_ms": time_ms(library), "library_max_abs_diff": lib_diff, **k5_bound_bf16(x, cout)}
+
+
 def phase_kernel_k5():
     """K5 on NCDHW volumes (the family's layout) against its plain version
     (27 shifted NDHWC channel contractions); yardstick ``F.conv3d`` (cuDNN)
     with TF32 off and, as a second figure, on. Fails if K5 is slower than
     ``F.conv3d`` fp32 at the two shapes where the CUDA-core kernel lost
-    (``K5_MUST_BEAT_LIBRARY``), after printing the times."""
+    (``K5_MUST_BEAT_LIBRARY``), after printing the times. Every shape with
+    Cout > 4 also runs K5's bf16 form (``k5_case_bf16``), beside the float32
+    form's time; the score heads stay float32."""
     import torch
     import torch.nn.functional as F
 
@@ -566,6 +639,8 @@ def phase_kernel_k5():
             "library_ms": lib_ms, "library_tf32_ms": lib_tf32_ms, "library_max_abs_diff": lib_diff,
             **k5_bound(x, cout, with_bias),
         }
+        if cout > 4:
+            results[case]["bf16"] = {**k5_case_bf16(x, weight, cout), "f32_ms": results[case]["ms"]}
         torch.cuda.empty_cache()
     emit("kernel", name="conv3d_banded", layout="NCDHW", **results)
     slower = {case: (results[case]["ms"], results[case]["library_ms"]) for case in K5_MUST_BEAT_LIBRARY
@@ -952,6 +1027,173 @@ def phase_family_main(counters):
     return runs
 
 
+# The family at bf16 (384x1280, 1+2 views): label -> (model, create_model
+# arguments, launches per frame; K5 by dtype: the score heads stay float32)
+FAMILY_BF16 = {
+    "mvsnet_train": ("mvsnet_train", {}, {"sweep_warp": 1}),
+    "cvp_mvsnet": ("cvp_mvsnet", {}, {"sweep_warp": 5}),
+    "mvsnet_train_banded_xla": ("mvsnet_train", {"conv3d_impl": "banded", "warp_impl": "xla"},
+                                {"warp_volume": 2, "sweep_warp": 0, "conv3d_banded[bfloat16]": 3,
+                                 "conv3d_banded[float32]": 1}),
+    "vis_mvsnet": ("vis_mvsnet", {}, {"sweep_group_cost[bfloat16]": 6, "sweep_group_cost[float32]": 0,
+                                      "soft_argmin": 6, "conv3d_banded[bfloat16]": 24,
+                                      "conv3d_banded[float32]": 6}),
+}
+# the XLA warp routes of cvp and vis (float32), beside their fused routes
+FAMILY_XLA = {
+    "cvp_mvsnet_xla": ("cvp_mvsnet", {"warp_impl": "xla"}, {"sweep_warp": 0}),
+    "vis_mvsnet_xla": ("vis_mvsnet", {"warp_impl": "xla"}, {"sweep_group_cost": 0, "soft_argmin": 6,
+                                                            "conv3d_banded[float32]": 30}),
+}
+# card vs CPU at bf16: the defaults, K4's and K5's paths and both warp routes
+FAMILY_PARITY_BF16 = {**{label: FAMILY_BF16[label] for label in FAMILY_BF16},
+                      "cvp_mvsnet_xla": ("cvp_mvsnet", {"warp_impl": "xla"}, {"sweep_warp": 0}),
+                      "vis_mvsnet_xla": ("vis_mvsnet", {"warp_impl": "xla"},
+                                         {"sweep_group_cost": 0, "conv3d_banded[bfloat16]": 24})}
+# bf16 depth card vs CPU, scored as the benchmark scores depth with the CPU's
+# as ground truth: absrel below half a point and 1.03-inliers above 99%,
+# tighter than the bounds the JAX package holds its bf16 family to against
+# fp32 (1 point, 97%: tests/test_family_bf16.py:93-94). The random models'
+# score heads are scaled (FAMILY_HEAD_GAINS) so that their own bf16-vs-fp32
+# distance on the CPU stays under 0.3 points while depth still varies, and
+# planted kernel faults fail these bounds (tests/test_torch_port_family_bf16.py;
+# tests/test_torch_port_cuda.py holds a copy of both constants).
+FAMILY_BF16_BOUNDS = {"absrel": 0.5, "inliers": 99.0}
+FAMILY_HEAD_GAINS = {"mvsnet_train": 4.0, "cvp_mvsnet": 1.0, "vis_mvsnet": 0.25}
+
+
+def conditioned_heads(model, name):
+    """``model`` with its score heads' weights (``prob``, ``prob0``,
+    ``final_conv``) scaled by the model's FAMILY_HEAD_GAINS."""
+    import torch
+
+    with torch.no_grad():
+        for path, module in model.named_modules():
+            if path.rsplit(".", 1)[-1] in ("prob", "prob0", "final_conv"):
+                module.weight.mul_(FAMILY_HEAD_GAINS[name])
+    return model
+
+
+def tilted_sample(seed, H, W):
+    """Three views with tilted, rotated cameras and a (1, 10) depth range (a
+    camera that only rotates about y makes CVP-MVSNet's interval singular on
+    the principal row)."""
+    from scipy.spatial.transform import Rotation
+
+    rng = np.random.RandomState(seed)
+    images = [rng.rand(1, 3, H, W).astype(np.float32) * 255 for _ in range(3)]
+    K = np.array([[[0.8 * W, 0, W / 2], [0, 0.8 * W, H / 2], [0, 0, 1]]], np.float32)
+    poses = [np.eye(4, dtype=np.float32)[None] for _ in range(3)]
+    for i in (1, 2):
+        poses[i][0, :3, :3] = Rotation.from_rotvec(rng.randn(3) * 0.05).as_matrix()
+        poses[i][0, :3, 3] = rng.randn(3) * 0.1 + [0.1 * i, 0.0, 0.0]
+    return dict(images=images, poses=poses, intrinsics=[K] * 3, keyview_idx=np.zeros(1, np.int64),
+                depth_range=(np.array([1.0], np.float32), np.array([10.0], np.float32)))
+
+
+def depth_scores(pred, gt):
+    """(absrel in points, 1.03-inliers in %) of ``pred`` against ``gt``."""
+    from robustmvd_tpu_torch.eval.metrics import m_rel_ae, thresh_inliers
+
+    ones = np.ones_like(gt)
+    return (float(m_rel_ae(gt=gt, pred=pred, mask=ones, output_scaling_factor=100.0)),
+            float(thresh_inliers(gt=gt, pred=pred, thresh=1.03, mask=ones, output_scaling_factor=100.0)))
+
+
+def phase_family_parity_bf16(counters):
+    """The family at bf16 on the card vs on the CPU (the port's plain
+    versions, oneDNN's bf16 convolutions), TF32 off, cuDNN deterministic,
+    1+2 views at 128x192 (tilted_sample), heads conditioned: the card's
+    depth within FAMILY_BF16_BOUNDS of the CPU's; the CPU's own bf16 vs fp32
+    distance reported beside it; each path's kernels launched on the card,
+    K2 group and K5 by dtype."""
+    import torch
+
+    import robustmvd_tpu_torch as rmvd
+
+    tf32 = set_tf32(False)
+    torch.backends.cudnn.deterministic = True
+    sample = tilted_sample(6, 128, 192)
+    report = {}
+    for label, (name, kwargs, per_frame) in FAMILY_PARITY_BF16.items():
+        outs = {}
+        for device, dtype in (("cpu", "float32"), ("cpu", "bfloat16"), ("cuda", "bfloat16")):
+            model = conditioned_heads(rmvd.create_model(name, device=device, seed=0, dtype=dtype, **kwargs), name)
+            counters.reset()
+            outs[device if dtype == "bfloat16" else "cpu_fp32"] = model.run(**sample)
+            del model
+        launches = counters.read()  # the card's run
+        wrong = {k: launches[k] for k, n in per_frame.items() if launches[k] != n}
+        if wrong:
+            raise AssertionError(f"{label} bf16 on the card launched {wrong}, expected {per_frame}")
+        (pc, ac), (pg, ag) = outs["cpu"], outs["cuda"]
+        c, g = pc["depth"], pg["depth"]
+        if not (np.isfinite(c).all() and np.isfinite(g).all() and c.std() > 5e-2 * np.abs(c).mean()):
+            raise AssertionError(f"{label} bf16 parity run: depth not finite or flat (std {c.std()})")
+        if g.dtype != np.float32:
+            raise AssertionError(f"{label} bf16 depth is {g.dtype}: the heads must be float32")
+        absrel, inliers = depth_scores(g, c)
+        noise = depth_scores(c, outs["cpu_fp32"][0]["depth"])
+        if not (absrel < FAMILY_BF16_BOUNDS["absrel"] and inliers > FAMILY_BF16_BOUNDS["inliers"]):
+            raise AssertionError(f"card vs CPU {label} bf16: absrel {absrel} points, inliers {inliers}% "
+                                 f"(bounds {FAMILY_BF16_BOUNDS}; the CPU's bf16 vs fp32: {noise})")
+        report[label] = {"kwargs": kwargs, "shape": list(c.shape), "absrel": absrel, "inliers": inliers,
+                         "cpu_bf16_vs_fp32": {"absrel": noise[0], "inliers": noise[1]},
+                         "rel_err": list(relative_errors(g, c)),
+                         "uncertainty_mean_abs_diff": float(np.abs(pg["depth_uncertainty"] -
+                                                                   pc["depth_uncertainty"]).mean()),
+                         "launches": {k: v for k, v in launches.items() if v},
+                         "depth_std_over_mean": float(c.std() / np.abs(c).mean())}
+        if name == "cvp_mvsnet":
+            report[label]["coarsest_rel_err"] = list(relative_errors(ag["depths_all"][-1], ac["depths_all"][-1]))
+    torch.backends.cudnn.deterministic = False
+    emit("parity_family_bf16", tf32=tf32, cudnn_deterministic=True, input_shape=[128, 192], views=3,
+         bounds=FAMILY_BF16_BOUNDS, head_gains=FAMILY_HEAD_GAINS, **report)
+    torch.cuda.empty_cache()
+
+
+def phase_family_main_bf16(counters, family, vis):
+    """``model.run`` of the family at bf16 (FAMILY_BF16) and of cvp's and
+    vis's XLA warp routes at fp32 (FAMILY_XLA), 384x1280, 1+2 views, TF32
+    off, 3 warm-up and 20 timed frames as in the fp32 phases (over 5 the
+    host clock spread 5-30% between calls), beside phases main_family's and
+    main_vis's fp32 runs of the same model; each path's launches per frame
+    checked (vis's default launches K2 group's and K5's bf16 forms 6 and 24
+    times); where a bf16 frame's time goes."""
+    import torch
+
+    import robustmvd_tpu_torch as rmvd
+
+    fp32 = {"mvsnet_train": family["mvsnet_train"], "cvp_mvsnet": family["cvp_mvsnet"],
+            "mvsnet_train_banded_xla": family["mvsnet_train_banded_xla"], "vis_mvsnet": vis["banded"]}
+    fused = {"cvp_mvsnet_xla": family["cvp_mvsnet"], "vis_mvsnet_xla": vis["banded"]}
+    keys = ("ms_per_frame", "ms_per_frame_mean", "ms_per_frame_min", "peak_mib", "launches_per_frame")
+    sample = sideways_sample(np.random.RandomState(5), 384, 1280, 3)
+    runs = {}
+    for table, dtype, beside in ((FAMILY_BF16, "bfloat16", fp32), (FAMILY_XLA, "float32", fused)):
+        for path, (name, kwargs, per_frame) in table.items():
+            tf32 = set_tf32(False)
+            model = rmvd.create_model(name, dtype=dtype, **kwargs)
+            pred, stats = timed_frames(model, sample, counters, warmup=3, frames=20)
+            check_launches(f"{path} {dtype}", stats, per_frame)
+            depth = pred["depth"]
+            expected = (1, 1, 96, 320) if name == "mvsnet_train" else (
+                (1, 1, 192, 640) if name == "vis_mvsnet" else (1, 1, 384, 1280))
+            if depth.shape != expected or depth.dtype != np.float32 or not np.isfinite(depth).all():
+                raise AssertionError(f"{path} {dtype} depth: shape {depth.shape}, {depth.dtype}, "
+                                     f"finite {np.isfinite(depth).all()}")
+            runs[path, dtype] = stats
+            other = {k: beside[path]["fp32"][k] for k in keys}
+            emit("main_family_bf16" if dtype == "bfloat16" else "main_family_xla", model=name, path=path,
+                 kwargs=kwargs, shape=[384, 1280], views=3, dtype=dtype, tf32=tf32, **stats,
+                 **{"fp32" if dtype == "bfloat16" else "fused_fp32": other})
+            if dtype == "bfloat16":
+                emit("breakdown_family_bf16", model=name, path=path, **device_breakdown(model, sample, frames=3))
+            del model
+            torch.cuda.empty_cache()
+    return runs
+
+
 def check_launches(path, stats, per_frame):
     """Each listed kernel launched exactly its count per frame in the run."""
     frames = stats["warmup"] + stats["frames"]
@@ -962,8 +1204,10 @@ def check_launches(path, stats, per_frame):
 
 
 # per frame at 1+2 views, by conv3d_impl: K5 ten times per stage at the default
-VIS_LAUNCHES = {"banded": {"sweep_group_cost": 6, "soft_argmin": 6, "conv3d_banded": 30},
-                "xla": {"sweep_group_cost": 6, "soft_argmin": 6, "conv3d_banded": 0}}
+VIS_LAUNCHES = {"banded": {"sweep_group_cost": 6, "sweep_group_cost[float32]": 6, "soft_argmin": 6,
+                           "conv3d_banded": 30, "conv3d_banded[float32]": 30},
+                "xla": {"sweep_group_cost": 6, "sweep_group_cost[float32]": 6, "soft_argmin": 6, "conv3d_banded": 0,
+                        "conv3d_banded[float32]": 0}}
 
 
 def k2_group_cases(device):
@@ -1000,13 +1244,15 @@ def k2_group_cases(device):
     return cases
 
 
-def k2_group_bound(ref, src, w, G):
-    """Least time for K2 group on these inputs: the output, the key and
-    source maps and the per-pixel w each moved once, at the HBM rate;
-    against (45 + 9 C) flops per pixel at the f32 rate."""
+def k2_group_bound(ref, src, w, G, out_bytes=4):
+    """Least time for K2 group on these inputs: the output (``out_bytes`` a
+    value), the key and source maps (in their dtype) and the per-pixel w
+    each moved once, at the HBM rate; against (45 + 9 C) flops per pixel at
+    the f32 rate (the sums are float32 at either feature dtype)."""
     B, D, H, W = w.shape
     C = ref.shape[3]
-    nbytes = B * D * H * W * G * 4 + (ref.numel() + src.numel() + w.numel()) * 4
+    nbytes = (B * D * H * W * G * out_bytes + (ref.numel() + src.numel()) * ref.element_size()
+              + w.numel() * w.element_size())
     flops = B * D * H * W * (45 + 9 * C)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOPS_PER_S * 1e3
@@ -1031,12 +1277,52 @@ def group_grid_sample_route(ref, src, A, Bm, w, G):
     src_c = src.permute(0, 3, 1, 2).contiguous()
     ref_c = ref.permute(0, 3, 1, 2)[:, :, None]  # (B, C, 1, H, W)
 
+    grid = grid.to(src.dtype)  # grid_sample takes its grid in the input's dtype
+
     def run():
         warped = F.grid_sample(src_c, grid, mode="bilinear", padding_mode="zeros",
                                align_corners=False).reshape(B, C, D, H, W)
         return (warped * ref_c).reshape(B, G, C // G, D, H, W).sum(2)  # (B, G, D, H, W)
 
     return run
+
+
+def k2_group_case_bf16(case, ref, src, A, Bm, w):
+    """K2 group's bf16 form (bf16 features and output, as vis_mvsnet's bf16
+    path calls it) on one case's inputs rounded to bf16, held against its
+    plain version (the same float32 sums, K2_LIMIT, plus one bf16 step of the
+    largest output where a sum lands on the other side of a rounding
+    boundary) and timed beside the float32 form and the grid_sample route at
+    bf16 (coordinates rounded to bf16 there: a yardstick of time only)."""
+    import torch
+
+    from robustmvd_tpu_torch.ops.kernels.sweep_group_cost import (
+        homography_group_cost,
+        homography_group_cost_reference,
+    )
+
+    ref, src = ref.bfloat16(), src.bfloat16()
+    bf16 = torch.bfloat16
+    out = homography_group_cost(ref, src, A, Bm, w, out_dtype=bf16)
+    torch.cuda.synchronize()
+    plain = homography_group_cost_reference(ref, src, A, Bm, w, out_dtype=bf16).float()
+    diff = (out.float() - plain).abs()
+    err = float(diff.max())
+    limit = K2_LIMIT + 2.0**-8 * float(plain.abs().max())
+    if not (err <= limit and torch.isfinite(out).all() and out.dtype == bf16):
+        raise AssertionError(f"K2 group bf16 {case} disagrees with its plain version: max_abs_err {err} > {limit}")
+    differing = float((diff > 0).float().mean())
+    del plain, diff
+    torch.cuda.empty_cache()
+    route = group_grid_sample_route(ref, src, A, Bm, w, 8)
+    result = {"max_abs_err": err, "limit": limit, "differing_share": differing,
+              "ms": time_ms(lambda: homography_group_cost(ref, src, A, Bm, w, out_dtype=bf16)),
+              "plain_ms": time_ms(lambda: homography_group_cost_reference(ref, src, A, Bm, w, out_dtype=bf16),
+                                  runs=10, warmup=2),
+              "grid_sample_route_ms": time_ms(route, runs=10, warmup=2),
+              **k2_group_bound(ref, src, w, 8, out_bytes=2)}
+    result["bound_share"] = result["bound_ms"] / result["ms"]
+    return result
 
 
 def phase_kernel_k2_group():
@@ -1073,6 +1359,7 @@ def phase_kernel_k2_group():
             **k2_group_bound(ref, src, w, 8),
         }
         results[case]["bound_share"] = results[case]["bound_ms"] / results[case]["ms"]
+        results[case]["bf16"] = k2_group_case_bf16(case, ref, src, A, Bm, w)
         torch.cuda.empty_cache()
     emit("kernel", name="sweep_group_cost", **results)
     main = results["stage3"]
@@ -2096,7 +2383,8 @@ class Counters:
 
     def read(self):
         """Every wrapper's launches by source name; for the wrappers with one
-        instantiation per dtype (K1, K1b) also each one's, as "name[dtype]"."""
+        instantiation per dtype (K1, K1b, K2 group, K5) also each one's, as
+        "name[dtype]"."""
         counts = {}
         for name, fn in self.kernels.items():
             counts[name] = fn.launches
@@ -2128,10 +2416,12 @@ def main():
     phase_parity_bf16(counters)
     phase_family_parity(counters)
     phase_vis_parity(counters)
+    phase_family_parity_bf16(counters)
     runs = phase_main(counters)
     runs_bf16 = phase_main_bf16(counters, runs)
     family = phase_family_main(counters)
     vis = phase_vis_main(counters)
+    family_bf16 = phase_family_main_bf16(counters, family, vis)
     phase_eval_parity(counters)
     evals = {
         "eval_kitti": phase_eval_run(counters, "eval_kitti", num_views=21, keyview_idx=10, height=375, width=1242,
@@ -2157,7 +2447,12 @@ def main():
     k5_launches = {"vis_mvsnet": vis["banded"]["fp32"]["launches"]["conv3d_banded"],
                    "mvsnet_train_banded_xla": family["mvsnet_train_banded_xla"]["fp32"]["launches"]["conv3d_banded"]}
     k5_main = k5["vis_stage3_reg"]
+    k5_bf16 = {case: r["bf16"] for case, r in k5.items() if "bf16" in r}
+    k5_bf16_runs = {path: family_bf16[path, "bfloat16"] for path in ("vis_mvsnet", "mvsnet_train_banded_xla")}
+    k5_bf16_launches = {f"{path}_bf16": r["launches"]["conv3d_banded[bfloat16]"] for path, r in k5_bf16_runs.items()}
     k4_main = k4["f32"]
+    k2g_bf16 = {case: r["bf16"] for case, r in k2g.items()}
+    k2g_bf16_run = family_bf16["vis_mvsnet", "bfloat16"]
     print(json.dumps({"kernels": [{
         "name": "planesweep_sample",
         "route": "cuda",
@@ -2240,6 +2535,17 @@ def main():
         "grid_sample_route_ms": k2g["stage3"]["grid_sample_route_ms"],
         "cases": {case: {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "grid_sample_route_ms", "bound_ms",
                                            "bound_by", "bound_share")} for case, r in k2g.items()},
+        "bf16": {**{k: k2g_bf16["stage3"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                        "grid_sample_route_ms")},
+                 "max_abs_err": max(r["max_abs_err"] for r in k2g_bf16.values()),
+                 "library_ms": None,
+                 "launches": k2g_bf16_run["launches"]["sweep_group_cost[bfloat16]"],
+                 "launches_by_path": {"vis_mvsnet_bf16": k2g_bf16_run["launches"]["sweep_group_cost[bfloat16]"]},
+                 "launches_per_frame": {"vis_mvsnet_bf16":
+                                        k2g_bf16_run["launches_per_frame"]["sweep_group_cost[bfloat16]"]},
+                 "cases": {case: {k: r[k] for k in ("max_abs_err", "limit", "differing_share", "ms", "plain_ms",
+                                                    "grid_sample_route_ms", "bound_ms", "bound_by", "bound_share")}
+                           for case, r in k2g_bf16.items()}},
     }, {
         "name": "soft_argmin",
         "route": "cuda",
@@ -2275,6 +2581,15 @@ def main():
         "path": k5_main["path"],
         "cases": {case: {k: r[k] for k in ("path", "max_abs_err", "ms", "plain_ms", "library_ms", "library_tf32_ms",
                                            "bound_ms", "bound_by")} for case, r in k5.items()},
+        "bf16": {**{k: k5_bf16["vis_stage3_reg"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "f32_ms")},
+                 "max_abs_err": max(r["max_abs_err"] for r in k5_bf16.values()),
+                 "library_ms": k5_bf16["vis_stage3_reg"]["library_ms"],  # F.conv3d (cuDNN) at bf16
+                 "launches": sum(k5_bf16_launches.values()), "launches_by_path": k5_bf16_launches,
+                 "launches_per_frame": {f"{path}_bf16": r["launches_per_frame"]["conv3d_banded[bfloat16]"]
+                                        for path, r in k5_bf16_runs.items()},
+                 "cases": {case: {k: r[k] for k in ("max_abs_err", "limit", "differing_share", "ms", "plain_ms",
+                                                    "library_ms", "f32_ms", "bound_ms", "bound_by")}
+                           for case, r in k5_bf16.items()}},
     }, {
         "name": "warp_volume",
         "route": "cuda",

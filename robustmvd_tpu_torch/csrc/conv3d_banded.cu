@@ -20,7 +20,7 @@
 // 4 * (Cin + Cout) bytes moved: ~108 flop/byte at Cin = Cout = 16. Only
 // the score heads (Cout <= 4) are bound by bytes.
 //
-// Cout > 4: an implicit GEMM on the tensor cores (conv3d_k3_kernel_tf32x3).
+// Cout > 4: an implicit GEMM on the tensor cores (conv3d_k3_kernel_mma).
 // Per batch element M is the output voxels, N is Cout, K is 27 taps x Cin.
 //   - A tile is a box of 4 planes x 2*WY rows x 8*WX columns by BN output
 //     channels. Each warp takes 4 planes x 2 rows x 8 columns by 8*WN
@@ -72,7 +72,27 @@
 // cores (conv3d_k3_kernel), one thread per output column of 4 planes x COB
 // output channels, halo tile and weights of 4 input channels in shared
 // memory.
+//
+// bf16 (conv3d_banded_bf16, Cout > 4): the TPU kernel's bf16 form, which
+// casts the band matrix to x.dtype, sums in float32 and writes x.dtype. The
+// same tiles, ring and persistent blocks on bf16 mma.sync (m16n8k16): one
+// pass, no split; float32 accumulators (each dy's 9 mmas in a partial added
+// with round-to-nearest adds, as above); the bias added in float32; the
+// output rounded once to bf16. A 32-bit word of shared memory holds the two
+// bf16 of a channel pair at one voxel (or one tap and output), which is the
+// operand register of m16n8k16, so a stage holds 16 channels in the words of
+// the float32 form's 8 and the fragment loads keep its bank pattern. Pairs of
+// NCDHW channels lie apart in memory and cp.async cannot interleave them, so
+// the block stages with plain loads (8 bytes, 4 columns of each channel of a
+// pair, merged by byte permutes into one 16-byte shared store, where W is
+// unit-stride and W % 4 == 0; else 2 bytes at a time) and one stage, not the
+// ring: a block's copies do not overlap its products, and the halved shared
+// memory lets more blocks share an SM, whose products overlap them. Bound:
+// bytes at vis's 8- and 16-channel shapes, operations at the dense bf16 rate
+// (989 TFLOP/s) from 32 channels. The score heads stay float32 (the JAX
+// family's heads are float32), so there is no bf16 CUDA-core route.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -87,10 +107,16 @@ struct KStrides {  // element strides of the DHWIO kernel
 };
 
 // ---------------------------------------------------------------------------
-// Cout > 4: implicit GEMM on the tensor cores, 3xTF32.
+// Cout > 4: implicit GEMM on the tensor cores, 3xTF32 (float32) or bf16.
 
 constexpr int TZ = 4;  // output planes of a tile, one m16 fragment each per warp
-constexpr int KC = 8;  // input channels per stage: the k of one mma
+constexpr int KC = 8;  // 32-bit channel slots per stage: the k of one tf32 mma, 8 channel pairs of a bf16 one
+
+// input channels per stage
+template <bool BF>
+__host__ __device__ constexpr int stage_channels() {
+  return BF ? 2 * KC : KC;
+}
 
 // A tile: 4 planes x 2*WY rows x 8*WX columns x BN = 8*WN*WNW output
 // channels, for WY x WX x WNW warps of 4 planes x 2 rows x 8 columns x 8*WN.
@@ -107,20 +133,26 @@ struct Tile {
   static constexpr int TP = 28, KP = BN * TP + 1;
   static constexpr int XS = KC * CP, WS = KC * KP;  // halo and weight floats of a stage
   static constexpr int STAGE = XS + WS;
-  static constexpr int SMEM = 2 * STAGE * 4;
 };
 
-struct Conv {  // a launch's arguments
-  const float* in;
+// Shared memory of an instantiation: the float32 form's ring of two stages,
+// the bf16 form's one stage.
+template <class T, bool BF>
+constexpr int smem_bytes() {
+  return (BF ? 1 : 2) * T::STAGE * 4;
+}
+
+struct Conv {  // a launch's arguments; in, k and out are float, or bf16 for the bf16 form
+  const void* in;
   Strides is;
-  const float* k;
+  const void* k;
   int32_t kdz, kdy, kdx, ki, ko;  // DHWIO strides: the weights hold < 2^31 elements
   const float* bias;
-  float* out;
+  void* out;
   Strides os;
   int Cin, Cout, D, H, W;
   int tiles_x, tiles_y, tiles_z, n_tiles, tiles, chunks;
-  bool vec;         // 16-byte halo rows: unit W stride, W % 4 == 0, 16-byte aligned
+  bool vec;         // vector halo rows: unit W stride, W % 4 == 0, aligned to 16 (float32) or 8 (bf16) bytes
   bool taps_inner;  // the weights' taps lie closer in memory than their outputs (an nn.Conv3d weight)
 };
 
@@ -170,6 +202,15 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// A register: the channel pair (2k, 2k + 1) of a row, the lower channel in the
+// lower half; B likewise by output.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
   const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src), "r"(ok ? 16 : 0));
@@ -185,7 +226,7 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok)
 template <class T>
 __device__ __forceinline__ void stage(float* xs, float* ws, const Conv& p, const Origin& o, int c0) {
   const int tid = threadIdx.x;
-  const float* in = p.in + o.b * p.is.b;
+  const float* in = static_cast<const float*>(p.in) + o.b * p.is.b;
   if (p.vec) {
     constexpr int XV = T::HX / 4, N = KC * T::HP * T::HY * XV;
     for (int e = tid; e < N; e += T::THREADS) {
@@ -217,9 +258,66 @@ __device__ __forceinline__ void stage(float* xs, float* ws, const Conv& p, const
       n = e % T::BN, kk = e / T::BN % KC, tap = e / (T::BN * KC);
     }
     const bool ok = c0 + kk < p.Cin && o.o0 + n < p.Cout;
-    const float* src = p.k;
+    const float* src = static_cast<const float*>(p.k);
     if (ok) src += (tap / 9) * p.kdz + (tap / 3 % 3) * p.kdy + (tap % 3) * p.kdx + (c0 + kk) * p.ki + (o.o0 + n) * p.ko;
     cp_async4(ws + kk * T::KP + n * T::TP + tap, src, ok);
+  }
+}
+
+// The bf16 form of stage: input channels c0 .. c0 + 15 as 8 channel pairs, a
+// pair per 32-bit word in the float32 form's places, with 2-byte loads
+// (zero outside the volume, for channels >= Cin and outputs >= Cout).
+template <class T>
+__device__ __forceinline__ void stage_bf16(uint32_t* xs, uint32_t* ws, const Conv& p, const Origin& o, int c0) {
+  const int tid = threadIdx.x;
+  const unsigned short* in = static_cast<const unsigned short*>(p.in) + o.b * p.is.b;
+  if (p.vec) {  // 4 columns of each channel of a pair: two 8-byte loads, one 16-byte store
+    constexpr int XV = T::HX / 4, N = KC * T::HP * T::HY * XV;
+    for (int e = tid; e < N; e += T::THREADS) {
+      const int v = e % XV, yy = e / XV % T::HY, pl = e / (XV * T::HY) % T::HP, c = e / (XV * T::HY * T::HP);
+      const int gz = o.z0 - 1 + pl, gy = o.y0 - 1 + yy, gx = o.x0 - 4 + 4 * v, gc = c0 + 2 * c;
+      uint2 lo = make_uint2(0, 0), hi = make_uint2(0, 0);
+      if (gz >= 0 && gz < p.D && gy >= 0 && gy < p.H && gx >= 0 && gx < p.W) {  // the 4 columns, or none
+        const unsigned short* src = in + gz * p.is.d + gy * p.is.h + gx;
+        if (gc < p.Cin) lo = __ldg(reinterpret_cast<const uint2*>(src + gc * p.is.c));
+        if (gc + 1 < p.Cin) hi = __ldg(reinterpret_cast<const uint2*>(src + (gc + 1) * p.is.c));
+      }
+      // word j: column gx + j of channel gc in its lower half, of gc + 1 in its upper half
+      *reinterpret_cast<uint4*>(xs + c * T::CP + pl * T::PP + yy * T::RP + 4 * v) =
+          make_uint4(__byte_perm(lo.x, hi.x, 0x5410), __byte_perm(lo.x, hi.x, 0x7632),
+                     __byte_perm(lo.y, hi.y, 0x5410), __byte_perm(lo.y, hi.y, 0x7632));
+    }
+  } else {
+    constexpr int N = KC * T::HP * T::HY * T::HX;
+    for (int e = tid; e < N; e += T::THREADS) {
+      const int xx = e % T::HX, yy = e / T::HX % T::HY, pl = e / (T::HX * T::HY) % T::HP,
+                c = e / (T::HX * T::HY * T::HP);
+      const int gz = o.z0 - 1 + pl, gy = o.y0 - 1 + yy, gx = o.x0 - 4 + xx, gc = c0 + 2 * c;
+      uint32_t lo = 0, hi = 0;
+      if (gz >= 0 && gz < p.D && gy >= 0 && gy < p.H && gx >= 0 && gx < p.W) {
+        const unsigned short* src = in + gz * p.is.d + gy * p.is.h + gx * p.is.w;
+        if (gc < p.Cin) lo = __ldg(src + gc * p.is.c);
+        if (gc + 1 < p.Cin) hi = __ldg(src + (gc + 1) * p.is.c);
+      }
+      xs[c * T::CP + pl * T::PP + yy * T::RP + xx] = lo | hi << 16;
+    }
+  }
+  const unsigned short* k = static_cast<const unsigned short*>(p.k);
+  for (int e = tid; e < 27 * KC * T::BN; e += T::THREADS) {
+    int tap, kk, n;
+    if (p.taps_inner) {
+      tap = e % 27, kk = e / 27 % KC, n = e / (27 * KC);
+    } else {
+      n = e % T::BN, kk = e / T::BN % KC, tap = e / (T::BN * KC);
+    }
+    const int gc = c0 + 2 * kk;
+    uint32_t lo = 0, hi = 0;
+    if (o.o0 + n < p.Cout) {
+      const unsigned short* src = k + (tap / 9) * p.kdz + (tap / 3 % 3) * p.kdy + (tap % 3) * p.kdx + (o.o0 + n) * p.ko;
+      if (gc < p.Cin) lo = __ldg(src + gc * p.ki);
+      if (gc + 1 < p.Cin) hi = __ldg(src + (gc + 1) * p.ki);
+    }
+    ws[kk * T::KP + n * T::TP + tap] = lo | hi << 16;
   }
 }
 
@@ -284,12 +382,61 @@ __device__ __forceinline__ void multiply(const float* xs, const float* ws, float
   }
 }
 
+// The bf16 form of multiply: one bf16 mma per (plane, dz, n8 fragment) and
+// tap, on the words stage_bf16 wrote. A register: pair t (k 2t, 2t + 1) or
+// t + 4 of row g or g + 8; B: pair t or t + 4 of output g.
+template <class T, int WN>
+__device__ __forceinline__ void multiply_bf16(const uint32_t* xs, const uint32_t* ws, float (&acc)[TZ][WN][4],
+                                              int yl, int xl, int nl, int g, int t) {
+  const uint32_t* xa = xs + t * T::CP + yl * T::RP + xl + g + 3;
+#pragma unroll 1
+  for (int dy = 0; dy < 3; ++dy) {
+    float part[TZ][WN][4];
+#pragma unroll
+    for (int j = 0; j < TZ; ++j)
+#pragma unroll
+      for (int n = 0; n < WN; ++n)
+#pragma unroll
+        for (int h = 0; h < 4; ++h) part[j][n][h] = 0.0f;
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) {
+      uint32_t b[3][WN][2];
+#pragma unroll
+      for (int dz = 0; dz < 3; ++dz) {
+        const uint32_t* wb = ws + t * T::KP + (nl + g) * T::TP + dz * 9 + dy * 3 + dx;
+#pragma unroll
+        for (int n = 0; n < WN; ++n) {
+          b[dz][n][0] = wb[8 * n * T::TP];
+          b[dz][n][1] = wb[4 * T::KP + 8 * n * T::TP];
+        }
+      }
+#pragma unroll
+      for (int pl = 0; pl < TZ + 2; ++pl) {
+        const uint32_t* q = xa + pl * T::PP + dy * T::RP + dx;
+        const uint32_t a[4] = {q[0], q[T::RP], q[4 * T::CP], q[4 * T::CP + T::RP]};
+#pragma unroll
+        for (int dz = 0; dz < 3; ++dz) {
+          const int j = pl - dz;
+          if (j < 0 || j >= TZ) continue;
+#pragma unroll
+          for (int n = 0; n < WN; ++n) mma_bf16(part[j][n], a, b[dz][n]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < TZ; ++j)
+#pragma unroll
+      for (int n = 0; n < WN; ++n)
+#pragma unroll
+        for (int h = 0; h < 4; ++h) acc[j][n][h] += part[j][n][h];
+  }
+}
+
 // Write tile o's sums (+ bias) and clear them. Accumulator h of a fragment:
 // row g (h < 2) or g + 8, column 2t + (h & 1).
-template <class T, int WN>
+template <class T, int WN, bool BF>
 __device__ __forceinline__ void store(const Conv& p, const Origin& o, float (&acc)[TZ][WN][4], int yl, int xl,
                                       int nl, int g, int t) {
-  float* out = p.out + o.b * p.os.b;
 #pragma unroll
   for (int j = 0; j < TZ; ++j) {
     const int z = o.z0 + j;
@@ -298,9 +445,14 @@ __device__ __forceinline__ void store(const Conv& p, const Origin& o, float (&ac
 #pragma unroll
       for (int h = 0; h < 4; ++h) {
         const int y = o.y0 + yl + (h >> 1), x = o.x0 + xl + g, oc = o.o0 + nl + 8 * n + 2 * t + (h & 1);
-        if (z < p.D && y < p.H && x < p.W && oc < p.Cout)
-          out[oc * p.os.c + z * p.os.d + y * p.os.h + x * p.os.w] =
-              acc[j][n][h] + (p.bias != nullptr ? p.bias[oc] : 0.0f);
+        if (z < p.D && y < p.H && x < p.W && oc < p.Cout) {
+          const int64_t at = o.b * p.os.b + oc * p.os.c + z * p.os.d + y * p.os.h + x * p.os.w;
+          const float v = acc[j][n][h] + (p.bias != nullptr ? p.bias[oc] : 0.0f);
+          if constexpr (BF)
+            static_cast<__nv_bfloat16*>(p.out)[at] = __float2bfloat16_rn(v);  // the one rounding
+          else
+            static_cast<float*>(p.out)[at] = v;
+        }
         acc[j][n][h] = 0.0f;
       }
     }
@@ -308,11 +460,11 @@ __device__ __forceinline__ void store(const Conv& p, const Origin& o, float (&ac
 }
 
 // Persistent blocks: block i takes tiles i, i + gridDim.x, ... and walks
-// their (tile, chunk) steps through the ring of two stages, so the copies
-// of the next step, in the same tile or the next one, overlap this step's
-// products.
-template <int WY, int WX, int WN, int WNW>
-__global__ void __launch_bounds__(32 * WY * WX * WNW) conv3d_k3_kernel_tf32x3(const __grid_constant__ Conv p) {
+// their (tile, chunk) steps, in the float32 form through the ring of two
+// stages, so the copies of the next step, in the same tile or the next one,
+// overlap this step's products; in the bf16 form through one stage.
+template <int WY, int WX, int WN, int WNW, bool BF>
+__global__ void __launch_bounds__(32 * WY * WX * WNW) conv3d_k3_kernel_mma(const __grid_constant__ Conv p) {
   using T = Tile<WY, WX, WN, WNW>;
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, wm = warp % T::WM;
@@ -327,48 +479,63 @@ __global__ void __launch_bounds__(32 * WY * WX * WNW) conv3d_k3_kernel_tf32x3(co
 #pragma unroll
       for (int h = 0; h < 4; ++h) acc[j][n][h] = 0.0f;
 
-  int tile = blockIdx.x, c = 0;
-  Origin o = origin_of<T>(p, tile);
-  stage<T>(smem, smem + T::XS, p, o, 0);
-  asm volatile("cp.async.commit_group;");
-  for (int s = 0;; ++s) {
-    const bool last = c + 1 == p.chunks;  // the tile's last chunk
-    const int next = last ? tile + (int)gridDim.x : tile;
-    const bool more = next < p.tiles;
-    const Origin no = last && more ? origin_of<T>(p, next) : o;
-    if (more) {
-      float* nxt = smem + ((s + 1) & 1) * T::STAGE;
-      stage<T>(nxt, nxt + T::XS, p, no, last ? 0 : (c + 1) * KC);
+  if constexpr (BF) {  // one stage: copy a (tile, chunk) step, then its products
+    uint32_t* const xs = reinterpret_cast<uint32_t*>(smem);
+    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+      const Origin o = origin_of<T>(p, tile);
+      for (int c = 0; c < p.chunks; ++c) {
+        __syncthreads();  // the previous step's products are done with the stage
+        stage_bf16<T>(xs, xs + T::XS, p, o, c * stage_channels<true>());
+        __syncthreads();
+        multiply_bf16<T, WN>(xs, xs + T::XS, acc, yl, xl, nl, g, t);
+      }
+      store<T, WN, true>(p, o, acc, yl, xl, nl, g, t);
     }
-    asm volatile("cp.async.commit_group;");  // possibly empty: this step's group is then the only one in flight
-    asm volatile("cp.async.wait_group 1;" ::: "memory");
-    __syncthreads();
-    const float* xs = smem + (s & 1) * T::STAGE;
-    multiply<T, WN>(xs, xs + T::XS, acc, yl, xl, nl, g, t);
-    __syncthreads();  // the stage is consumed before step s + 2 is copied into it
-    if (last) store<T, WN>(p, o, acc, yl, xl, nl, g, t);
-    if (!more) break;
-    tile = next;
-    c = last ? 0 : c + 1;
-    o = no;
+  } else {
+    int tile = blockIdx.x, c = 0;
+    Origin o = origin_of<T>(p, tile);
+    stage<T>(smem, smem + T::XS, p, o, 0);
+    asm volatile("cp.async.commit_group;");
+    for (int s = 0;; ++s) {
+      const bool last = c + 1 == p.chunks;  // the tile's last chunk
+      const int next = last ? tile + (int)gridDim.x : tile;
+      const bool more = next < p.tiles;
+      const Origin no = last && more ? origin_of<T>(p, next) : o;
+      if (more) {
+        float* nxt = smem + ((s + 1) & 1) * T::STAGE;
+        stage<T>(nxt, nxt + T::XS, p, no, last ? 0 : (c + 1) * KC);
+      }
+      asm volatile("cp.async.commit_group;");  // possibly empty: this step's group is then the only one in flight
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+      __syncthreads();
+      const float* xs = smem + (s & 1) * T::STAGE;
+      multiply<T, WN>(xs, xs + T::XS, acc, yl, xl, nl, g, t);
+      __syncthreads();  // the stage is consumed before step s + 2 is copied into it
+      if (last) store<T, WN, false>(p, o, acc, yl, xl, nl, g, t);
+      if (!more) break;
+      tile = next;
+      c = last ? 0 : c + 1;
+      o = no;
+    }
   }
 }
 
 // The blocks of an instantiation that fit on the current device at once
 // (cached per instantiation), after allowing it its shared memory.
-template <int WY, int WX, int WN, int WNW>
+template <int WY, int WX, int WN, int WNW, bool BF>
 int resident_blocks(int* blocks) {
   using T = Tile<WY, WX, WN, WNW>;
-  const auto kernel = conv3d_k3_kernel_tf32x3<WY, WX, WN, WNW>;
+  const auto kernel = conv3d_k3_kernel_mma<WY, WX, WN, WNW, BF>;
   static int cached_device = -1, cached_blocks = 0;
   int device;
   cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return (int)e;
   if (device != cached_device) {
     int sms = 0, per_sm = 0;
-    if ((e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM)) != cudaSuccess ||
+    constexpr int smem = smem_bytes<T, BF>();
+    if ((e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) != cudaSuccess ||
         (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess ||
-        (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, T::THREADS, T::SMEM)) != cudaSuccess)
+        (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, T::THREADS, smem)) != cudaSuccess)
       return (int)e;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     cached_blocks = sms * per_sm;
@@ -384,24 +551,24 @@ int64_t tile_count(const Conv& p, int B) {
          ((p.Cout + T::BN - 1) / T::BN);
 }
 
-template <int WY, int WX, int WN, int WNW>
+template <int WY, int WX, int WN, int WNW, bool BF>
 int launch_tc(Conv p, int B, void* stream) {
   using T = Tile<WY, WX, WN, WNW>;
   int blocks;
-  if (const int e = resident_blocks<WY, WX, WN, WNW>(&blocks)) return e;
+  if (const int e = resident_blocks<WY, WX, WN, WNW, BF>(&blocks)) return e;
   p.tiles_x = (p.W + T::BX - 1) / T::BX;
   p.tiles_y = (p.H + T::BY - 1) / T::BY;
   p.tiles_z = (p.D + TZ - 1) / TZ;
   p.n_tiles = (p.Cout + T::BN - 1) / T::BN;
-  p.chunks = (p.Cin + KC - 1) / KC;
+  p.chunks = (p.Cin + stage_channels<BF>() - 1) / stage_channels<BF>();
   const int64_t tiles = tile_count<T>(p, B);
   if (tiles >= (1LL << 31) - blocks) return (int)cudaErrorInvalidValue;
   p.tiles = (int)tiles;
-  p.vec = p.is.w == 1 && p.W % 4 == 0 && p.is.h % 4 == 0 && p.is.d % 4 == 0 && p.is.c % 4 == 0 && p.is.b % 4 == 0 &&
-          (reinterpret_cast<uintptr_t>(p.in) & 15) == 0;
+  p.vec = p.is.w == 1 && p.W % 4 == 0 && p.is.h % 4 == 0 && p.is.d % 4 == 0 && p.is.c % 4 == 0 &&
+          p.is.b % 4 == 0 && (reinterpret_cast<uintptr_t>(p.in) & (BF ? 7 : 15)) == 0;
   p.taps_inner = p.kdx <= p.ko;
   const int grid = tiles < blocks ? (int)tiles : blocks;
-  conv3d_k3_kernel_tf32x3<WY, WX, WN, WNW><<<grid, T::THREADS, T::SMEM, (cudaStream_t)stream>>>(p);
+  conv3d_k3_kernel_mma<WY, WX, WN, WNW, BF><<<grid, T::THREADS, smem_bytes<T, BF>(), (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -511,6 +678,24 @@ int launch(const float* in, Strides is, const float* k, KStrides ks, const float
   return (int)cudaGetLastError();
 }
 
+// The tensor-core route: the tile by Cout and volume, then the launch.
+template <bool BF>
+int launch_mma(const void* x, Strides is, const void* w, KStrides ks, const float* bs, void* y, Strides os, int B,
+               int Cin, int Cout, int D, int H, int W, void* stream) {
+  const int64_t k_span = 2 * (ks.dz + ks.dy + ks.dx) + (int64_t)(Cin - 1) * ks.i + (int64_t)(Cout - 1) * ks.o;
+  if (ks.dz < 0 || ks.dy < 0 || ks.dx < 0 || ks.i < 0 || ks.o < 0 || k_span >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const Conv p{x, is, w, (int32_t)ks.dz, (int32_t)ks.dy, (int32_t)ks.dx, (int32_t)ks.i, (int32_t)ks.o, bs, y, os,
+               Cin, Cout, D, H, W};
+  if (Cout <= 8) return launch_tc<4, 2, 1, 1, BF>(p, B, stream);
+  if (Cout > 16) {  // a small volume: 4 x 4 x 8 boxes with two warps along N, if 4 x 8 x 16 boxes leave blocks idle
+    int blocks;
+    if (const int e = resident_blocks<4, 2, 2, 1, BF>(&blocks)) return e;
+    if (tile_count<Tile<4, 2, 2, 1>>(p, B) < 2 * (int64_t)blocks) return launch_tc<2, 1, 2, 2, BF>(p, B, stream);
+  }
+  return launch_tc<4, 2, 2, 1, BF>(p, B, stream);
+}
+
 }  // namespace
 
 // The route conv3d_banded takes for Cout output channels: 0 for the CUDA
@@ -532,16 +717,19 @@ extern "C" int conv3d_banded(const void* in, const int64_t* in_strides, const vo
   if (conv3d_banded_route(Cout) == 0)
     return Cout == 1 ? launch<1>(x, is, w, ks, bs, y, os, B, Cin, Cout, D, H, W, stream)
                      : launch<4>(x, is, w, ks, bs, y, os, B, Cin, Cout, D, H, W, stream);
-  const int64_t k_span = 2 * (ks.dz + ks.dy + ks.dx) + (int64_t)(Cin - 1) * ks.i + (int64_t)(Cout - 1) * ks.o;
-  if (ks.dz < 0 || ks.dy < 0 || ks.dx < 0 || ks.i < 0 || ks.o < 0 || k_span >= (1LL << 31))
-    return (int)cudaErrorInvalidValue;
-  const Conv p{x, is, w, (int32_t)ks.dz, (int32_t)ks.dy, (int32_t)ks.dx, (int32_t)ks.i, (int32_t)ks.o, bs, y, os,
-               Cin, Cout, D, H, W};
-  if (Cout <= 8) return launch_tc<4, 2, 1, 1>(p, B, stream);
-  if (Cout > 16) {  // a small volume: 4 x 4 x 8 boxes with two warps along N, if 4 x 8 x 16 boxes leave blocks idle
-    int blocks;
-    if (const int e = resident_blocks<4, 2, 2, 1>(&blocks)) return e;
-    if (tile_count<Tile<4, 2, 2, 1>>(p, B) < 2 * (int64_t)blocks) return launch_tc<2, 1, 2, 2>(p, B, stream);
-  }
-  return launch_tc<4, 2, 2, 1>(p, B, stream);
+  return launch_mma<false>(x, is, w, ks, bs, y, os, B, Cin, Cout, D, H, W, stream);
+}
+
+// conv3d_banded on bf16 x, weights and out, float32 bias (may be null), for
+// Cout > 4 only (the score heads stay float32): the tensor cores' bf16 form.
+extern "C" int conv3d_banded_bf16(const void* in, const int64_t* in_strides, const void* k,
+                                  const int64_t* k_strides, const void* bias, void* out, const int64_t* out_strides,
+                                  int32_t B, int32_t Cin, int32_t Cout, int32_t D, int32_t H, int32_t W,
+                                  void* stream) {
+  if (conv3d_banded_route(Cout) == 0) return (int)cudaErrorInvalidValue;
+  if ((int64_t)B * Cin * Cout * D * H * W == 0) return 0;
+  const Strides is{in_strides[0], in_strides[1], in_strides[2], in_strides[3], in_strides[4]};
+  const Strides os{out_strides[0], out_strides[1], out_strides[2], out_strides[3], out_strides[4]};
+  const KStrides ks{k_strides[0], k_strides[1], k_strides[2], k_strides[3], k_strides[4]};
+  return launch_mma<true>(in, is, k, ks, static_cast<const float*>(bias), out, os, B, Cin, Cout, D, H, W, stream);
 }

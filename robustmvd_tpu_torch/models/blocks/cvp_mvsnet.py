@@ -11,6 +11,12 @@ flax names (``conv0aa``, ``conv5_deconv``, ``conv5_bn``, ``prob0``).
 Small matrix products are written out as sums (``matmul_sums``) so that
 the card and the CPU round alike; divisions by constants go through tensors,
 so that none becomes a reciprocal multiply on the card.
+
+``FeaturePyramid`` and ``CostRegNet`` take a compute ``dtype`` as the JAX
+blocks do (``blocks/mvsnet.py``); ``prob0`` is float32.
+``proj_cost_volume`` takes the model's ``warp_impl``: "fused" (K2's dense
+mode) or "xla" (``rt_planesweep_warp`` per source view and float32 running
+sums, JAX's ``impl="xla"``).
 """
 
 from __future__ import annotations
@@ -20,9 +26,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.conv3d import Conv3d
-from ...ops.homography import inverse, matmul_sums
+from ...ops.homography import inverse, matmul_sums, rt_planesweep_warp
 from ...ops.interpolate import resize_bilinear
 from ...ops.kernels.sweep_warp import warp_variance_dense
+from ...ops.reductions import variance_over_views
+from ...ops import layers
 from .mvsnet import ConvBnReLU3D
 
 _PYRAMID = (("conv0aa", 64), ("conv0ba", 64), ("conv0bb", 64), ("conv0bc", 32), ("conv0bd", 32),
@@ -35,11 +43,11 @@ class FeaturePyramid(nn.Module):
     image at ``scales`` scales, each half the previous (bilinear). Returns
     the features from full resolution to coarsest."""
 
-    def __init__(self):
+    def __init__(self, dtype=torch.float32):
         super().__init__()
         in_ch = 3
         for name, out_ch in _PYRAMID:
-            setattr(self, name, nn.Conv2d(in_ch, out_ch, 3, padding=1))
+            setattr(self, name, layers.Conv2d(in_ch, out_ch, 3, padding=1, dtype=dtype))
             in_ch = out_ch
 
     def _run(self, x):
@@ -58,24 +66,24 @@ class FeaturePyramid(nn.Module):
 class CostRegNet(nn.Module):
     """3D U-Net over a (B, 16, D, h, w) volume -> (B, D, h, w) logits;
     ``conv3d_impl`` applies to its seven stride-1 convolutions and ``prob0``
-    (JAX :124-157): with "banded" K5 runs 8 times per call."""
+    (JAX :124-157): with "banded" K5 runs 8 times per call (7 at ``dtype``,
+    ``prob0`` at float32)."""
 
-    def __init__(self, conv3d_impl="xla"):
+    def __init__(self, conv3d_impl="xla", dtype=torch.float32):
         super().__init__()
-        impl = conv3d_impl
-        self.conv0 = ConvBnReLU3D(16, 16, conv3d_impl=impl)
-        self.conv0a = ConvBnReLU3D(16, 16, conv3d_impl=impl)
-        self.conv1 = ConvBnReLU3D(16, 32, stride=2)
-        self.conv2 = ConvBnReLU3D(32, 32, conv3d_impl=impl)
-        self.conv2a = ConvBnReLU3D(32, 32, conv3d_impl=impl)
-        self.conv3 = ConvBnReLU3D(32, 64, conv3d_impl=impl)
-        self.conv4 = ConvBnReLU3D(64, 64, conv3d_impl=impl)
-        self.conv4a = ConvBnReLU3D(64, 64, conv3d_impl=impl)
-        self.conv5_deconv = nn.ConvTranspose3d(64, 32, 3, stride=1, padding=1, bias=False)
+        impl, dt = conv3d_impl, dtype
+        for name, in_ch, out_ch in (("conv0", 16, 16), ("conv0a", 16, 16)):
+            setattr(self, name, ConvBnReLU3D(in_ch, out_ch, conv3d_impl=impl, dtype=dt))
+        self.conv1 = ConvBnReLU3D(16, 32, stride=2, dtype=dt)
+        for name, in_ch, out_ch in (("conv2", 32, 32), ("conv2a", 32, 32), ("conv3", 32, 64), ("conv4", 64, 64),
+                                    ("conv4a", 64, 64)):
+            setattr(self, name, ConvBnReLU3D(in_ch, out_ch, conv3d_impl=impl, dtype=dt))
+        self.conv5_deconv = layers.ConvTranspose3d(64, 32, 3, stride=1, padding=1, bias=False, dtype=dt)
         self.conv5_bn = nn.BatchNorm3d(32, eps=1e-5)
-        self.conv6_deconv = nn.ConvTranspose3d(32, 16, 3, stride=2, padding=1, output_padding=1, bias=False)
+        self.conv6_deconv = layers.ConvTranspose3d(32, 16, 3, stride=2, padding=1, output_padding=1, bias=False,
+                                                   dtype=dt)
         self.conv6_bn = nn.BatchNorm3d(16, eps=1e-5)
-        self.prob0 = Conv3d(16, 1, bias=True, impl=impl)
+        self.prob0 = Conv3d(16, 1, bias=True, impl=impl)  # float32 (JAX :156)
 
     def forward(self, x):
         conv0 = self.conv0a(self.conv0(x))
@@ -180,14 +188,22 @@ def cal_depth_hypos(ref_depths, ref_K, src_K, ref_ex, src_ex, d=4):
     return ref_depths[:, None] + levels[None, :, None, None] * interval[:, None, None, None]
 
 
-def proj_cost_volume(ref_feature, src_features, ref_K, src_Ks, ref_ex, src_exs, depth_hypos, src_valid=None):
+def proj_cost_volume(ref_feature, src_features, ref_K, src_Ks, ref_ex, src_exs, depth_hypos, warp_impl="fused",
+                     out_dtype=torch.float32):
     """Variance volume over views with per-pixel hypotheses (reference:
 
-    :375-456), through K2's dense mode. ref_feature (B, H, W, C);
-    src_features (B, V, H, W, C); src_Ks (B, V, 3, 3); src_exs
-    (B, V, 4, 4); depth_hypos (B, D, H, W). Returns (B, D, H, W, C)."""
+    :375-456). ref_feature (B, H, W, C); src_features (B, V, H, W, C);
+    src_Ks (B, V, 3, 3); src_exs (B, V, 4, 4); depth_hypos (B, D, H, W).
+    ``warp_impl`` "fused": K2's dense mode, writing ``out_dtype``; "xla":
+    ``rt_planesweep_warp`` per view and float32 running sums, float32.
+    Returns (B, D, H, W, C)."""
     ref_proj_inv = inverse(proj_mat(ref_K, ref_ex))
     rts = [src_from_ref(src_Ks[:, i], src_exs[:, i], ref_proj_inv) for i in range(src_features.shape[1])]
+    if warp_impl == "xla":
+        B, D, H, W = depth_hypos.shape
+        hypos = depth_hypos.reshape(B, D, H * W)
+        warped = (rt_planesweep_warp(src_features[:, i], r, t, hypos) for i, (r, t) in enumerate(rts))
+        return variance_over_views(ref_feature, warped, D)
     rot = torch.stack([r for r, _ in rts], dim=1)
     trans = torch.stack([t for _, t in rts], dim=1)
-    return warp_variance_dense(ref_feature, src_features, rot, trans, depth_hypos, src_valid=src_valid)
+    return warp_variance_dense(ref_feature, src_features, rot, trans, depth_hypos, out_dtype=out_dtype)

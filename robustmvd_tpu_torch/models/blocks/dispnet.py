@@ -15,10 +15,8 @@ drawn from an explicit ``torch.Generator``.
 
 Each block takes a compute ``dtype``, as the JAX blocks take flax's
 ``dtype=``: parameters stay float32, and each convolution casts its input,
-weight and bias to the compute dtype (bf16: one rounding of a float32 sum
-per output). The prediction heads always run in float32 (``pred_block``).
-The casts are explicit per module, not ``torch.autocast``, whose own choice
-of float32 ops would differ from the JAX package's.
+weight and bias to the compute dtype (``layers.py``). The prediction heads
+always run in float32 (``pred_block``).
 """
 
 from __future__ import annotations
@@ -30,32 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.interpolate import resize_bilinear
-
-
-class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` computing at ``dtype``: input, weight and bias are cast to
-    it (flax ``nn.Conv(dtype=...)``); the parameters stay float32."""
-
-    def __init__(self, *args, dtype=torch.float32, **kwargs):
-        super().__init__(*args, **kwargs)
-        self.compute_dtype = dtype
-
-    def forward(self, x):
-        dt = self.compute_dtype
-        return self._conv_forward(x.to(dt), self.weight.to(dt), self.bias.to(dt))
-
-
-class ConvTranspose2d(nn.ConvTranspose2d):
-    """``nn.ConvTranspose2d`` computing at ``dtype``, as :class:`Conv2d`."""
-
-    def __init__(self, *args, dtype=torch.float32, **kwargs):
-        super().__init__(*args, **kwargs)
-        self.compute_dtype = dtype
-
-    def forward(self, x):
-        dt = self.compute_dtype
-        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), self.bias.to(dt), self.stride, self.padding,
-                                  self.output_padding, self.groups, self.dilation)
+from ...ops.layers import Conv2d, ConvTranspose2d
 
 
 def conv_lrelu(in_ch, out_ch, kernel_size=3, stride=1, dtype=torch.float32):

@@ -13,6 +13,12 @@ where the JAX blocks take it (``ops/conv3d.py``): "banded" runs K5, "xla"
 cuDNN; the strided and transposed convolutions are
 ``nn.Conv3d`` / ``nn.ConvTranspose3d`` (cuDNN on the card). BatchNorm runs
 in eval mode (running statistics, eps 1e-5).
+
+Each block takes a compute ``dtype``, as the JAX blocks do: the convolutions
+run at it (``layers.py``, ``ops/conv3d.py``), the parameters stay float32,
+and BatchNorm takes the convolution's bf16 output with its float32 running
+statistics, computes in float32 and gives bf16, as flax's
+``BatchNorm(dtype=...)`` does. ``CostRegNet``'s ``prob`` head is float32.
 """
 
 from __future__ import annotations
@@ -24,14 +30,15 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.conv3d import Conv3d
+from ...ops import layers
 
 
 class ConvBnReLU(nn.Module):
     """Conv2d(bias=False) + BN + ReLU (reference: mvsnet_components.py:8-22)."""
 
-    def __init__(self, in_ch, out_ch, kernel_size=3, stride=1, pad=1):
+    def __init__(self, in_ch, out_ch, kernel_size=3, stride=1, pad=1, dtype=torch.float32):
         super().__init__()
-        self.conv = nn.Conv2d(in_ch, out_ch, kernel_size, stride=stride, padding=pad, bias=False)
+        self.conv = layers.Conv2d(in_ch, out_ch, kernel_size, stride=stride, padding=pad, bias=False, dtype=dtype)
         self.bn = nn.BatchNorm2d(out_ch, eps=1e-5)
 
     def forward(self, x):
@@ -44,12 +51,12 @@ class ConvBnReLU3D(nn.Module):
     (reference: mvsnet_components.py:25-41; cvp_mvsnet_components.py:85-128);
     ``conv3d_impl`` applies at stride 1 (JAX ``ConvBnReLU3D``)."""
 
-    def __init__(self, in_ch, out_ch, stride=1, conv3d_impl="xla"):
+    def __init__(self, in_ch, out_ch, stride=1, conv3d_impl="xla", dtype=torch.float32):
         super().__init__()
         if stride == 1:
-            self.conv = Conv3d(in_ch, out_ch, impl=conv3d_impl)
+            self.conv = Conv3d(in_ch, out_ch, impl=conv3d_impl, dtype=dtype)
         else:
-            self.conv = nn.Conv3d(in_ch, out_ch, 3, stride=stride, padding=1, bias=False)
+            self.conv = layers.Conv3d(in_ch, out_ch, 3, stride=stride, padding=1, bias=False, dtype=dtype)
         self.bn = nn.BatchNorm3d(out_ch, eps=1e-5)
 
     def forward(self, x):
@@ -61,9 +68,10 @@ class DeconvBnReLU3D(nn.Module):
 
     twice the input on each spatial axis."""
 
-    def __init__(self, in_ch, out_ch):
+    def __init__(self, in_ch, out_ch, dtype=torch.float32):
         super().__init__()
-        self.conv = nn.ConvTranspose3d(in_ch, out_ch, 3, stride=2, padding=1, output_padding=1, bias=False)
+        self.conv = layers.ConvTranspose3d(in_ch, out_ch, 3, stride=2, padding=1, output_padding=1, bias=False,
+                                           dtype=dtype)
         self.bn = nn.BatchNorm3d(out_ch, eps=1e-5)
 
     def forward(self, x):
@@ -73,16 +81,13 @@ class DeconvBnReLU3D(nn.Module):
 class FeatureNet(nn.Module):
     """3 -> 32 channels at 1/4 resolution (reference: mvsnet_components.py:44-66)."""
 
-    def __init__(self):
+    def __init__(self, dtype=torch.float32):
         super().__init__()
-        self.conv0 = ConvBnReLU(3, 8, 3, 1, 1)
-        self.conv1 = ConvBnReLU(8, 8, 3, 1, 1)
-        self.conv2 = ConvBnReLU(8, 16, 5, 2, 2)
-        self.conv3 = ConvBnReLU(16, 16, 3, 1, 1)
-        self.conv4 = ConvBnReLU(16, 16, 3, 1, 1)
-        self.conv5 = ConvBnReLU(16, 32, 5, 2, 2)
-        self.conv6 = ConvBnReLU(32, 32, 3, 1, 1)
-        self.feature = nn.Conv2d(32, 32, 3, padding=1)
+        for i, (in_ch, out_ch, k, s, p) in enumerate(((3, 8, 3, 1, 1), (8, 8, 3, 1, 1), (8, 16, 5, 2, 2),
+                                                      (16, 16, 3, 1, 1), (16, 16, 3, 1, 1), (16, 32, 5, 2, 2),
+                                                      (32, 32, 3, 1, 1))):
+            setattr(self, f"conv{i}", ConvBnReLU(in_ch, out_ch, k, s, p, dtype))
+        self.feature = layers.Conv2d(32, 32, 3, padding=1, dtype=dtype)
 
     def forward(self, x):
         for i in range(7):
@@ -95,22 +100,22 @@ class CostRegNet(nn.Module):
 
     (reference: mvsnet_components.py:69-123). As in the JAX block, ``conv0``
     never takes the banded lowering and ``prob`` does: with "banded" K5 runs
-    ``conv2``, ``conv4``, ``conv6`` and ``prob``."""
+    ``conv2``, ``conv4``, ``conv6`` (at ``dtype``) and ``prob`` (float32)."""
 
-    def __init__(self, in_ch=32, conv3d_impl="xla"):
+    def __init__(self, in_ch=32, conv3d_impl="xla", dtype=torch.float32):
         super().__init__()
-        impl = conv3d_impl
-        self.conv0 = ConvBnReLU3D(in_ch, 8)
-        self.conv1 = ConvBnReLU3D(8, 16, stride=2)
-        self.conv2 = ConvBnReLU3D(16, 16, conv3d_impl=impl)
-        self.conv3 = ConvBnReLU3D(16, 32, stride=2)
-        self.conv4 = ConvBnReLU3D(32, 32, conv3d_impl=impl)
-        self.conv5 = ConvBnReLU3D(32, 64, stride=2)
-        self.conv6 = ConvBnReLU3D(64, 64, conv3d_impl=impl)
-        self.conv7 = DeconvBnReLU3D(64, 32)
-        self.conv9 = DeconvBnReLU3D(32, 16)
-        self.conv11 = DeconvBnReLU3D(16, 8)
-        self.prob = Conv3d(8, 1, bias=True, impl=impl)
+        impl, dt = conv3d_impl, dtype
+        self.conv0 = ConvBnReLU3D(in_ch, 8, dtype=dt)
+        self.conv1 = ConvBnReLU3D(8, 16, stride=2, dtype=dt)
+        self.conv2 = ConvBnReLU3D(16, 16, conv3d_impl=impl, dtype=dt)
+        self.conv3 = ConvBnReLU3D(16, 32, stride=2, dtype=dt)
+        self.conv4 = ConvBnReLU3D(32, 32, conv3d_impl=impl, dtype=dt)
+        self.conv5 = ConvBnReLU3D(32, 64, stride=2, dtype=dt)
+        self.conv6 = ConvBnReLU3D(64, 64, conv3d_impl=impl, dtype=dt)
+        self.conv7 = DeconvBnReLU3D(64, 32, dt)
+        self.conv9 = DeconvBnReLU3D(32, 16, dt)
+        self.conv11 = DeconvBnReLU3D(16, 8, dt)
+        self.prob = Conv3d(8, 1, bias=True, impl=impl)  # float32 (JAX :218)
 
     def forward(self, x):
         conv0 = self.conv0(x)

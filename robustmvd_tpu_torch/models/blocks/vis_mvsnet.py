@@ -19,6 +19,16 @@ cuDNN. Each ``Reg`` runs 4 of them, ``RegPair`` 1 and
 ``Conv3dPackedS2``, the same function). BatchNorm runs in eval mode
 (running statistics, eps 1e-5). The U-Net's bottom and head layers are
 empty in every Vis-MVSNet use and are not ported.
+
+``FeatExt``, ``UNet``, ``Reg``, ``RegFuse`` and ``SingleStage`` take a
+compute ``dtype`` as the JAX blocks do (``blocks/mvsnet.py``): at bf16 the
+U-Nets run in bf16 (a residual or skip is cast to the branch's dtype, as
+JAX casts it), while ``RegPair``, ``RegFuse``'s ``final_conv``, the
+uncertainty net, the readouts and the fusion's accumulators stay float32.
+``SingleStage`` takes ``warp_impl``: "fused" (K2's group mode; its float32
+taps read the bf16 features widened, which is exact) or "xla"
+(``get_homographies`` + ``homography_sweep`` + ``groupwise_correlation``, the
+JAX route off the TPU, :430-452).
 """
 
 from __future__ import annotations
@@ -28,9 +38,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.conv3d import Conv3d
-from ...ops.homography import get_homography_coeffs, matmul_sums
+from ...ops.homography import get_homographies, get_homography_coeffs, homography_sweep, matmul_sums
 from ...ops.kernels.soft_argmin import fused_soft_argmin
 from ...ops.kernels.sweep_group_cost import homography_group_cost
+from ...ops.reductions import groupwise_correlation
+from ...ops import layers
 
 GROUPS = 8  # correlation groups of the pair cost volumes
 FUSION_MODES = ("soft", "hard", "average", "uwta", "maxpool")
@@ -45,52 +57,52 @@ def scale_camera(cam, scale):
     return torch.stack([cam[:, 0], cam[:, 1] * mult], dim=1)
 
 
-def _conv(in_ch, out_ch, k, stride, dim, conv3d_impl="xla"):
+def _conv(in_ch, out_ch, k, stride, dim, conv3d_impl="xla", dtype=torch.float32):
     if dim == 3 and k == 3 and stride == 1:
-        return Conv3d(in_ch, out_ch, impl=conv3d_impl)
-    cls = nn.Conv2d if dim == 2 else nn.Conv3d
-    return cls(in_ch, out_ch, k, stride=stride, padding=k // 2, bias=False)
+        return Conv3d(in_ch, out_ch, impl=conv3d_impl, dtype=dtype)
+    cls = layers.Conv2d if dim == 2 else layers.Conv3d
+    return cls(in_ch, out_ch, k, stride=stride, padding=k // 2, bias=False, dtype=dtype)
 
 
 def _bn(ch, dim):
     return (nn.BatchNorm2d if dim == 2 else nn.BatchNorm3d)(ch, eps=1e-5)
 
 
-def torch_deconv(in_ch, out_ch, dim):
+def torch_deconv(in_ch, out_ch, dim, dtype=torch.float32):
     """flax ``TorchDeconv``: ConvTranspose(k3, s2, p1, output_padding=1,
     bias=False), twice the input on each spatial axis."""
-    cls = nn.ConvTranspose2d if dim == 2 else nn.ConvTranspose3d
-    return cls(in_ch, out_ch, 3, stride=2, padding=1, output_padding=1, bias=False)
+    cls = layers.ConvTranspose2d if dim == 2 else layers.ConvTranspose3d
+    return cls(in_ch, out_ch, 3, stride=2, padding=1, output_padding=1, bias=False, dtype=dtype)
 
 
 class BasicBlock(nn.Module):
     """Residual basic block (reference: vis_mvsnet_unet_modular.py:14-70),
     with a 1x1 downsampling branch where the stride or the width changes."""
 
-    def __init__(self, in_ch, planes, stride=1, dim=2, conv3d_impl="xla"):
+    def __init__(self, in_ch, planes, stride=1, dim=2, conv3d_impl="xla", dtype=torch.float32):
         super().__init__()
-        self.conv1 = _conv(in_ch, planes, 3, stride, dim, conv3d_impl)
+        self.conv1 = _conv(in_ch, planes, 3, stride, dim, conv3d_impl, dtype)
         self.bn1 = _bn(planes, dim)
-        self.conv2 = _conv(planes, planes, 3, 1, dim, conv3d_impl)
+        self.conv2 = _conv(planes, planes, 3, 1, dim, conv3d_impl, dtype)
         self.bn2 = _bn(planes, dim)
         if stride != 1 or in_ch != planes:
-            self.downsample_conv = _conv(in_ch, planes, 1, stride, dim)
+            self.downsample_conv = _conv(in_ch, planes, 1, stride, dim, dtype=dtype)
             self.downsample_bn = _bn(planes, dim)
 
     def forward(self, x):
         out = self.bn2(self.conv2(F.relu(self.bn1(self.conv1(x)))))
         residual = self.downsample_bn(self.downsample_conv(x)) if hasattr(self, "downsample_conv") else x
-        return F.relu(out + residual)
+        return F.relu(out + residual.to(out.dtype))
 
 
 class ResLayer(nn.Sequential):
     """``blocks`` BasicBlocks, the first one strided (reference: _make_layer, :73-113)."""
 
-    def __init__(self, in_ch, planes, blocks, stride=1, dim=2, conv3d_impl="xla"):
+    def __init__(self, in_ch, planes, blocks, stride=1, dim=2, conv3d_impl="xla", dtype=torch.float32):
         super().__init__()
-        self.add_module("block0", BasicBlock(in_ch, planes, stride, dim, conv3d_impl))
+        self.add_module("block0", BasicBlock(in_ch, planes, stride, dim, conv3d_impl, dtype))
         for i in range(1, blocks):
-            self.add_module(f"block{i}", BasicBlock(planes, planes, 1, dim, conv3d_impl))
+            self.add_module(f"block{i}", BasicBlock(planes, planes, 1, dim, conv3d_impl, dtype))
 
 
 class UNet(nn.Module):
@@ -99,21 +111,21 @@ class UNet(nn.Module):
     a transposed conv ``dec_i_deconv``, the skip concatenation, ``dec_i_post``
     and, with ``dec`` > 0, ``dec_i_res``."""
 
-    def __init__(self, in_ch, enc, dec, filters, dim=2, conv3d_impl="xla"):
+    def __init__(self, in_ch, enc, dec, filters, dim=2, conv3d_impl="xla", dtype=torch.float32):
         super().__init__()
         self.n_enc = len(filters)
         self.has_res = dec > 0
         ch = in_ch
         for idx, f in enumerate(filters):
-            self.add_module(f"enc_{idx}", ResLayer(ch, f, enc, 1 if idx == 0 else 2, dim, conv3d_impl))
+            self.add_module(f"enc_{idx}", ResLayer(ch, f, enc, 1 if idx == 0 else 2, dim, conv3d_impl, dtype))
             ch = f
         self.dec_names = []
         for i, f in enumerate(filters[-2::-1]):
             idx = self.n_enc + i
-            self.add_module(f"dec_{idx}_deconv", torch_deconv(ch, f, dim))
-            self.add_module(f"dec_{idx}_post", _conv(f + filters[-2 - i], f, 3, 1, dim, conv3d_impl))
+            self.add_module(f"dec_{idx}_deconv", torch_deconv(ch, f, dim, dtype))
+            self.add_module(f"dec_{idx}_post", _conv(f + filters[-2 - i], f, 3, 1, dim, conv3d_impl, dtype))
             if self.has_res:
-                self.add_module(f"dec_{idx}_res", ResLayer(f, f, dec, 1, dim, conv3d_impl))
+                self.add_module(f"dec_{idx}_res", ResLayer(f, f, dec, 1, dim, conv3d_impl, dtype))
             self.dec_names.append(f"dec_{idx}")
             ch = f
 
@@ -125,7 +137,7 @@ class UNet(nn.Module):
         dec_out = [x]
         for i, name in enumerate(self.dec_names):
             x = getattr(self, f"{name}_deconv")(x)
-            x = getattr(self, f"{name}_post")(torch.cat([x, enc_out[-2 - i]], dim=1))
+            x = getattr(self, f"{name}_post")(torch.cat([x, enc_out[-2 - i].to(x.dtype)], dim=1))
             if self.has_res:
                 x = getattr(self, f"{name}_res")(x)
             dec_out.append(x)
@@ -136,14 +148,13 @@ class FeatExt(nn.Module):
     """5x5 stride-2 conv + 2D U-Net -> three 32-channel maps at 1/8, 1/4,
     1/2 (reference: vis_mvsnet_feature_extractor.py:12-29)."""
 
-    def __init__(self):
+    def __init__(self, dtype=torch.float32):
         super().__init__()
-        self.init_conv = nn.Conv2d(3, 16, 5, stride=2, padding=2, bias=False)
+        self.init_conv = layers.Conv2d(3, 16, 5, stride=2, padding=2, bias=False, dtype=dtype)
         self.init_bn = nn.BatchNorm2d(16, eps=1e-5)
-        self.unet = UNet(16, enc=2, dec=1, filters=(32, 64, 128), dim=2)
-        self.final_conv_1 = nn.Conv2d(128, 32, 3, padding=1, bias=False)
-        self.final_conv_2 = nn.Conv2d(64, 32, 3, padding=1, bias=False)
-        self.final_conv_3 = nn.Conv2d(32, 32, 3, padding=1, bias=False)
+        self.unet = UNet(16, enc=2, dec=1, filters=(32, 64, 128), dim=2, dtype=dtype)
+        for i, in_ch in enumerate((128, 64, 32), 1):
+            setattr(self, f"final_conv_{i}", layers.Conv2d(in_ch, 32, 3, padding=1, bias=False, dtype=dtype))
 
     def forward(self, x):
         out1, out2, out3 = self.unet(F.relu(self.init_bn(self.init_conv(x))), multi_scale=3)
@@ -154,16 +165,16 @@ class Reg(nn.Module):
     """The pair regulariser: a 3D U-Net 8/16 over the cost volume
     (reference: vis_mvsnet_singlestage.py:21-29)."""
 
-    def __init__(self, conv3d_impl="xla"):
+    def __init__(self, conv3d_impl="xla", dtype=torch.float32):
         super().__init__()
-        self.unet = UNet(GROUPS, enc=1, dec=0, filters=(8, 16), dim=3, conv3d_impl=conv3d_impl)
+        self.unet = UNet(GROUPS, enc=1, dec=0, filters=(8, 16), dim=3, conv3d_impl=conv3d_impl, dtype=dtype)
 
     def forward(self, x):
         return self.unet(x)
 
 
 class RegPair(nn.Module):
-    """8 -> 1 score head of a pair."""
+    """8 -> 1 score head of a pair, float32 (JAX :273-279)."""
 
     def __init__(self, conv3d_impl="xla"):
         super().__init__()
@@ -174,11 +185,12 @@ class RegPair(nn.Module):
 
 
 class RegFuse(nn.Module):
-    """The fused regulariser: 3D U-Net 8/16 + 8 -> 1 score head."""
+    """The fused regulariser: 3D U-Net 8/16 at ``dtype`` + 8 -> 1 score head
+    in float32 (JAX :282-296)."""
 
-    def __init__(self, conv3d_impl="xla"):
+    def __init__(self, conv3d_impl="xla", dtype=torch.float32):
         super().__init__()
-        self.unet = UNet(8, enc=1, dec=0, filters=(8, 16), dim=3, conv3d_impl=conv3d_impl)
+        self.unet = UNet(8, enc=1, dec=0, filters=(8, 16), dim=3, conv3d_impl=conv3d_impl, dtype=dtype)
         self.final_conv = Conv3d(8, 1, impl=conv3d_impl)
 
     def forward(self, x):
@@ -210,19 +222,22 @@ PIXEL_CENTRES = ((1.0, 0.0, 0.5), (0.0, 1.0, 0.5), (0.0, 0.0, 1.0))
 class SingleStage(nn.Module):
     """One cascade stage (reference: vis_mvsnet_singlestage.py:79-348)."""
 
-    def __init__(self, conv3d_impl="xla"):
+    def __init__(self, conv3d_impl="xla", dtype=torch.float32, warp_impl="fused"):
         super().__init__()
-        self.reg = Reg(conv3d_impl)
+        self.warp_impl = warp_impl
+        self.reg = Reg(conv3d_impl, dtype)
         self.reg_pair = RegPair(conv3d_impl)
-        self.reg_fuse = RegFuse(conv3d_impl)
+        self.reg_fuse = RegFuse(conv3d_impl, dtype)
         self.uncert_net = UncertNet()
 
     def forward(self, ref_feat, ref_cam, srcs_feat, srcs_cam, depth_num, mode="soft", depth_start=None,
                 depth_interval=None, s_scale=1, src_valid=None):
-        """ref_feat (B, h, w, C) and srcs_feat [(B, h, w, C)] channel-last
-        float32; cams (B, 2, 4, 4); depth_start / depth_interval (B, 1, 1, 1)
-        or (B, 1, h, w) (default: the key cam's); src_valid [(B,)] 0/1 per
-        source view (default: all).
+        """ref_feat (B, h, w, C) and srcs_feat [(B, h, w, C)] channel-last,
+        float32 or bf16; cams (B, 2, 4, 4); depth_start / depth_interval
+        (B, 1, 1, 1) or (B, 1, h, w) (default: the key cam's); src_valid
+        [(B,)] 0/1 per source view (default: all). The fused route writes
+        the pair volumes in the features' dtype (JAX :426-428), the "xla"
+        route in float32.
 
         Returns (est_depth (B, 1, h, w), prob_map (B, 1, h, w), pair_results
         [[est_depth, [uncertainty heads (B, 1, h, w)]] per source view])."""
@@ -237,24 +252,31 @@ class SingleStage(nn.Module):
         if src_valid is None:
             src_valid = [torch.ones(B, device=ref_feat.device)] * P
 
-        # phase 1: per-pair cost volumes (K2 group mode), H = A + B / (d + 1e-9)
-        d_idx = torch.arange(depth_num, dtype=torch.float32, device=ref_feat.device).reshape(1, depth_num, 1, 1)
-        w_dense = (1.0 / (depth_start + depth_interval * d_idx + 1e-9)).expand(B, depth_num, h, w).contiguous()
-        centres = torch.tensor(PIXEL_CENTRES, device=ref_feat.device)
+        # phase 1: per-pair cost volumes
         ref_cam_s = scale_camera(ref_cam, 1 / s_scale)
         costs = []
-        for src_feat, src_cam in zip(srcs_feat, srcs_cam):
-            A, Bm = get_homography_coeffs(ref_cam_s, scale_camera(src_cam, 1 / s_scale))
-            costs.append(homography_group_cost(ref_feat, src_feat, matmul_sums(A, centres),
-                                               matmul_sums(Bm, centres), w_dense, groups=GROUPS))
+        if self.warp_impl == "xla":  # the homographies H(d) per hypothesis, a warp and the group sums
+            for src_feat, src_cam in zip(srcs_feat, srcs_cam):
+                Hs = get_homographies(ref_cam_s, scale_camera(src_cam, 1 / s_scale), depth_num, depth_start,
+                                      depth_interval)
+                costs.append(groupwise_correlation(ref_feat[:, None], homography_sweep(src_feat, Hs), GROUPS, -1))
+        else:  # K2 group mode, H = A + B / (d + 1e-9)
+            d_idx = torch.arange(depth_num, dtype=torch.float32, device=ref_feat.device).reshape(1, depth_num, 1, 1)
+            w_dense = (1.0 / (depth_start + depth_interval * d_idx + 1e-9)).expand(B, depth_num, h, w).contiguous()
+            centres = torch.tensor(PIXEL_CENTRES, device=ref_feat.device)
+            for src_feat, src_cam in zip(srcs_feat, srcs_cam):
+                A, Bm = get_homography_coeffs(ref_cam_s, scale_camera(src_cam, 1 / s_scale))
+                costs.append(homography_group_cost(ref_feat, src_feat, matmul_sums(A, centres),
+                                                   matmul_sums(Bm, centres), w_dense, groups=GROUPS,
+                                                   out_dtype=ref_feat.dtype))
 
         # phase 2: the P pairs through the shared regularisers in one batch
         interm = self.reg(torch.cat(costs, dim=0).permute(0, 4, 1, 2, 3).contiguous())  # (P*B, 8, D, h, w)
         _, index, ent, _ = fused_soft_argmin(self.reg_pair(interm)[:, 0])
         heads = self.uncert_net(ent)
 
-        # phase 3: visibility-aware fusion
-        fused = torch.zeros_like(interm[:B])
+        # phase 3: visibility-aware fusion, float32 accumulators (JAX :389-390)
+        fused = torch.zeros(interm[:B].shape, device=interm.device)
         weight_sum = torch.zeros((B, 1, 1, h, w), device=ref_feat.device)
         min_weight = None
         pair_results = []
@@ -263,7 +285,7 @@ class SingleStage(nn.Module):
             pair = slice(p * B, (p + 1) * B)
             pair_heads = [hd[pair] for hd in heads]
             pair_results.append([index[pair] * depth_interval + depth_start, pair_heads])
-            x, h0 = interm[pair], pair_heads[0][:, :, None]  # (B, 1, 1, h, w)
+            x, h0 = interm[pair].float(), pair_heads[0][:, :, None]  # (B, 1, 1, h, w)
             if mode == "soft":
                 weight = torch.exp(-h0) * valid
                 weight_sum = weight_sum + weight

@@ -12,6 +12,16 @@ probability mass of four consecutive hypotheses at the expected index of
 the last level (:219-236). Inputs are /255 at a multiple of 64 (:259-288);
 the depth range defaults to 0.2..100.
 
+``warp_impl`` picks the cost-volume route of every level, with JAX's
+names mapped by ``create_model``: "fused" (K2, the default) or "xla"
+(``rt_planesweep_warp`` per source view and float32 running sums, the JAX
+route off the TPU and the one JAX trains through, :158-177, 210).
+``dtype="bfloat16"`` is JAX's mixed precision (:44-48): the pyramid and
+CostRegNet compute in bf16 with float32 parameters and BatchNorm statistics,
+K2 writes the variance in bf16 (the "xla" route's float32 variance is cast
+at CostRegNet's first convolution); ``prob0``, the softmax, the depth
+regression, the hypotheses and the confidence are float32.
+
 The JAX input adapter pads the view list to a bucket; the port does not, so
 every source view counts. Only inference ("test" mode) is ported.
 """
@@ -21,9 +31,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.homography import inverse
+from ..ops.homography import inverse, rt_planesweep_warp
 from ..ops.interpolate import resize_bicubic_x2
 from ..ops.kernels.sweep_warp import warp_variance_rt
+from ..ops.reductions import variance_over_views
 from .blocks.cvp_mvsnet import (
     CostRegNet,
     FeaturePyramid,
@@ -35,8 +46,8 @@ from .blocks.cvp_mvsnet import (
     src_from_ref,
 )
 from .blocks.mvsnet import init_weights
-from .helpers import ModelBase, resize_to_multiple, to_device
-from .mvsnet import confidence_4tap
+from .helpers import ModelBase, compute_dtype_of, resize_to_multiple, to_device
+from .mvsnet import check_warp_impl, confidence_4tap
 from .registry import register_model
 from .robust_mvd import split_key_sources
 from .weights import load_checkpoint
@@ -55,11 +66,14 @@ class CVPMVSNet(ModelBase):
     absolute intrinsics (B, V, 3, 3), keyview_idx (B,), min_depth and
     max_depth (B,)."""
 
-    def __init__(self, device, nscale=5, weights=None, seed=0, conv3d_impl="xla"):
+    def __init__(self, device, nscale=5, weights=None, seed=0, conv3d_impl="xla", warp_impl="fused",
+                 dtype="float32"):
         super().__init__()
         self.nscale = nscale
-        self.featurePyramid = FeaturePyramid()
-        self.cost_reg_refine = CostRegNet(conv3d_impl=conv3d_impl)
+        self.warp_impl = check_warp_impl(warp_impl)
+        self.compute_dtype = cdt = compute_dtype_of(dtype, "cvp_mvsnet")
+        self.featurePyramid = FeaturePyramid(cdt)
+        self.cost_reg_refine = CostRegNet(conv3d_impl=conv3d_impl, dtype=cdt)
         if weights is None:
             init_weights(self, torch.Generator().manual_seed(seed))
         else:
@@ -88,11 +102,16 @@ class CVPMVSNet(ModelBase):
                                dim=1)  # (B, V-1, S, 3, 3)
 
         # coarsest level: uniform sweep (K2, R,t mode)
+        cdt = self.compute_dtype
         hypos = cal_sweeping_depth_hypos(min_depth, max_depth, NUM_COARSE_HYPOTHESES)
         ref_proj_inv = inverse(proj_mat(ref_K_ms[:, -1], pose_key))
         rts = [src_from_ref(src_K_ms[:, i, -1], poses_src[:, i], ref_proj_inv) for i in range(V - 1)]
-        volume = warp_variance_rt(fp[-1][:, 0], fp[-1][:, 1:], torch.stack([r for r, _ in rts], dim=1),
-                                  torch.stack([t for _, t in rts], dim=1), hypos)
+        if self.warp_impl == "xla":
+            warped = (rt_planesweep_warp(fp[-1][:, 1 + i], r, t, hypos) for i, (r, t) in enumerate(rts))
+            volume = variance_over_views(fp[-1][:, 0], warped, NUM_COARSE_HYPOTHESES)
+        else:
+            volume = warp_variance_rt(fp[-1][:, 0], fp[-1][:, 1:], torch.stack([r for r, _ in rts], dim=1),
+                                      torch.stack([t for _, t in rts], dim=1), hypos, out_dtype=cdt)
         depth, prob = self._regress(volume, hypos)
         depths = [depth]
 
@@ -102,7 +121,7 @@ class CVPMVSNet(ModelBase):
             hypos = cal_depth_hypos(depth_up, ref_K_ms[:, level], src_K_ms[:, 0, level], pose_key,
                                     poses_src[:, 0])
             volume = proj_cost_volume(fp[level][:, 0], fp[level][:, 1:], ref_K_ms[:, level],
-                                      src_K_ms[:, :, level], pose_key, poses_src, hypos)
+                                      src_K_ms[:, :, level], pose_key, poses_src, hypos, self.warp_impl, cdt)
             depth, prob = self._regress(volume, hypos)
             depths.append(depth)
 
@@ -134,12 +153,15 @@ class CVPMVSNet(ModelBase):
 
 
 @register_model(trainable=False)
-def cvp_mvsnet(pretrained=True, weights=None, train=False, device="cuda", seed=0, nscale=5, conv3d_impl="xla"):
+def cvp_mvsnet(pretrained=True, weights=None, train=False, device="cuda", seed=0, nscale=5, conv3d_impl="xla",
+               warp_impl="fused", dtype="float32"):
     """CVP-MVSNet (reference: cvp_mvsnet.py:308-321), registered without
     pretrained weights: pass a port ``.pt`` as ``weights``, or get weights
     from ``seed``. ``conv3d_impl`` picks the lowering of CostRegNet's
     stride-1 3x3x3 convolutions (``ops/conv3d.py``; "banded": K5; "xla",
-    the JAX default: cuDNN)."""
+    the JAX default: cuDNN); ``warp_impl`` and ``dtype`` as in
+    :class:`CVPMVSNet`."""
     if train:
         raise NotImplementedError("cvp_mvsnet training is not ported yet; use train=False")
-    return CVPMVSNet(device=device, nscale=nscale, weights=weights, seed=seed, conv3d_impl=conv3d_impl)
+    return CVPMVSNet(device=device, nscale=nscale, weights=weights, seed=seed, conv3d_impl=conv3d_impl,
+                     warp_impl=warp_impl, dtype=dtype)

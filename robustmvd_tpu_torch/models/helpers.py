@@ -37,6 +37,17 @@ def resize_to_multiple(images, intrinsics, multiple):
     return images, intrinsics, (ht, wd)
 
 
+# the compute dtypes a ``dtype`` argument names (the JAX package's names)
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
+
+
+def compute_dtype_of(dtype, model_name):
+    """The torch dtype a model's ``dtype`` argument names."""
+    if dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"{model_name} computes in float32 or bfloat16 (bf16), not {dtype!r}")
+    return COMPUTE_DTYPES[dtype]
+
+
 def to_device(a, device, dtype=np.float32):
     """numpy -> tensor on ``device`` (one upload, no host-side conversion
 

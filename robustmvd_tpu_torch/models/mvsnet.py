@@ -25,6 +25,12 @@ lowering of CostRegNet's stride-1 3x3x3 convolutions (``ops/conv3d.py``):
 package's names (:data:`WARP_ALIASES`, ``ops/conv3d.py::CONV3D_ALIASES``):
 JAX's defaults "auto" and "dz2d" are "fused" and "xla" here.
 
+``dtype="bfloat16"`` is JAX's mixed precision (:84-91): FeatureNet and
+CostRegNet compute in bf16 with float32 parameters and BatchNorm statistics;
+K2 sums in float32 and writes the variance in bf16, the "xla" route keeps
+float32 running sums and casts the variance once; the ``prob`` head, the
+softmax, the depth regression and the confidence are float32.
+
 The JAX input adapter pads the view list to a bucket (that bounds XLA
 compiles); the port does not, so every source view counts (JAX's
 ``src_valid`` is all ones here).
@@ -39,8 +45,9 @@ import torch.nn.functional as F
 from ..ops.homography import inverse, matmul_sums
 from ..ops.kernels.sweep_warp import warp_variance
 from ..ops.kernels.warp_volume import homo_warp_volume
+from ..ops.reductions import variance_over_views
 from .blocks.mvsnet import CostRegNet, FeatureNet, init_weights
-from .helpers import ModelBase, resize_to_multiple, to_device
+from .helpers import ModelBase, compute_dtype_of, resize_to_multiple, to_device
 from .registry import register_model
 from .robust_mvd import split_key_sources
 from .weights import load_checkpoint
@@ -56,6 +63,14 @@ def warp_impl_of(name):
     impl = WARP_ALIASES.get(name, name)
     if impl not in WARP_IMPLS:
         raise ValueError(f"unknown warp_impl {name!r}: expected one of {WARP_IMPLS + tuple(WARP_ALIASES)}")
+    return impl
+
+
+def check_warp_impl(impl):
+    """A model's ``warp_impl``, one of the port's names (``create_model``
+    maps the JAX names)."""
+    if impl not in WARP_IMPLS:
+        raise ValueError(f"unknown warp_impl {impl!r}: expected one of {WARP_IMPLS}")
     return impl
 
 
@@ -101,15 +116,14 @@ class MVSNet(ModelBase):
     depth_range = (min (B,), max (B,))."""
 
     def __init__(self, device, num_sampling_steps=192, sample_in_inv_depth_space=False, weights=None, seed=0,
-                 conv3d_impl="xla", warp_impl="fused"):
+                 conv3d_impl="xla", warp_impl="fused", dtype="float32"):
         super().__init__()
-        if warp_impl not in WARP_IMPLS:
-            raise ValueError(f"unknown warp_impl {warp_impl!r}: expected one of {WARP_IMPLS}")
         self.num_sampling_steps = num_sampling_steps
         self.sample_in_inv_depth_space = sample_in_inv_depth_space
-        self.warp_impl = warp_impl
-        self.feature = FeatureNet()
-        self.cost_regularization = CostRegNet(conv3d_impl=conv3d_impl)
+        self.warp_impl = check_warp_impl(warp_impl)
+        self.compute_dtype = cdt = compute_dtype_of(dtype, "mvsnet_train")
+        self.feature = FeatureNet(cdt)
+        self.cost_regularization = CostRegNet(conv3d_impl=conv3d_impl, dtype=cdt)
         if weights is None:
             init_weights(self, torch.Generator().manual_seed(seed))
         else:
@@ -140,16 +154,17 @@ class MVSNet(ModelBase):
         proj = torch.where(is_key[..., None, None], inverse(proj), proj)
         proj_key, proj_src = split_key_sources(proj, keyview_idx)
 
+        cdt = self.compute_dtype
         feats = self.feature(images.reshape(B * V, 3, H, W))
         feats = feats.reshape(B, V, *feats.shape[1:]).permute(0, 1, 3, 4, 2)  # (B, V, h, w, C)
         ref_feats, src_feats = split_key_sources(feats, keyview_idx)
 
         if self.warp_impl == "xla":
-            volume = self.warped_variance(ref_feats, src_feats, proj_src, proj_key, depth_samples)
+            volume = self.warped_variance(ref_feats, src_feats, proj_src, proj_key, depth_samples).to(cdt)
         else:
-            volume = warp_variance(ref_feats, src_feats, proj_src, proj_key, depth_samples)
+            volume = warp_variance(ref_feats, src_feats, proj_src, proj_key, depth_samples, out_dtype=cdt)
         cost_reg = self.cost_regularization(volume.permute(0, 4, 1, 2, 3).contiguous())[:, 0]
-        prob = torch.softmax(cost_reg, dim=1)  # (B, D, h, w)
+        prob = torch.softmax(cost_reg, dim=1)  # (B, D, h, w), float32 (the prob head)
         depth = torch.sum(prob * depth_samples[:, :, None, None], dim=1)
         uncertainty = 1.0 - confidence_4tap(prob)
 
@@ -159,19 +174,12 @@ class MVSNet(ModelBase):
 
     @staticmethod
     def warped_variance(ref_feats, src_feats, proj_src, proj_key, depth_samples):
-        """The variance volume through one warped volume per source view
-        (K4, ``homo_warp_volume``): float32 running sums updated in
-        place, then ``sum_sq / n - (sum / n)^2`` (JAX :188-215)."""
-        B, h, w, C = ref_feats.shape
-        D = depth_samples.shape[1]
-        ref = ref_feats.float()[:, None].expand(B, D, h, w, C)
-        volume_sum, volume_sq = ref.clone(), ref * ref
-        for v in range(src_feats.shape[1]):
-            warped = homo_warp_volume(src_feats[:, v], proj_src[:, v], proj_key, depth_samples)
-            volume_sum += warped
-            volume_sq += warped * warped
-        count = torch.tensor(1.0 + src_feats.shape[1], device=ref_feats.device)  # a true division on the card
-        return volume_sq / count - (volume_sum / count) ** 2
+        """The float32 variance volume through one warped volume per source
+        view (K4, ``homo_warp_volume``) and float32 running sums (JAX
+        :188-215)."""
+        warped = (homo_warp_volume(src_feats[:, v], proj_src[:, v], proj_key, depth_samples)
+                  for v in range(src_feats.shape[1]))
+        return variance_over_views(ref_feats, warped, depth_samples.shape[1])
 
     def input_adapter(self, images, keyview_idx, poses=None, intrinsics=None, depth_range=None):
         """Multiple-of-32 resize, ImageNet normalisation on the card
@@ -199,13 +207,13 @@ class MVSNet(ModelBase):
 
 @register_model(trainable=False)
 def mvsnet_train(pretrained=True, weights=None, train=False, device="cuda", seed=0, num_sampling_steps=256,
-                 sample_in_inv_depth_space=False, conv3d_impl="xla", warp_impl="fused"):
+                 sample_in_inv_depth_space=False, conv3d_impl="xla", warp_impl="fused", dtype="float32"):
     """MVSNet as trained in the reference (mvsnet.py:206-217), 256 hypotheses;
     registered without pretrained weights: pass a port ``.pt`` as ``weights``,
-    or get weights from ``seed``. ``conv3d_impl`` and ``warp_impl`` as in
-    :class:`MVSNet`."""
+    or get weights from ``seed``. ``conv3d_impl``, ``warp_impl`` and
+    ``dtype`` ("float32" or "bfloat16") as in :class:`MVSNet`."""
     if train:
         raise NotImplementedError("mvsnet_train training is not ported yet; use train=False")
     return MVSNet(device=device, num_sampling_steps=num_sampling_steps,
                   sample_in_inv_depth_space=sample_in_inv_depth_space, weights=weights, seed=seed,
-                  conv3d_impl=conv3d_impl, warp_impl=warp_impl)
+                  conv3d_impl=conv3d_impl, warp_impl=warp_impl, dtype=dtype)

@@ -35,7 +35,7 @@ from .blocks.dispnet import (
     LearnedFusion,
     init_weights,
 )
-from .helpers import ModelBase, resize_to_multiple, to_device
+from .helpers import ModelBase, compute_dtype_of, resize_to_multiple, to_device
 from .registry import register_model
 from .weights import load_checkpoint
 
@@ -60,10 +60,6 @@ def split_key_sources(stacked, keyview_idx):
     return key, take(order[:, : V - 1])
 
 
-# the compute dtypes a ``dtype`` argument names (the JAX package's names)
-COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
-
-
 # plane-sweep hypotheses: linear in inverse depth over [1/MAX_DEPTH, 1/MIN_DEPTH]
 # (rmvd/models/robust_mvd.py:71-80)
 NUM_SAMPLING_POINTS = 256
@@ -75,14 +71,12 @@ class RobustMVD(ModelBase):
     """The forward takes images (B, V, 3, H, W) normalised, poses (B, V, 4, 4),
 
     intrinsics (B, V, 3, 3) relative and keyview_idx (B,). ``dtype`` names
-    the compute dtype (``COMPUTE_DTYPES``); parameters are float32 either
+    the compute dtype (``helpers.COMPUTE_DTYPES``); parameters are float32 either
     way, so the state dict and the weight bridge do not depend on it."""
 
     def __init__(self, device, weights=None, seed=0, train=False, dtype="float32"):
         super().__init__()
-        if dtype not in COMPUTE_DTYPES:
-            raise ValueError(f"robust_mvd computes in float32 or bfloat16 (bf16), not {dtype!r}")
-        self.compute_dtype = cdt = COMPUTE_DTYPES[dtype]
+        self.compute_dtype = cdt = compute_dtype_of(dtype, "robust_mvd")
         self.encoder = DispnetEncoder(cdt)
         self.context_encoder = DispnetContextEncoder(cdt)
         self.fusion_block = LearnedFusion(NUM_SAMPLING_POINTS, cdt)

@@ -15,6 +15,15 @@ input adapter resizes to a multiple of 64, truncates to uint8 as the
 reference does, normalises with the ImageNet statistics and flips RGB to
 BGR (:189-226), on the card; the depth range defaults to 0.2..100.
 
+``warp_impl`` picks the pair cost volumes' route, with JAX's names mapped by
+``create_model``: "fused" (K2's group mode, the default) or "xla"
+(per-hypothesis homographies, a warp and the group sums: the JAX route off
+the TPU and the one JAX trains through). ``dtype="bfloat16"`` is JAX's mixed
+precision (:39-43): FeatExt and the stages' U-Nets compute in bf16 (K5's
+bf16 form with ``conv3d_impl="banded"``), with float32 parameters and
+BatchNorm statistics; the score heads, the readouts (K3), the uncertainty net
+and the fusion are float32.
+
 The JAX input adapter pads the view list to a bucket (that bounds XLA
 compiles); the port does not, so every source view counts. Only inference
 is ported.
@@ -28,8 +37,8 @@ import torch
 from ..ops.interpolate import resize_bilinear
 from .blocks.mvsnet import init_weights
 from .blocks.vis_mvsnet import FeatExt, SingleStage
-from .helpers import ModelBase, resize_to_multiple, to_device
-from .mvsnet import IMAGENET_MEAN, IMAGENET_STD
+from .helpers import ModelBase, compute_dtype_of, resize_to_multiple, to_device
+from .mvsnet import IMAGENET_MEAN, IMAGENET_STD, check_warp_impl
 from .registry import register_model
 from .robust_mvd import split_key_sources
 from .weights import load_checkpoint
@@ -50,13 +59,15 @@ class VisMVSNet(ModelBase):
     (B, V, 4, 4), absolute intrinsics (B, V, 3, 3), keyview_idx (B,) and
     optionally depth_range = (min (B,), max (B,))."""
 
-    def __init__(self, device, num_sampling_steps=192, weights=None, seed=0, conv3d_impl="banded"):
+    def __init__(self, device, num_sampling_steps=192, weights=None, seed=0, conv3d_impl="banded",
+                 warp_impl="fused", dtype="float32"):
         super().__init__()
         self.num_sampling_steps = num_sampling_steps
-        self.feat_ext = FeatExt()
-        self.stage1 = SingleStage(conv3d_impl)
-        self.stage2 = SingleStage(conv3d_impl)
-        self.stage3 = SingleStage(conv3d_impl)
+        self.warp_impl = check_warp_impl(warp_impl)
+        self.compute_dtype = cdt = compute_dtype_of(dtype, "vis_mvsnet")
+        self.feat_ext = FeatExt(cdt)
+        for k in (1, 2, 3):
+            setattr(self, f"stage{k}", SingleStage(conv3d_impl, cdt, warp_impl))
         if weights is None:
             init_weights(self, torch.Generator().manual_seed(seed))
             with torch.no_grad():
@@ -131,14 +142,16 @@ class VisMVSNet(ModelBase):
 
 @register_model(trainable=False)
 def vis_mvsnet(pretrained=True, weights=None, train=False, device="cuda", seed=0, num_sampling_steps=192,
-               conv3d_impl="banded"):
+               conv3d_impl="banded", warp_impl="fused", dtype="float32"):
     """Vis-MVSNet (reference: vis_mvsnet.py:232-242) with soft fusion,
     registered without pretrained weights: pass a port ``.pt`` as
     ``weights``, or get weights from ``seed``. ``conv3d_impl`` picks the
     lowering of the 3D U-Nets' stride-1 3x3x3 convolutions
     (``ops/conv3d.py``): "banded", the JAX default, runs K5 (30 launches
-    per frame), "xla" cuDNN."""
+    per frame; 24 of them in bf16 at ``dtype="bfloat16"``, the 6 score heads in
+    float32), "xla" cuDNN. ``warp_impl`` and ``dtype`` as in
+    :class:`VisMVSNet`."""
     if train:
         raise NotImplementedError("vis_mvsnet training is not ported yet; use train=False")
     return VisMVSNet(device=device, num_sampling_steps=num_sampling_steps, weights=weights, seed=seed,
-                     conv3d_impl=conv3d_impl)
+                     conv3d_impl=conv3d_impl, warp_impl=warp_impl, dtype=dtype)

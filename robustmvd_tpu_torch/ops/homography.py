@@ -27,6 +27,13 @@ source view. ``homography_warping`` clamps the normalised coordinates to
 (``ops/kernels/sweep_group_cost.py``) has no clamp, as the JAX TPU kernel.
 The two differ only where a clamped coordinate still reaches the map,
 which needs a map narrower than about 10 px.
+
+bf16 features: every grid and coordinate here is float32 and the samples
+are float32, as in K2 and K4. The JAX XLA routes build their pixel grids in
+the features' dtype (``homo_warp``, ``rt_planesweep_warp``,
+``homography_warping``), which a bf16 map rounds: integers beyond 256 and
+pixel centres beyond 127.5. The port keeps the float32 grid; the two agree
+on maps up to those widths.
 """
 
 from __future__ import annotations
@@ -171,24 +178,47 @@ def get_homography_coeffs(left_cam, right_cam):
     return A, Bm
 
 
-def homography_warping(feat, H_mat):
-    """Warp (B, H, W, C) features by 3x3 homographies of pixel centres.
-
-    H_mat: (B, 3, 3) or (B, H, W, 3, 3). Warped coordinates are divided by
-    the map size, scaled to [-1, 1], clamped to +-1.1, and sampled with
-    align_corners=False semantics and zeros padding (reference:
-    blocks/utils.py:154-186).
-    """
-    B, Hh, Ww, C = feat.shape
-    ys, xs = torch.meshgrid(torch.arange(Hh, dtype=torch.float32, device=feat.device) + 0.5,
-                            torch.arange(Ww, dtype=torch.float32, device=feat.device) + 0.5, indexing="ij")
-    Hb = H_mat[:, None, None] if H_mat.dim() == 3 else H_mat  # (B, 1|H, 1|W, 3, 3)
-    warped = Hb[..., :, 0] * xs[None, ..., None] + Hb[..., :, 1] * ys[None, ..., None] + Hb[..., :, 2]
+def _homography_indices(Hb, Hh, Ww):
+    """Index-space source coordinates of the (Hh, Ww) pixel centres under
+    homographies Hb (..., 1 | Hh, 1 | Ww, 3, 3): the float32 pixel-centre
+    grid, ``/ (p_z + 1e-9)``, normalised and clamped to +-1.1, then
+    align_corners=False. Returns xi, yi (..., Hh, Ww)."""
+    ys, xs = torch.meshgrid(torch.arange(Hh, dtype=torch.float32, device=Hb.device) + 0.5,
+                            torch.arange(Ww, dtype=torch.float32, device=Hb.device) + 0.5, indexing="ij")
+    warped = Hb[..., :, 0] * xs[..., None] + Hb[..., :, 1] * ys[..., None] + Hb[..., :, 2]
     wx = warped[..., 0] / (warped[..., 2] + 1e-9)
     wy = warped[..., 1] / (warped[..., 2] + 1e-9)
     gx = torch.clamp((wx / Ww) * 2 - 1, -1.1, 1.1)
     gy = torch.clamp((wy / Hh) * 2 - 1, -1.1, 1.1)
-    xi = ((gx + 1) * Ww - 1) / 2
-    yi = ((gy + 1) * Hh - 1) / 2
+    return ((gx + 1) * Ww - 1) / 2, ((gy + 1) * Hh - 1) / 2
+
+
+def homography_warping(feat, H_mat):
+    """Warp (B, H, W, C) features by 3x3 homographies of pixel centres.
+
+    H_mat: (B, 3, 3) or (B, H, W, 3, 3). :func:`homography_sweep` of a
+    single hypothesis (reference: blocks/utils.py:154-186).
+    """
+    Hb = H_mat[:, None, None] if H_mat.dim() == 3 else H_mat  # (B, 1|H, 1|W, 3, 3)
+    return homography_sweep(feat, Hb[:, None])[:, 0]
+
+
+def homography_sweep(feat, Hs):
+    """Warp one source map under each hypothesis's homography, as the JAX
+    Vis-MVSNet route computes it with the map repeated D times
+    (``blocks/vis_mvsnet.py:430-447``), without the repeat.
+
+    Warped coordinates are divided by the map size, scaled to [-1, 1],
+    clamped to +-1.1, and sampled with align_corners=False semantics and
+    zeros padding. The pixel-centre grid is float32 whatever the features'
+    dtype: the JAX function builds it in the features' dtype, and a bf16
+    grid rounds centres beyond 127.5 (128.5 is 128 in bf16).
+
+    feat: (B, H, W, C); Hs: (B, D, 1 | H, 1 | W, 3, 3) (``get_homographies``).
+    Returns (B, D, H, W, C), float32 for float32 or bf16 maps.
+    """
+    B, Hh, Ww, C = feat.shape
+    D = Hs.shape[1]
+    xi, yi = _homography_indices(Hs, Hh, Ww)
     out, _ = bilinear_sample(feat, xi.reshape(B, -1), yi.reshape(B, -1))
-    return out.reshape(B, Hh, Ww, C)
+    return out.reshape(B, D, Hh, Ww, C)

@@ -13,6 +13,13 @@ raises. For a CPU tensor it computes the same function with
 kernel's coordinates, a bilinear gather, group sums written out in channel
 order), which is also what the kernel is held against. The kernel's source
 note says what bounds it.
+
+The features are float32 or bf16, both of one dtype. bf16 features sample
+as the TPU kernel does with its bf16 ``samp_dtype``: the x-tent weights are
+rounded to bf16, each source row is blended in float32 and the rows are
+weighted by float32 y-tents; products and group sums stay float32. Launches
+are counted in ``launches`` and, by the features' dtype, in
+``launches_by_dtype``.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ import ctypes
 
 import torch
 
-from ..sampling import bilinear_sample
+from ..sampling import _LIM, _finite_or_far, bilinear_sample
 from . import build
 
 _NAME = "sweep_group_cost"
@@ -48,12 +55,43 @@ def homography_coordinates(Amat, Bmat, w_dense):
     return row(0) / pz - 0.5, row(1) / pz - 0.5
 
 
+def sample_bf16_tents(src_feat, xi, yi):
+    """Bilinear samples of a bf16 map as the TPU kernel takes them at bf16:
+    x-tents ``1 - wx`` and ``1 - (1 - wx)`` rounded to bf16, each row
+    blended in float32, the rows weighted by the float32 y-tents; zeros
+    padding.
+
+    src_feat: (B, Hs, Ws, C) bf16; xi, yi: (B, N). Returns (B, N, C) float32.
+    """
+    B, Hs, Ws, C = src_feat.shape
+    x, y = _finite_or_far(xi), _finite_or_far(yi)
+    x0, y0 = torch.floor(x), torch.floor(y)
+    ux, wy = 1 - (x - x0), y - y0
+    tx = (ux.bfloat16().float(), (1 - ux).bfloat16().float())
+    ty = (1 - wy, wy)
+    x0 = x0.clamp(-_LIM, _LIM).long()
+    y0 = y0.clamp(-_LIM, _LIM).long()
+    flat = src_feat.reshape(B, Hs * Ws, C)
+
+    def tap(dy, dx):
+        xs, ys = x0 + dx, y0 + dy
+        valid = (xs >= 0) & (xs <= Ws - 1) & (ys >= 0) & (ys <= Hs - 1)
+        idx = torch.where(valid, ys * Ws + xs, torch.zeros_like(xs))
+        return torch.gather(flat, 1, idx[..., None].expand(B, idx.shape[1], C)).float() * valid[..., None]
+
+    rows = [tap(dy, 0) * tx[0][..., None] + tap(dy, 1) * tx[1][..., None] for dy in (0, 1)]
+    return rows[0] * ty[0][..., None] + rows[1] * ty[1][..., None]
+
+
 def homography_group_cost_reference(ref_feat, src_feat, Amat, Bmat, w_dense, groups=8, out_dtype=torch.float32):
     """Plain torch K2 group mode; arguments as :func:`homography_group_cost`."""
     B, H, W, C = ref_feat.shape
     D = w_dense.shape[1]
     xi, yi = homography_coordinates(Amat, Bmat, w_dense)
-    warped, _ = bilinear_sample(src_feat.float(), xi.reshape(B, -1), yi.reshape(B, -1))
+    if src_feat.dtype == torch.bfloat16:
+        warped = sample_bf16_tents(src_feat, xi.reshape(B, -1), yi.reshape(B, -1))
+    else:
+        warped, _ = bilinear_sample(src_feat, xi.reshape(B, -1), yi.reshape(B, -1))
     prod = (ref_feat.float()[:, None] * warped.reshape(B, D, H, W, C)).reshape(B, D, H, W, groups, C // groups)
     out = prod[..., 0]
     for j in range(1, C // groups):
@@ -77,9 +115,11 @@ def _check(ref_feat, src_feat, Amat, Bmat, w_dense, groups, out_dtype):
     for name, t in (("Amat", Amat), ("Bmat", Bmat)):
         if tuple(t.shape) != (B, 3, 3):
             raise ValueError(f"{name} must be ({B}, 3, 3), got {tuple(t.shape)}")
+    if ref_feat.dtype not in (torch.float32, torch.bfloat16) or src_feat.dtype != ref_feat.dtype:
+        raise TypeError(f"features must both be float32 or bfloat16, got {ref_feat.dtype}, {src_feat.dtype}")
     for name, t in (("ref_feat", ref_feat), ("src_feat", src_feat), ("Amat", Amat), ("Bmat", Bmat),
                     ("w_dense", w_dense)):
-        if t.dtype != torch.float32:
+        if name not in ("ref_feat", "src_feat") and t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.device != ref_feat.device:
             raise ValueError(f"{name} is on {t.device}, ref_feat on {ref_feat.device}")
@@ -89,8 +129,8 @@ def homography_group_cost(ref_feat, src_feat, Amat, Bmat, w_dense, groups=8, out
     """The G-group correlation volume of a key and one source view.
 
     Args:
-        ref_feat: (B, H, W, C) float32 key features.
-        src_feat: (B, Hs, Ws, C) float32 source features.
+        ref_feat: (B, H, W, C) float32 or bfloat16 key features.
+        src_feat: (B, Hs, Ws, C) source features, in ``ref_feat``'s dtype.
         Amat, Bmat: (B, 3, 3) float32: the homography ``A + B * w`` with the
             pixel-centre offset folded in (``M @ [[1, 0, .5], [0, 1, .5],
             [0, 0, 1]]``).
@@ -120,20 +160,22 @@ def homography_group_cost(ref_feat, src_feat, Amat, Bmat, w_dense, groups=8, out
     with torch.cuda.device(ref_feat.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*(t.data_ptr() for t in tensors), out.data_ptr(), B, D, H, W, Hs, Ws, C, groups,
-                 int(out_dtype == torch.bfloat16), stream)
+                 int(ref_feat.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"sweep_group_cost kernel launch failed: cudaError {err}")
     homography_group_cost.launches += 1
+    homography_group_cost.launches_by_dtype[str(ref_feat.dtype).removeprefix("torch.")] += 1
     return out
 
 
 homography_group_cost.launches = 0
+homography_group_cost.launches_by_dtype = {"float32": 0, "bfloat16": 0}
 
 
 def _entry():
     fn = build.load(_NAME).sweep_group_cost
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int32
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn

@@ -1,9 +1,11 @@
 """Hypothesis-axis reductions: depth regression, soft-argmin, entropy,
-groupwise correlation.
+groupwise correlation, and the family's variance over views.
 
 Counterparts of the JAX package's ``ops/reductions.py`` (reference:
 rmvd/models/blocks/utils.py:51-88 and :271-274), on tensors of any layout:
-the hypothesis or channel axis is an argument.
+the hypothesis or channel axis is an argument. bf16 inputs promote as in
+JAX: ``groupwise_correlation`` of bf16 key features and float32 warped
+features is float32.
 """
 
 from __future__ import annotations
@@ -60,3 +62,25 @@ def depth_regression(prob, depth_values, axis=-1):
     while depth_values.dim() < prob_moved.dim():
         depth_values = depth_values[:, None]
     return torch.sum(prob_moved * depth_values, dim=-1)
+
+
+def variance_over_views(ref_feat, warped_views, num_hypotheses):
+    """``E[x^2] - E[x]^2`` over the key features, repeated over the
+    hypotheses, and each warped source volume, from float32 running sums
+    updated in place whatever the features' dtype (bf16 would cancel
+    catastrophically): the JAX models' ``warp_impl="xla"`` routes.
+
+    ref_feat: (B, H, W, C); warped_views: an iterable of (B, D, H, W, C)
+    volumes, consumed one at a time, so one is live at once. Returns
+    (B, D, H, W, C) float32."""
+    B, H, W, C = ref_feat.shape
+    ref = ref_feat.float()[:, None].expand(B, num_hypotheses, H, W, C)
+    volume_sum, volume_sq = ref.clone(), ref * ref
+    views = 1
+    for warped in warped_views:
+        warped = warped.float()
+        volume_sum += warped
+        volume_sq += warped * warped
+        views += 1
+    count = torch.tensor(float(views), device=ref_feat.device)  # a true division on the card
+    return volume_sq / count - (volume_sum / count) ** 2

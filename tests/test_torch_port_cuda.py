@@ -450,6 +450,52 @@ def test_k2_group_wide_key_read_in_place(cuda):
     assert torch.equal(out, homography_group_cost_reference(ref, src, A, Bm, w, groups=4096))
 
 
+@pytest.mark.parametrize("C", [32, 64, 24, 16])  # 32, 64: four channels (8 bytes) per load; 24, 16: one
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_k2_group_bf16_features_match_plain_version(cuda, C, out_dtype):
+    """K2 group on bf16 features (bf16 x-tents, float32 rows and sums) vs
+    its plain version on the card and on the CPU; counted as a bf16 launch."""
+    ref, src, A, Bm, w = (a.to(cuda) for a in _group_inputs(30 + C, C=C))
+    ref, src = ref.bfloat16(), src.bfloat16()
+    before = dict(homography_group_cost.launches_by_dtype)
+    out = homography_group_cost(ref, src, A, Bm, w, groups=8, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert homography_group_cost.launches_by_dtype == {**before, "bfloat16": before["bfloat16"] + 1}
+    assert out.dtype == out_dtype
+    plain = homography_group_cost_reference(ref, src, A, Bm, w, groups=8, out_dtype=out_dtype)
+    torch.testing.assert_close(out.float(), plain.float(), atol=1e-5, rtol=0)
+    assert torch.isfinite(out.float()).all() and (out.float() != 0).float().mean() > 0.3
+    cpu = homography_group_cost_reference(*(a.cpu() for a in (ref, src, A, Bm, w)), groups=8, out_dtype=out_dtype)
+    torch.testing.assert_close(plain.cpu().float(), cpu.float(), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("which", ["src", "ref"])
+def test_k2_group_bf16_unaligned_maps_match_plain_version(cuda, which):
+    """A bf16 key or source map one element (2 bytes) into its storage: one
+    channel per load, bit for bit."""
+    ref, src, A, Bm, w = (a.to(cuda) for a in _group_inputs(23, H=6, W=90, C=32))
+    ref, src = ref.bfloat16(), src.bfloat16()
+
+    def shifted(t):
+        return torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)[1:].view(t.shape).copy_(t)
+
+    out = homography_group_cost(shifted(ref) if which == "ref" else ref, shifted(src) if which == "src" else src,
+                                A, Bm, w)
+    assert torch.equal(out, homography_group_cost_reference(ref, src, A, Bm, w))
+
+
+def test_k2_group_bf16_at_vis_stage3_matches_plain_version(cuda):
+    """vis_mvsnet's stage-3 pair volume at bf16, (1, 16, 192, 640), C 32,
+    G 8, bf16 out as the bf16 model asks: within one bf16 step of the
+    plain version where a float32 sum lies on a rounding boundary."""
+    ref, src, A, Bm, w = (a.to(cuda) for a in _group_inputs(19, B=1, H=192, W=640, C=32, D=16, singular=False))
+    ref, src = ref.bfloat16(), src.bfloat16()
+    out = homography_group_cost(ref, src, A, Bm, w, out_dtype=torch.bfloat16).float()
+    plain = homography_group_cost_reference(ref, src, A, Bm, w, out_dtype=torch.bfloat16).float()
+    assert (out - plain).abs().max() <= 1e-5 + 2.0**-8 * plain.abs().max()
+    assert (out != 0).any(-1).float().mean() > 0.5
+
+
 @pytest.mark.parametrize("shape", [(2, 16, 12, 20), (1, 64, 5, 7), (2, 192, 3, 5), (1, 32, 48, 160)])
 def test_k3_matches_plain_version(cuda, shape):
     """prob atol 1e-6, expectation atol 1e-5 + rtol 1e-6, entropy atol 1e-5
@@ -659,6 +705,152 @@ def test_k5_rejects_non_float32(cuda):
     x = torch.zeros((1, 4, 4, 4, 4), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(TypeError):
         conv3d_banded(x, torch.zeros((3, 3, 3, 4, 2), device=cuda, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 8, 8, 6, 10, 8),  # (B, Cin, D, H, W, Cout): Cin 8 fills half a 16-channel bf16 stage
+    (1, 16, 9, 17, 40, 16),
+    (1, 64, 4, 6, 10, 64),
+    (2, 24, 4, 9, 70, 8),  # Cin not a multiple of 16
+    (1, 64, 5, 7, 13, 40),  # ragged M-tile and N-tile edges
+    (2, 16, 5, 12, 28, 8),  # vis's dec_2_post pair at reduced volume
+    (1, 32, 64, 24, 80, 32),  # mvsnet's conv4 at full size
+])
+@pytest.mark.parametrize("layout", ["ncdhw", "ndhwc", "ncdhw_strided"])
+@pytest.mark.parametrize("kernel_dtype", [torch.float32, torch.bfloat16])
+def test_k5_bf16_matches_plain_version(cuda, shape, layout, kernel_dtype):
+    """K5's bf16 form (bf16 mma, float32 sums and bias, one rounding)
+    against its plain version on the same bf16 inputs: max |d| <= 2^-7 max
+    |ref|, one bf16 step at the largest magnitude (the float32 sums differ in
+    order, so a value may round to the neighbouring step), on at most 2% of
+    the values; a float32 kernel is cast once to bf16, as a bf16 one is."""
+    B, Cin, D, H, W, Cout = shape
+    gen = torch.Generator(device=cuda).manual_seed(Cin * Cout + 1)
+    x = torch.randn((B, Cin, D, H, W), generator=gen, device=cuda).to(torch.bfloat16)
+    k = (torch.randn((3, 3, 3, Cin, Cout), generator=gen, device=cuda) / (27 * Cin) ** 0.5).to(kernel_dtype)
+    bias = torch.randn((Cout,), generator=gen, device=cuda)
+    plain = conv3d_banded_reference(x.movedim(1, -1), k, bias)
+    before = dict(conv3d_banded.launches_by_dtype)
+    if layout == "ndhwc":
+        out = conv3d_banded(x.movedim(1, -1).contiguous(), k, bias)
+    else:
+        if layout == "ncdhw_strided":
+            x = torch.cat([x, torch.zeros_like(x[:, :3])], 1)[:, :Cin]
+        out = conv3d_banded(x, k, bias, channels_first=True).movedim(1, -1)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    assert conv3d_banded.launches_by_dtype["bfloat16"] == before["bfloat16"] + 1
+    assert conv3d_banded.launches_by_dtype["float32"] == before["float32"]
+    diff = (out.float() - plain.float()).abs()
+    assert diff.max() <= 2.0**-7 * plain.float().abs().max()
+    assert (diff > 0).float().mean() <= 0.02
+    # and the plain version on the card is, within the same step, the one the CPU tests hold to JAX
+    cpu = conv3d_banded_reference(x.movedim(1, -1).cpu(), k.cpu(), bias.cpu()).float()
+    assert (plain.cpu().float() - cpu).abs().max() <= 2.0**-7 * cpu.abs().max()
+
+
+def test_k5_bf16_route_and_score_heads(cuda):
+    """bf16 runs on the tensor cores only: the score heads stay float32."""
+    assert [conv3d_banded_path(c, torch.bfloat16) for c in (5, 8, 64)] == ["bf16_mma"] * 3
+    x = torch.zeros((1, 8, 4, 4, 4), device=cuda, dtype=torch.bfloat16)
+    for cout in (1, 4):
+        with pytest.raises(TypeError, match="score head"):
+            conv3d_banded(x, torch.zeros((3, 3, 3, 8, cout), device=cuda), channels_first=True)
+
+
+def test_k5_bf16_backward_matches_plain_version(cuda):
+    """The bf16 form's backward (cuDNN's conv3d_input / conv3d_weight in
+    bf16) against autograd through the plain version: each gradient in its
+    input's dtype, within 2^-6 of its largest magnitude (bf16 sums)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((2, 16, 6, 7, 12), generator=gen, device=cuda).to(torch.bfloat16)
+    k = torch.randn((3, 3, 3, 16, 8), generator=gen, device=cuda) / 20
+    bias = torch.randn((8,), generator=gen, device=cuda)
+    grads = []
+    for fn in (lambda a, b, c: conv3d_banded(a, b, c, channels_first=True),
+               lambda a, b, c: conv3d_banded_reference(a.movedim(1, -1), b, c).movedim(-1, 1)):
+        leaves = [a.clone().requires_grad_() for a in (x, k, bias)]
+        (fn(*leaves).float() ** 2).sum().backward()
+        grads.append([a.grad for a in leaves])
+    for ours, ref, leaf in zip(*grads, (x, k, bias)):
+        assert ours.dtype == leaf.dtype
+        assert (ours.float() - ref.float()).abs().max() <= 2.0**-6 * ref.float().abs().max()
+
+
+@pytest.mark.parametrize("name,kwargs,launches", [
+    ("mvsnet_train", {}, {"sweep_warp": 1}),
+    ("mvsnet_train", {"conv3d_impl": "banded", "warp_impl": "xla"}, {"warp_volume": 2, "conv3d_banded[bfloat16]": 3,
+                                                                      "conv3d_banded[float32]": 1}),
+    ("cvp_mvsnet", {}, {"sweep_warp": 5}),
+    ("cvp_mvsnet", {"warp_impl": "xla"}, {"sweep_warp": 0}),
+    ("vis_mvsnet", {}, {"sweep_group_cost[bfloat16]": 6, "sweep_group_cost[float32]": 0, "soft_argmin": 6,
+                        "conv3d_banded[bfloat16]": 24, "conv3d_banded[float32]": 6}),
+    ("vis_mvsnet", {"warp_impl": "xla"}, {"sweep_group_cost": 0, "soft_argmin": 6, "conv3d_banded[bfloat16]": 24}),
+])
+def test_family_bf16_on_card_matches_cpu(cuda, name, kwargs, launches):
+    """The family at ``dtype="bfloat16"``, card vs CPU, TF32 off, cuDNN
+    deterministic, 128x192 with 1+2 views; every kernel of the path
+    launched, K2 group and K5 by dtype. The score heads are conditioned
+    (:data:`FAMILY_HEAD_GAINS`) so that the random model's own bf16-vs-fp32
+    distance on the CPU stays under 0.3 points with depth that varies. The
+    card's bf16 depth is scored against the CPU's bf16 depth as ground
+    truth, as the benchmark scores depth, within FAMILY_BF16_BOUNDS: half a
+    point of absrel and 99% 1.03-inliers, tighter than the bounds JAX holds
+    its bf16 to against fp32 (1 point, 97%). The CPU tests
+    (``test_torch_port_family_bf16.py``) hold the conditioned models' bf16
+    noise under 0.3 points and show that planted faults (K5 bf16 dropping a
+    corner tap, K2 group dropping a channel) fail these bounds."""
+    from robustmvd_tpu_torch.eval.metrics import m_rel_ae, thresh_inliers
+    from robustmvd_tpu_torch.ops.kernels import KERNELS
+
+    def counts():
+        out = {k: fn.launches for k, fn in KERNELS.items()}
+        for k, fn in KERNELS.items():
+            out.update({f"{k}[{d}]": n for d, n in getattr(fn, "launches_by_dtype", {}).items()})
+        return out
+
+    def scores(pred, gt):
+        ones = np.ones_like(gt)
+        return (m_rel_ae(gt=gt, pred=pred, mask=ones, output_scaling_factor=100.0),
+                thresh_inliers(gt=gt, pred=pred, thresh=1.03, mask=ones, output_scaling_factor=100.0))
+
+    def model(device, dtype="bfloat16"):
+        return conditioned_heads(create_model(name, device=device, dtype=dtype, **kwargs), name)
+
+    sample = _family_sample(6, 128, 192)
+    torch.backends.cudnn.deterministic = True
+    try:
+        before = counts()
+        pred_g, _ = model("cuda").run(**sample)
+        after = counts()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert {k: after[k] - before[k] for k in launches} == launches
+    pred_c, _ = model("cpu").run(**sample)
+    g, c = pred_g["depth"], pred_c["depth"]
+    assert g.dtype == np.float32 and np.isfinite(g).all()
+    assert np.isfinite(c).all() and c.std() > 5e-2 * np.abs(c).mean()
+    absrel, inliers = scores(g, c)
+    assert absrel < FAMILY_BF16_BOUNDS["absrel"] and inliers > FAMILY_BF16_BOUNDS["inliers"], (
+        absrel, inliers, scores(c, model("cpu", "float32").run(**sample)[0]["depth"]))
+
+
+# score-head gains of the random family models in the bf16 card tests: the
+# softmax over hypotheses peaked enough for depth to vary (std over mean
+# 0.07-0.14 here), not so much that bf16 rounding moves its argmax
+FAMILY_HEAD_GAINS = {"mvsnet_train": 4.0, "cvp_mvsnet": 1.0, "vis_mvsnet": 0.25}
+# card vs CPU bf16 depth: absrel in points below, 1.03-inliers in % above
+FAMILY_BF16_BOUNDS = {"absrel": 0.5, "inliers": 99.0}
+
+
+def conditioned_heads(model, name):
+    """``model`` with its score heads' weights (``prob``, ``prob0``,
+    ``final_conv``) scaled by the model's FAMILY_HEAD_GAINS."""
+    with torch.no_grad():
+        for path, module in model.named_modules():
+            if path.rsplit(".", 1)[-1] in ("prob", "prob0", "final_conv"):
+                module.weight.mul_(FAMILY_HEAD_GAINS[name])
+    return model
 
 
 def _warp_inputs(seed, B=2, H=12, W=20, C=32, D=8, focal=None):

@@ -164,3 +164,92 @@ def write_benchmark_fixtures(root, rng):
             depth[8, :100] = np.inf
             depth.tofile(depth_path)
     return roots
+
+
+# --- the MVSNet family through both packages ---
+
+def _jax_variables(module, dummy, seed, prob_gain=20.0):
+    import jax
+
+    return randomized_variables(jax.jit(module.init)(jax.random.PRNGKey(0), **dummy), np.random.RandomState(seed),
+                                prob_gain=prob_gain)
+
+
+def _dummy(V, with_range=True):
+    import jax.numpy as jnp
+
+    d = {"images": jnp.zeros((1, V, 64, 64, 3)), "poses": jnp.tile(jnp.eye(4), (1, V, 1, 1)),
+         "intrinsics": jnp.tile(jnp.eye(3) * 32, (1, V, 1, 1)), "keyview_idx": jnp.zeros((1,), jnp.int32)}
+    if with_range:
+        d["depth_range"] = (jnp.ones((1,)), jnp.full((1,), 10.0))
+    else:
+        d["min_depth"], d["max_depth"] = jnp.ones((1,)), jnp.full((1,), 10.0)
+    return d
+
+
+def jax_family(name, warp_impl, dtype):
+    """(JAX module, randomised variables, input adapter, port kwargs) of a
+    family model, the module at ``dtype`` and the variables of its float32
+    tree (the same tree: ``tests/test_family_bf16.py:42-47``), initialised
+    under ``jax.jit``: mvsnet_train (16 hypotheses) and cvp_mvsnet (nscale 3)
+    with score heads x 20, as ``test_torch_port_{mvsnet,cvp}.py`` condition
+    them, vis_mvsnet with heads x 4 (``test_torch_port_family_bf16.py``)."""
+    from robustmvd_tpu.models.cvp_mvsnet import CVPMVSNet as JaxCVPMVSNet
+    from robustmvd_tpu.models.cvp_mvsnet import CVPMVSNetModule
+    from robustmvd_tpu.models.mvsnet import MVSNet as JaxMVSNet
+    from robustmvd_tpu.models.mvsnet import MVSNetModule
+    from robustmvd_tpu.models.vis_mvsnet import VisMvsnet as JaxVisMvsnet
+    from robustmvd_tpu.models.vis_mvsnet import VisMvsnetModule
+
+    if name == "mvsnet_train":
+        make = lambda dt: MVSNetModule(num_sampling_steps=16, warp_impl=warp_impl, dtype=dt)  # noqa: E731
+        variables = _jax_variables(make("float32"), _dummy(2), 3)
+        return make(dtype), variables, JaxMVSNet.input_adapter, {"num_sampling_steps": 16}
+    if name == "cvp_mvsnet":
+        make = lambda dt: CVPMVSNetModule(nscale=3, warp_impl=warp_impl, dtype=dt)  # noqa: E731
+        variables = _jax_variables(make("float32"), _dummy(3, with_range=False), 4)
+        return make(dtype), variables, JaxCVPMVSNet.input_adapter, {"nscale": 3}
+    make = lambda dt: VisMvsnetModule(num_sampling_steps=192, warp_impl=warp_impl, dtype=dt)  # noqa: E731
+    variables = _jax_variables(make("float32"), _dummy(2), 3, prob_gain=4.0)
+    return make(dtype), variables, JaxVisMvsnet.input_adapter, {}
+
+
+def run_jax_family(module, variables, adapter, sample):
+    """The JAX module's forward under ``jax.jit`` on a run() sample: (pred
+    with channel-first float32 maps, aux)."""
+    import jax
+
+    inputs = adapter(None, **{k: sample[k] for k in ("images", "keyview_idx", "poses", "intrinsics", "depth_range")})
+    inputs.pop("num_views", None)  # every view is real
+    pred, aux = jax.jit(module.apply)(variables, **inputs)
+    return {k: np.moveaxis(np.asarray(v, np.float32), -1, 1) for k, v in pred.items()}, aux
+
+
+# image size and sample seed of each model's comparisons (cvp: its float32
+# test's sample, where the random model's depth stays in its range)
+FAMILY_SAMPLES = {"mvsnet_train": ((64, 80), 5), "cvp_mvsnet": ((64, 128), 6), "vis_mvsnet": ((64, 80), 5)}
+
+
+def family_sample(name):
+    """A 1+2-view sample in the run() contract for a family model."""
+    (H, W), seed = FAMILY_SAMPLES[name]
+    return general_mvd_sample(np.random.RandomState(seed), H, W, 3)
+
+
+def assert_depth_within_benchmark_bounds(depth, ref_depth, ref_unc=None, unc=None):
+    """A depth scored against a reference depth as ground truth, as the
+    benchmark scores it: absrel < 1 point and 1.03-inliers > 97%, the bounds
+    JAX holds its bf16 depth to against fp32 (``tests/test_family_bf16.py:
+    93-94``); with the uncertainties, their mean |d| <= 1e-2. Returns
+    (absrel, inliers)."""
+    from robustmvd_tpu.eval.metrics import m_rel_ae, thresh_inliers
+
+    assert depth.shape == ref_depth.shape and depth.dtype == np.float32
+    assert np.isfinite(depth).all() and ref_depth.std() > 1e-3 * np.abs(ref_depth).mean()
+    ones = np.ones_like(ref_depth)
+    absrel = m_rel_ae(gt=ref_depth, pred=depth, mask=ones, output_scaling_factor=100.0)
+    inliers = thresh_inliers(gt=ref_depth, pred=depth, thresh=1.03, mask=ones, output_scaling_factor=100.0)
+    assert absrel < 1.0 and inliers > 97.0, (absrel, inliers)
+    if unc is not None:
+        assert np.abs(unc - ref_unc).mean() <= 1e-2, np.abs(unc - ref_unc).mean()
+    return absrel, inliers
