@@ -107,7 +107,12 @@ CUDA toolkit (``nvcc``). Phases, each printing one JSON line:
             (in phase ``kernel`` conv3d_banded: held against its plain
             version within one bf16 step of the largest |out|, timed beside
             K5 fp32 and cuDNN's bf16 ``F.conv3d``, the bound at the dense bf16
-            rate); K2 group's bf16 form (bf16 features, vis's bf16 fused
+            rate; required to beat ``F.conv3d`` bf16 at every one of them,
+            ``K5_BF16_MUST_BEAT_LIBRARY``) and at the 18 shapes one vis_mvsnet
+            bf16 frame launches it with (phase ``kernel_k5_vis_frame``: the
+            shapes recorded from the wrapper on one frame, each held against
+            its plain version and timed beside ``F.conv3d`` bf16 with its
+            bound, and the sums weighted by launches per frame); K2 group's bf16 form (bf16 features, vis's bf16 fused
             route) at phase 7's shapes in phase ``kernel`` sweep_group_cost
             (held against its plain version, timed beside the float32 form);
             ``parity_family_bf16`` (the three models with conditioned score
@@ -118,7 +123,9 @@ CUDA toolkit (``nvcc``). Phases, each printing one JSON line:
             main_vis's fp32, with each kernel's launches per frame by dtype:
             vis's default launches K2 group's bf16 form 6 times and K5's 24
             times, its score heads 6 in float32) with
-            ``breakdown_family_bf16``; ``main_family_xla`` (cvp's and vis's
+            ``breakdown_family_bf16`` (K5's device time split by form:
+            the bf16 mma route and the float32 score heads);
+            ``main_family_xla`` (cvp's and vis's
             ``warp_impl="xla"`` routes at fp32 beside their fused routes).
 13. the kernels line, and last the ``{"ok": true, ...}`` line.
 
@@ -516,6 +523,9 @@ K5_CASES = {
 }
 # the shapes where K5 on the CUDA cores alone was slower than cuDNN fp32 (1.7x, 2.6x)
 K5_MUST_BEAT_LIBRARY = ("mvsnet_conv4", "mvsnet_conv6")
+# K5's bf16 form against cuDNN's bf16 F.conv3d: every shape with Cout > 4 (its first form lost at conv4 and
+# conv6, 1.6x and 3.4x)
+K5_BF16_MUST_BEAT_LIBRARY = tuple(case for case, (_, cout, _) in K5_CASES.items() if cout > 4)
 # K5's bf16 form vs its plain version, relative to max |plain|: 2^-8 for the one
 # rounding to bf16, and 2^-8 of slack for the float32 sums' other order, which
 # can put a value on the other side of a rounding boundary (one bf16 step)
@@ -600,7 +610,8 @@ def phase_kernel_k5():
     ``F.conv3d`` fp32 at the two shapes where the CUDA-core kernel lost
     (``K5_MUST_BEAT_LIBRARY``), after printing the times. Every shape with
     Cout > 4 also runs K5's bf16 form (``k5_case_bf16``), beside the float32
-    form's time; the score heads stay float32."""
+    form's time, and fails if it is slower than ``F.conv3d`` bf16
+    (``K5_BF16_MUST_BEAT_LIBRARY``); the score heads stay float32."""
     import torch
     import torch.nn.functional as F
 
@@ -645,9 +656,82 @@ def phase_kernel_k5():
     emit("kernel", name="conv3d_banded", layout="NCDHW", **results)
     slower = {case: (results[case]["ms"], results[case]["library_ms"]) for case in K5_MUST_BEAT_LIBRARY
               if results[case]["ms"] >= results[case]["library_ms"]}
-    if slower:
-        raise AssertionError(f"K5 slower than F.conv3d fp32 (ms, library ms): {slower}")
+    slower_bf16 = {case: (results[case]["bf16"]["ms"], results[case]["bf16"]["library_ms"])
+                   for case in K5_BF16_MUST_BEAT_LIBRARY
+                   if results[case]["bf16"]["ms"] >= results[case]["bf16"]["library_ms"]}
+    if slower or slower_bf16:
+        raise AssertionError(f"K5 slower than F.conv3d (ms, library ms): fp32 {slower}, bf16 {slower_bf16}")
     return results
+
+
+def k5_vis_frame_shapes():
+    """{(x shape, Cout): launches} of K5's bf16 form in one vis_mvsnet bf16
+    frame at 384x1280, 1+2 views, recorded from the wrapper (the module
+    attribute ``ops.conv3d`` calls, wrapped for the frame)."""
+    import torch
+
+    import robustmvd_tpu_torch as rmvd
+    from robustmvd_tpu_torch.ops import conv3d as conv3d_op
+
+    model = rmvd.create_model("vis_mvsnet", dtype="bfloat16")
+    sample = sideways_sample(np.random.RandomState(5), 384, 1280, 3)
+    inner, seen = conv3d_op.conv3d_banded, {}
+
+    def record(x, kernel, bias=None, channels_first=False):
+        if x.dtype == torch.bfloat16:
+            if not (channels_first and x.is_contiguous()):
+                raise AssertionError(f"vis bf16 K5 input {tuple(x.shape)} is not a contiguous NCDHW volume")
+            key = (tuple(x.shape), kernel.shape[4])
+            seen[key] = seen.get(key, 0) + 1
+        return inner(x, kernel, bias, channels_first)
+
+    conv3d_op.conv3d_banded = record
+    try:
+        model.run(**sample)
+    finally:
+        conv3d_op.conv3d_banded = inner
+    del model
+    torch.cuda.empty_cache()
+    return seen
+
+
+def phase_kernel_k5_vis_frame():
+    """K5's bf16 form at every shape one vis_mvsnet bf16 frame launches it
+    with (``k5_vis_frame_shapes``; 18 at 384x1280): each held against its
+    plain version within K5_BF16_LIMIT on random NCDHW inputs and an
+    nn.Conv3d weight, timed beside cuDNN's ``F.conv3d`` bf16, with its bound;
+    and the frame's sums, each shape weighted by its launches per frame."""
+    import torch
+    import torch.nn.functional as F
+
+    from robustmvd_tpu_torch.ops.kernels.conv3d import conv3d_banded, conv3d_banded_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    shapes = []
+    for (shape, cout), launches in sorted(k5_vis_frame_shapes().items()):
+        x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        weight = (torch.randn((cout, shape[1], 3, 3, 3), generator=gen, device="cuda") /
+                  (27 * shape[1]) ** 0.5).to(torch.bfloat16)
+        k = weight.permute(2, 3, 4, 1, 0)
+        out = conv3d_banded(x, k, None, channels_first=True)
+        torch.cuda.synchronize()
+        plain = conv3d_banded_reference(x.movedim(1, -1), k).movedim(-1, 1).float()
+        scale, err = float(plain.abs().max()), float((out.float() - plain).abs().max())
+        del plain
+        if not (err <= K5_BF16_LIMIT * scale and torch.isfinite(out).all()):
+            raise AssertionError(f"K5 bf16 at vis shape {shape} -> {cout} disagrees with its plain version: "
+                                 f"max_abs_err {err} > {K5_BF16_LIMIT} x {scale}")
+        shapes.append({"shape": list(shape), "cout": cout, "launches_per_frame": launches, "max_abs_err": err,
+                       "ms": time_ms(lambda: conv3d_banded(x, k, None, channels_first=True)),
+                       "library_ms": time_ms(lambda: F.conv3d(x, weight, None, padding=1)),
+                       **{key: v for key, v in k5_bound_bf16(x, cout).items() if key in ("bound_ms", "bound_by")}})
+        del x, out
+        torch.cuda.empty_cache()
+    frame = {key: sum(r["launches_per_frame"] * r[key] for r in shapes) for key in ("ms", "bound_ms", "library_ms")}
+    frame["launches"] = sum(r["launches_per_frame"] for r in shapes)
+    emit("kernel_k5_vis_frame", model="vis_mvsnet", dtype="bfloat16", input_shape=[384, 1280], views=3,
+         distinct_shapes=len(shapes), launch_weighted=frame, shapes=shapes)
+    return {"distinct_shapes": len(shapes), "launch_weighted": frame, "shapes": shapes}
 
 
 def k4_inputs(device):
@@ -1188,7 +1272,13 @@ def phase_family_main_bf16(counters, family, vis):
                  kwargs=kwargs, shape=[384, 1280], views=3, dtype=dtype, tf32=tf32, **stats,
                  **{"fp32" if dtype == "bfloat16" else "fused_fp32": other})
             if dtype == "bfloat16":
-                emit("breakdown_family_bf16", model=name, path=path, **device_breakdown(model, sample, frames=3))
+                breakdown = device_breakdown(model, sample, frames=3)
+                kinds = breakdown["device_ms_by_kind"]
+                forms = {"bf16_mma": kinds.get("k5_conv3d_banded_bf16", 0.0),
+                         "float32_heads": kinds.get("k5_conv3d_banded", 0.0)}
+                runs[path, "k5_ms_by_form"] = {**forms, "sum": sum(forms.values())}
+                emit("breakdown_family_bf16", model=name, path=path, k5_ms_by_form=runs[path, "k5_ms_by_form"],
+                     **breakdown)
             del model
             torch.cuda.empty_cache()
     return runs
@@ -2350,6 +2440,8 @@ def kernel_kind(name):
         return "k1_planesweep_sample"
     if "warp_volume_kernel" in name:
         return "k4_warp_volume"
+    if "conv3d_k3_bf16_kernel" in name:
+        return "k5_conv3d_banded_bf16"
     if "conv3d_k3_kernel" in name:
         return "k5_conv3d_banded"
     if "sweep_warp" in name:
@@ -2410,6 +2502,7 @@ def main():
     k2g = phase_kernel_k2_group()
     k3 = phase_kernel_k3()
     k5 = phase_kernel_k5()
+    k5_frame = phase_kernel_k5_vis_frame()
     k4 = phase_kernel_k4()
     counters = Counters()
     phase_parity()
@@ -2589,7 +2682,14 @@ def main():
                                         for path, r in k5_bf16_runs.items()},
                  "cases": {case: {k: r[k] for k in ("max_abs_err", "limit", "differing_share", "ms", "plain_ms",
                                                     "library_ms", "f32_ms", "bound_ms", "bound_by")}
-                           for case, r in k5_bf16.items()}},
+                           for case, r in k5_bf16.items()},
+                 # faster than F.conv3d bf16 at each (K5_BF16_MUST_BEAT_LIBRARY, checked in phase kernel)
+                 "beats_library": {case: k5_bf16[case]["ms"] < k5_bf16[case]["library_ms"]
+                                   for case in K5_BF16_MUST_BEAT_LIBRARY},
+                 # the 18 shapes of one vis bf16 frame, weighted by their launches per frame
+                 "vis_bf16_frame": {"distinct_shapes": k5_frame["distinct_shapes"], **k5_frame["launch_weighted"]},
+                 # the profiled vis bf16 frame's K5 device ms: the bf16 mma route, the float32 score heads
+                 "vis_bf16_frame_profiled_ms_by_form": family_bf16["vis_mvsnet", "k5_ms_by_form"]},
     }, {
         "name": "warp_volume",
         "route": "cuda",

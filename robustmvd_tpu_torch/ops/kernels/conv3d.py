@@ -27,14 +27,17 @@ function with :func:`conv3d_banded_reference`, the plain torch version (27
 shifted taps, each a channel contraction, summed in float32 over operands in
 x's dtype), which is also what the kernel is held against. On the card,
 more than 4 output channels run on the tensor cores (float32: TF32 products
-in the 3xTF32 split, float32-accurate; bf16: one bf16 mma per product), the
-score heads on the CUDA cores; the kernel's source note says what bounds
-each. Launches are counted in all and by x's dtype.
+in the 3xTF32 split, float32-accurate; bf16: one bf16 mma per product, on
+weights the wrapper lays out by (dz, dy, dx, o, i) in the one copy that
+casts them), the score heads on the CUDA cores; the kernel's source note
+says what bounds each. Launches are counted in all and by x's dtype.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -131,13 +134,49 @@ def _axes(t, channels_first):
     return [t.shape[a] for a in order], [t.stride(a) for a in order]
 
 
+# the bf16 form's laid-out weights by id of the tensor a kernel views: (a weak reference to that tensor, its
+# version, the view's dtype and geometry, the laid-out copy); the most recently used _LAID_OUT_KEPT of them
+_LAID_OUT = collections.OrderedDict()
+_LAID_OUT_KEPT = 256
+
+
+def _bf16_weights(kernel):
+    """The bf16 form's weights: ``kernel`` rounded once to bf16 (as the TPU
+    kernel casts its band matrix) and laid out by (dz, dy, dx, o, i), Cin
+    padded with zeros to a multiple of 8, seen as a DHWIO view: the kernel
+    copies a tap's 8 channels of an output as one 16-byte row. The copy is
+    kept while the tensor ``kernel`` views (an ``nn.Conv3d`` weight) keeps
+    its version, so a module's weights are laid out once, not per call; an
+    in-place change (an optimizer step, ``load_state_dict``) lays them out
+    again."""
+    base = kernel if kernel._base is None else kernel._base
+    geometry = (kernel.dtype, tuple(kernel.shape), kernel.stride(), kernel.storage_offset())
+    version = None if torch.is_inference(base) else base._version  # inference tensors keep no version
+    hit = _LAID_OUT.get(id(base))
+    if version is not None and hit is not None and hit[0]() is base and hit[1:3] == (version, geometry):
+        _LAID_OUT.move_to_end(id(base))
+        return hit[3]
+    cin, cout = kernel.shape[3], kernel.shape[4]
+    pad = -cin % 8
+    w = (torch.zeros if pad else torch.empty)((3, 3, 3, cout, cin + pad), dtype=torch.bfloat16, device=kernel.device)
+    w[..., :cin] = kernel.permute(0, 1, 2, 4, 3)
+    w = w.permute(0, 1, 2, 4, 3)
+    if version is not None:
+        _LAID_OUT[id(base)] = (weakref.ref(base), version, geometry, w)
+        _LAID_OUT.move_to_end(id(base))
+        while len(_LAID_OUT) > _LAID_OUT_KEPT:
+            _LAID_OUT.popitem(last=False)
+    return w
+
+
 def _launch(x, kernel, bias, channels_first):
     (B, Cin, D, H, W), xs = _axes(x, channels_first)
     Cout = kernel.shape[4]
     shape = (B, Cout, D, H, W) if channels_first else (B, D, H, W, Cout)
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
     _, os_ = _axes(out, channels_first)
-    kernel = kernel.to(x.dtype)  # once per call, as the TPU kernel casts its band matrix
+    # once per call, as the TPU kernel casts its band matrix
+    kernel = kernel.to(x.dtype) if x.dtype == torch.float32 else _bf16_weights(kernel)
     strides = [(ctypes.c_int64 * 5)(*s) for s in (xs, kernel.stride(), os_)]
     bias = bias.float().contiguous() if bias is not None else None
     fn = _entry(_FORMS[x.dtype])

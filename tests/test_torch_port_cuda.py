@@ -708,13 +708,20 @@ def test_k5_rejects_non_float32(cuda):
 
 
 @pytest.mark.parametrize("shape", [
-    (2, 8, 8, 6, 10, 8),  # (B, Cin, D, H, W, Cout): Cin 8 fills half a 16-channel bf16 stage
+    (2, 8, 8, 6, 10, 8),  # (B, Cin, D, H, W, Cout): Cin 8, one chunk of two taps per k16
     (1, 16, 9, 17, 40, 16),
     (1, 64, 4, 6, 10, 64),
     (2, 24, 4, 9, 70, 8),  # Cin not a multiple of 16
     (1, 64, 5, 7, 13, 40),  # ragged M-tile and N-tile edges
     (2, 16, 5, 12, 28, 8),  # vis's dec_2_post pair at reduced volume
-    (1, 32, 64, 24, 80, 32),  # mvsnet's conv4 at full size
+    (1, 32, 64, 24, 80, 32),  # mvsnet's conv4 at full size: the weights stay, two K groups
+    (2, 8, 5, 6, 14, 8),  # Cin 8 with W % 4 != 0 (NCDHW staged with 2-byte loads), D not a multiple of 8 planes
+    (1, 12, 6, 7, 24, 16),  # Cin not a multiple of 8: the wrapper pads the weights, the copy zero-fills
+    (1, 24, 9, 5, 16, 24),  # three chunks for two K groups (the second idle on the last), 9 planes
+    (1, 16, 5, 6, 16, 12),  # Cout not a multiple of 8: a partial n8 fragment, NDHWC out with 2-byte stores
+    (1, 8, 3, 2, 8, 8),  # a volume smaller than one tile
+    (1, 64, 32, 12, 40, 64),  # mvsnet's conv6 at full size: a tile per block, the weights stream
+    (2, 8, 16, 192, 640, 8),  # vis's stage-3 pair regulariser at full size
 ])
 @pytest.mark.parametrize("layout", ["ncdhw", "ndhwc", "ncdhw_strided"])
 @pytest.mark.parametrize("kernel_dtype", [torch.float32, torch.bfloat16])
@@ -723,7 +730,10 @@ def test_k5_bf16_matches_plain_version(cuda, shape, layout, kernel_dtype):
     against its plain version on the same bf16 inputs: max |d| <= 2^-7 max
     |ref|, one bf16 step at the largest magnitude (the float32 sums differ in
     order, so a value may round to the neighbouring step), on at most 2% of
-    the values; a float32 kernel is cast once to bf16, as a bf16 one is."""
+    the values; a float32 kernel is cast once to bf16, as a bf16 one is. The
+    layouts take the kernel's three halo copies: NCDHW by TMA (or 2-byte
+    loads where W's stride is not on 16 bytes), NDHWC by 16-byte cp.async,
+    the channel-strided view by TMA through its strides."""
     B, Cin, D, H, W, Cout = shape
     gen = torch.Generator(device=cuda).manual_seed(Cin * Cout + 1)
     x = torch.randn((B, Cin, D, H, W), generator=gen, device=cuda).to(torch.bfloat16)

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Time design variants of the PyTorch port's K2, K2 group, K3 and K4 CUDA kernels on one GPU.
+"""Time design variants of the PyTorch port's K2, K2 group, K3, K4 and K5 bf16 CUDA kernels on one GPU.
 
-    python3 tools/torch_kernel_variants.py [--kernels k2,k2_group,k4,k3] [--baseline DIR] [--out FILE]
+    python3 tools/torch_kernel_variants.py [--kernels k2,k2_group,k4,k3,k5_bf16] [--baseline DIR] [--out FILE]
 
 Runs from the root of a checkout on a machine with a CUDA card and ``nvcc``.
 Builds copies of ``robustmvd_tpu_torch/csrc/sweep_warp.cu`` (K2),
-``sweep_group_cost.cu`` (K2 group), ``soft_argmin.cu`` (K3) and
-``warp_volume.cu`` (K4), each with one design choice changed (threads per
-block, row tiles, planes per block, where K2 group reads the key), into
+``sweep_group_cost.cu`` (K2 group), ``soft_argmin.cu`` (K3),
+``warp_volume.cu`` (K4) and ``conv3d_banded.cu`` (K5's bf16 form), each with
+one design choice changed (threads per block, row tiles, planes per block,
+where K2 group reads the key, K5 bf16's tile by Cout; for K5 bf16 also
+ablations that drop the halo copies, the weights' copies, the transposition
+or the products, timed to show where its time goes), into
 ``build/variants/``; with
 ``--baseline``, also the sources of the same names found in DIR (an earlier
 commit's, e.g. from ``git show <commit>:robustmvd_tpu_torch/csrc/<name>.cu``).
@@ -67,6 +70,27 @@ K2_GROUP_VARIANTS = {
                 "constexpr int kTileFloats = 2048;": "constexpr int kTileFloats = 4096;"},
     # the key read in place with __ldg (through L1) instead of staged in shared memory
     "key_in_place": {"if (taps + key <= kSmemBytes) {": "if (false) {"},
+}
+
+
+# K5's bf16 form: tile choices by Cout, and ablations that drop one phase of
+# a step (their outputs are wrong; they are timed, not checked)
+K5_BF16_WIDE = "  return launch<Tile<8, 2, 1, 2, 2, 2>>(p, B, stream);"
+K5_BF16_MID = "  if (Cout <= 16) return launch<Tile<4, 2, 4, 2, 1>>(p, B, stream);"
+K5_BF16_NARROW = "  if (Cout <= 8) return launch<Tile<8, 2, 4, 1, 1>>(p, B, stream);"
+K5_BF16_VARIANTS = {
+    "mid_4x8x16": {K5_BF16_MID: K5_BF16_MID.replace("<4, 2, 4, 2, 1>", "<4, 4, 2, 2, 1>")},
+    "narrow_tz4": {K5_BF16_NARROW: K5_BF16_NARROW.replace("<8, 2, 4, 1, 1>", "<4, 2, 4, 1, 1>")},
+}
+K5_BF16_ABLATIONS = {
+    # the halo's TMA copy dropped, and its bytes from what the stage's barrier expects
+    "no_copies": {"    if (threadIdx.x == T::ISSUER) tma_load(st, &p.map, bar_of<T>(st), o.x0 - 8, c0, o.y0 - 1, o.z0 - 1, o.b);\n": "",
+                  "(p.tma ? T::STAGE : 0)": "0"},
+    "no_transpose": {"      transpose<T>(st, kg);\n": ""},
+    # the weights' TMA copies dropped, and their bytes from what the barrier expects
+    "no_weight_copies": {"    for (int k = 0; k < nw; ++k) tma_load(": "    for (int k = 0; k < 0; ++k) tma_load(",
+                         " + nw * T::WCHUNK);": ");"},
+    "no_products": {"    if (c + kg < p.chunks) multiply<T>(": "    if (false) multiply<T>("},
 }
 
 
@@ -193,17 +217,17 @@ def k3(baseline):
     return report
 
 
-def in_model(name, match, model_name, libs, frames=5):
+def in_model(name, match, model_name, libs, frames=5, dtype="float32"):
     """{variant: [device ms per frame of the kernels whose name holds
-    ``match``, first and second turn]} over ``model_name`` frames at
-    384x1280, 1+2 views, from torch.profiler, with kernel ``name`` loaded
-    from each library of ``libs`` in turn."""
+    ``match`` (a string, or a tuple of them), first and second turn]} over
+    ``model_name`` frames at 384x1280, 1+2 views, from torch.profiler, with
+    kernel ``name`` loaded from each library of ``libs`` in turn."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import robustmvd_tpu_torch as rmvd
 
-    model = rmvd.create_model(model_name)
+    model = rmvd.create_model(model_name, dtype=dtype)
     sample = chip_smoke.sideways_sample(chip_smoke.np.random.RandomState(8), 384, 1280, 3)
     chip_smoke.set_tf32(False)
 
@@ -216,7 +240,7 @@ def in_model(name, match, model_name, libs, frames=5):
             torch.cuda.synchronize()
         us = 0.0
         for e in prof.key_averages():
-            if match in e.key:
+            if any(m in e.key for m in ((match,) if isinstance(match, str) else match)):
                 dev_us = getattr(e, "self_device_time_total", None)
                 us += e.self_cuda_time_total if dev_us is None else dev_us
         return us / 1e3 / frames
@@ -296,10 +320,72 @@ def k2_group(baseline):
     return report
 
 
+def k5_bf16(baseline):
+    """K5's bf16 form at chip_smoke.py's K5_CASES with Cout > 4 (NCDHW, an
+    nn.Conv3d weight): each variant within K5_BF16_LIMIT of the plain
+    version, the ablations unchecked; all timed in turns beside cuDNN's
+    ``F.conv3d`` at bf16; then the float32 form at all six K5_CASES and the
+    bf16 form inside vis_mvsnet at bf16 (repo and baseline, in turns)."""
+    import torch
+    import torch.nn.functional as F
+
+    from robustmvd_tpu_torch.ops.kernels.conv3d import conv3d_banded, conv3d_banded_reference
+
+    libs, ptxas = build_variants("conv3d_banded", {**K5_BF16_VARIANTS, **K5_BF16_ABLATIONS}, baseline)
+    report = {"name": "conv3d_banded_bf16", "ptxas": ptxas, "cases": {}}
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for case, (shape, cout, _) in chip_smoke.K5_CASES.items():
+        if cout <= 4:
+            continue
+        x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        weight = (torch.randn((cout, shape[1], 3, 3, 3), generator=gen, device="cuda") / (27 * shape[1]) ** 0.5)
+        weight = weight.to(torch.bfloat16)
+        k = weight.permute(2, 3, 4, 1, 0)
+        plain = conv3d_banded_reference(x.movedim(1, -1), k).movedim(-1, 1).float()
+        scale = float(plain.abs().max())
+        for variant, lib in libs.items():
+            if variant in K5_BF16_ABLATIONS:
+                continue
+            use("conv3d_banded", lib)
+            err = float((conv3d_banded(x, k, None, channels_first=True).float() - plain).abs().max())
+            if not err <= chip_smoke.K5_BF16_LIMIT * scale:
+                raise AssertionError(f"K5 bf16 {variant} {case}: max_abs_err {err} > {chip_smoke.K5_BF16_LIMIT} x {scale}")
+        del plain
+        torch.cuda.empty_cache()
+
+        def time_one(variant):
+            if variant == "cudnn":
+                return chip_smoke.time_ms(lambda: F.conv3d(x, weight, None, padding=1))
+            use("conv3d_banded", libs[variant])
+            return chip_smoke.time_ms(lambda: conv3d_banded(x, k, None, channels_first=True))
+
+        report["cases"][case] = {"shape": list(shape), "cout": cout, "bound": chip_smoke.k5_bound_bf16(x, cout),
+                                 "ms": in_turns([*libs, "cudnn"], time_one)}
+    pair = {k: libs[k] for k in ("repo", "baseline") if k in libs}
+    # the float32 form (its code was reshaped around the bf16 route): repo and baseline at the six K5_CASES
+    report["f32_cases"] = {}
+    for case, (shape, cout, with_bias) in chip_smoke.K5_CASES.items():
+        x = torch.randn(shape, generator=gen, device="cuda")
+        k = (torch.randn((cout, shape[1], 3, 3, 3), generator=gen, device="cuda") / (27 * shape[1]) ** 0.5)
+        k = k.permute(2, 3, 4, 1, 0)
+        bias = torch.randn((cout,), generator=gen, device="cuda") if with_bias else None
+
+        def time_f32(variant):
+            use("conv3d_banded", pair[variant])
+            return chip_smoke.time_ms(lambda: conv3d_banded(x, k, bias, channels_first=True))
+
+        report["f32_cases"][case] = in_turns(list(pair), time_f32)
+    # vis's bf16 frame runs no float32 tensor-core K5: conv3d_k3_kernel_mma is a baseline's bf16 form
+    report["in_vis_mvsnet_bf16"] = in_model("conv3d_banded", ("conv3d_k3_bf16_kernel", "conv3d_k3_kernel_mma"),
+                                            "vis_mvsnet", pair, dtype="bfloat16")
+    use("conv3d_banded", libs["repo"])
+    return report
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--kernels", default="k2,k2_group,k4,k3",
-                        help="comma-separated, from k2, k2_group, k4, k3 (default: all, in that order)")
+    parser.add_argument("--kernels", default="k2,k2_group,k4,k3,k5_bf16",
+                        help="comma-separated, from k2, k2_group, k4, k3, k5_bf16 (default: all, in that order)")
     parser.add_argument("--baseline", help="a directory with earlier sources of the kernels (csrc/<name>.cu)")
     parser.add_argument("--out", default=str(ROOT / "build" / "kernel_variants.jsonl"))
     args = parser.parse_args()
@@ -313,7 +399,7 @@ def main():
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         for kernel in args.kernels.split(","):
-            report = {"k2": k2, "k2_group": k2_group, "k4": k4, "k3": k3}[kernel](args.baseline)
+            report = {"k2": k2, "k2_group": k2_group, "k4": k4, "k3": k3, "k5_bf16": k5_bf16}[kernel](args.baseline)
             line = json.dumps({"card": card, **report})
             print(line, flush=True)
             f.write(line + "\n")
