@@ -110,9 +110,11 @@ CUDA toolkit (``nvcc``). Phases, each printing one JSON line:
             rate; required to beat ``F.conv3d`` bf16 at every one of them,
             ``K5_BF16_MUST_BEAT_LIBRARY``) and at the 18 shapes one vis_mvsnet
             bf16 frame launches it with (phase ``kernel_k5_vis_frame``: the
-            shapes recorded from the wrapper on one frame, each held against
-            its plain version and timed beside ``F.conv3d`` bf16 with its
-            bound, and the sums weighted by launches per frame); K2 group's bf16 form (bf16 features, vis's bf16 fused
+            shapes recorded in ``main_family_bf16``'s own vis run, their
+            calls per frame summing to the wrapper's launches per frame there,
+            each held against its plain version and timed beside
+            ``F.conv3d`` bf16 with its bound and the per-call weight layout,
+            and the sums weighted by calls per frame); K2 group's bf16 form (bf16 features, vis's bf16 fused
             route) at phase 7's shapes in phase ``kernel`` sweep_group_cost
             (held against its plain version, timed beside the float32 form);
             ``parity_family_bf16`` (the three models with conditioned score
@@ -133,6 +135,7 @@ Any failed check raises and the script exits non-zero; it does nothing
 without a CUDA device. Weights are random, from a seed.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -572,14 +575,18 @@ def k5_bound_bf16(x, cout):
 def k5_case_bf16(x, weight, cout):
     """K5's bf16 form at one shape (Cout > 4; no bias, as the family's bf16
     convolutions): held against its plain version within K5_BF16_LIMIT, timed
-    beside cuDNN's ``F.conv3d`` at bf16 (the same rounding of float32 sums)."""
+    beside cuDNN's ``F.conv3d`` at bf16 (the same rounding of float32 sums),
+    each on its weight prepared once; ``weight_layout_ms`` is what laying out
+    the float32 weight costs K5 on each call in a model."""
     import torch
     import torch.nn.functional as F
 
-    from robustmvd_tpu_torch.ops.kernels.conv3d import conv3d_banded, conv3d_banded_reference
+    from robustmvd_tpu_torch.ops.kernels.conv3d import (conv3d_banded, conv3d_banded_bf16_weights,
+                                                         conv3d_banded_reference)
 
     xb, wb = x.to(torch.bfloat16), weight.to(torch.bfloat16)
-    kb = wb.permute(2, 3, 4, 1, 0)  # cast once, as the wrapper casts an fp32 kernel
+    # laid out once, as cuDNN's weight is cast once, outside the timing; the model lays it out per call
+    kb = conv3d_banded_bf16_weights(weight.permute(2, 3, 4, 1, 0))
     out = conv3d_banded(xb, kb, None, channels_first=True)
     torch.cuda.synchronize()
     plain = conv3d_banded_reference(xb.movedim(1, -1), kb).movedim(-1, 1)
@@ -600,7 +607,9 @@ def k5_case_bf16(x, weight, cout):
     return {"max_abs_err": err, "limit": K5_BF16_LIMIT * scale, "max_abs_ref": scale, "differing_share": flipped,
             "ms": time_ms(lambda: conv3d_banded(xb, kb, None, channels_first=True)),
             "plain_ms": time_ms(lambda: conv3d_banded_reference(xb.movedim(1, -1), kb), runs=10, warmup=2),
-            "library_ms": time_ms(library), "library_max_abs_diff": lib_diff, **k5_bound_bf16(x, cout)}
+            "library_ms": time_ms(library), "library_max_abs_diff": lib_diff,
+            "weight_layout_ms": time_ms(lambda: conv3d_banded_bf16_weights(weight.permute(2, 3, 4, 1, 0))),
+            **k5_bound_bf16(x, cout)}
 
 
 def phase_kernel_k5():
@@ -664,17 +673,15 @@ def phase_kernel_k5():
     return results
 
 
-def k5_vis_frame_shapes():
-    """{(x shape, Cout): launches} of K5's bf16 form in one vis_mvsnet bf16
-    frame at 384x1280, 1+2 views, recorded from the wrapper (the module
-    attribute ``ops.conv3d`` calls, wrapped for the frame)."""
+@contextlib.contextmanager
+def k5_bf16_calls():
+    """{(x shape, Cout): calls} of K5's bf16 form through ``ops.conv3d``
+    (the module attribute its ``Conv3d`` calls, wrapped for the block), each
+    input checked to be a contiguous NCDHW volume."""
     import torch
 
-    import robustmvd_tpu_torch as rmvd
     from robustmvd_tpu_torch.ops import conv3d as conv3d_op
 
-    model = rmvd.create_model("vis_mvsnet", dtype="bfloat16")
-    sample = sideways_sample(np.random.RandomState(5), 384, 1280, 3)
     inner, seen = conv3d_op.conv3d_banded, {}
 
     def record(x, kernel, bias=None, channels_first=False):
@@ -687,32 +694,33 @@ def k5_vis_frame_shapes():
 
     conv3d_op.conv3d_banded = record
     try:
-        model.run(**sample)
+        yield seen
     finally:
         conv3d_op.conv3d_banded = inner
-    del model
-    torch.cuda.empty_cache()
-    return seen
 
 
-def phase_kernel_k5_vis_frame():
-    """K5's bf16 form at every shape one vis_mvsnet bf16 frame launches it
-    with (``k5_vis_frame_shapes``; 18 at 384x1280): each held against its
+def phase_kernel_k5_vis_frame(calls_per_frame):
+    """K5's bf16 form at every shape a vis_mvsnet bf16 frame launches it with
+    (``calls_per_frame``, {(x shape, Cout): calls}, as recorded in phase
+    ``main_family_bf16``'s vis run; 18 at 384x1280): each held against its
     plain version within K5_BF16_LIMIT on random NCDHW inputs and an
-    nn.Conv3d weight, timed beside cuDNN's ``F.conv3d`` bf16, with its bound;
-    and the frame's sums, each shape weighted by its launches per frame."""
+    nn.Conv3d weight, timed beside cuDNN's ``F.conv3d`` bf16 (each on its
+    weight prepared once), with its bound and the per-call layout of the
+    float32 weight the model pays; and the frame's sums, each shape weighted
+    by its calls per frame."""
     import torch
     import torch.nn.functional as F
 
-    from robustmvd_tpu_torch.ops.kernels.conv3d import conv3d_banded, conv3d_banded_reference
+    from robustmvd_tpu_torch.ops.kernels.conv3d import (conv3d_banded, conv3d_banded_bf16_weights,
+                                                         conv3d_banded_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(9)
     shapes = []
-    for (shape, cout), launches in sorted(k5_vis_frame_shapes().items()):
+    for (shape, cout), calls in sorted(calls_per_frame.items()):
         x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-        weight = (torch.randn((cout, shape[1], 3, 3, 3), generator=gen, device="cuda") /
-                  (27 * shape[1]) ** 0.5).to(torch.bfloat16)
-        k = weight.permute(2, 3, 4, 1, 0)
+        weight32 = torch.randn((cout, shape[1], 3, 3, 3), generator=gen, device="cuda") / (27 * shape[1]) ** 0.5
+        weight = weight32.to(torch.bfloat16)
+        k = conv3d_banded_bf16_weights(weight32.permute(2, 3, 4, 1, 0))
         out = conv3d_banded(x, k, None, channels_first=True)
         torch.cuda.synchronize()
         plain = conv3d_banded_reference(x.movedim(1, -1), k).movedim(-1, 1).float()
@@ -721,17 +729,20 @@ def phase_kernel_k5_vis_frame():
         if not (err <= K5_BF16_LIMIT * scale and torch.isfinite(out).all()):
             raise AssertionError(f"K5 bf16 at vis shape {shape} -> {cout} disagrees with its plain version: "
                                  f"max_abs_err {err} > {K5_BF16_LIMIT} x {scale}")
-        shapes.append({"shape": list(shape), "cout": cout, "launches_per_frame": launches, "max_abs_err": err,
+        shapes.append({"shape": list(shape), "cout": cout, "calls_per_frame": calls, "max_abs_err": err,
                        "ms": time_ms(lambda: conv3d_banded(x, k, None, channels_first=True)),
                        "library_ms": time_ms(lambda: F.conv3d(x, weight, None, padding=1)),
+                       "weight_layout_ms": time_ms(lambda: conv3d_banded_bf16_weights(
+                           weight32.permute(2, 3, 4, 1, 0))),
                        **{key: v for key, v in k5_bound_bf16(x, cout).items() if key in ("bound_ms", "bound_by")}})
         del x, out
         torch.cuda.empty_cache()
-    frame = {key: sum(r["launches_per_frame"] * r[key] for r in shapes) for key in ("ms", "bound_ms", "library_ms")}
-    frame["launches"] = sum(r["launches_per_frame"] for r in shapes)
+    frame = {key: sum(r["calls_per_frame"] * r[key] for r in shapes)
+             for key in ("ms", "bound_ms", "library_ms", "weight_layout_ms")}
+    frame["calls"] = sum(r["calls_per_frame"] for r in shapes)
     emit("kernel_k5_vis_frame", model="vis_mvsnet", dtype="bfloat16", input_shape=[384, 1280], views=3,
-         distinct_shapes=len(shapes), launch_weighted=frame, shapes=shapes)
-    return {"distinct_shapes": len(shapes), "launch_weighted": frame, "shapes": shapes}
+         distinct_shapes=len(shapes), call_weighted=frame, shapes=shapes)
+    return {"distinct_shapes": len(shapes), "call_weighted": frame, "shapes": shapes}
 
 
 def k4_inputs(device):
@@ -1243,7 +1254,8 @@ def phase_family_main_bf16(counters, family, vis):
     host clock spread 5-30% between calls), beside phases main_family's and
     main_vis's fp32 runs of the same model; each path's launches per frame
     checked (vis's default launches K2 group's and K5's bf16 forms 6 and 24
-    times); where a bf16 frame's time goes."""
+    times), and K5 bf16's shapes, calls per frame through ``ops.conv3d``
+    that sum to its launches; where a bf16 frame's time goes."""
     import torch
 
     import robustmvd_tpu_torch as rmvd
@@ -1258,8 +1270,16 @@ def phase_family_main_bf16(counters, family, vis):
         for path, (name, kwargs, per_frame) in table.items():
             tf32 = set_tf32(False)
             model = rmvd.create_model(name, dtype=dtype, **kwargs)
-            pred, stats = timed_frames(model, sample, counters, warmup=3, frames=20)
+            with k5_bf16_calls() as calls:
+                pred, stats = timed_frames(model, sample, counters, warmup=3, frames=20)
             check_launches(f"{path} {dtype}", stats, per_frame)
+            if calls:  # every call through ops.conv3d is one launch of the wrapper, none other
+                n = stats["warmup"] + stats["frames"]
+                if (sum(calls.values()) != stats["launches"]["conv3d_banded[bfloat16]"] or
+                        any(c % n for c in calls.values())):
+                    raise AssertionError(f"{path} {dtype}: K5 bf16 calls {calls} in {n} frames, launches "
+                                         f"{stats['launches']['conv3d_banded[bfloat16]']}")
+                runs[path, "k5_bf16_calls_per_frame"] = {key: c // n for key, c in calls.items()}
             depth = pred["depth"]
             expected = (1, 1, 96, 320) if name == "mvsnet_train" else (
                 (1, 1, 192, 640) if name == "vis_mvsnet" else (1, 1, 384, 1280))
@@ -2502,7 +2522,6 @@ def main():
     k2g = phase_kernel_k2_group()
     k3 = phase_kernel_k3()
     k5 = phase_kernel_k5()
-    k5_frame = phase_kernel_k5_vis_frame()
     k4 = phase_kernel_k4()
     counters = Counters()
     phase_parity()
@@ -2515,6 +2534,7 @@ def main():
     family = phase_family_main(counters)
     vis = phase_vis_main(counters)
     family_bf16 = phase_family_main_bf16(counters, family, vis)
+    k5_frame = phase_kernel_k5_vis_frame(family_bf16["vis_mvsnet", "k5_bf16_calls_per_frame"])
     phase_eval_parity(counters)
     evals = {
         "eval_kitti": phase_eval_run(counters, "eval_kitti", num_views=21, keyview_idx=10, height=375, width=1242,
@@ -2681,13 +2701,15 @@ def main():
                  "launches_per_frame": {f"{path}_bf16": r["launches_per_frame"]["conv3d_banded[bfloat16]"]
                                         for path, r in k5_bf16_runs.items()},
                  "cases": {case: {k: r[k] for k in ("max_abs_err", "limit", "differing_share", "ms", "plain_ms",
-                                                    "library_ms", "f32_ms", "bound_ms", "bound_by")}
+                                                    "library_ms", "weight_layout_ms", "f32_ms", "bound_ms",
+                                                    "bound_by")}
                            for case, r in k5_bf16.items()},
                  # faster than F.conv3d bf16 at each (K5_BF16_MUST_BEAT_LIBRARY, checked in phase kernel)
                  "beats_library": {case: k5_bf16[case]["ms"] < k5_bf16[case]["library_ms"]
                                    for case in K5_BF16_MUST_BEAT_LIBRARY},
-                 # the 18 shapes of one vis bf16 frame, weighted by their launches per frame
-                 "vis_bf16_frame": {"distinct_shapes": k5_frame["distinct_shapes"], **k5_frame["launch_weighted"]},
+                 # the 18 shapes of the main path's vis bf16 frame, each timed alone, weighted by its calls per
+                 # frame in that run (their sum checked equal to launches_per_frame["vis_mvsnet_bf16"])
+                 "vis_bf16_frame": {"distinct_shapes": k5_frame["distinct_shapes"], **k5_frame["call_weighted"]},
                  # the profiled vis bf16 frame's K5 device ms: the bf16 mma route, the float32 score heads
                  "vis_bf16_frame_profiled_ms_by_form": family_bf16["vis_mvsnet", "k5_ms_by_form"]},
     }, {

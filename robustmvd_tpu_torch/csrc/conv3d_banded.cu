@@ -189,8 +189,10 @@ struct Origin {  // a tile: batch element, first output plane, row, column, chan
   int b, z0, y0, x0, o0;
 };
 
-template <class T>
-__device__ __forceinline__ Origin origin_of(const Conv& p, int tile) {
+// Tile number tile of a launch p (either form's Conv), for tiles of PLANES
+// planes and T's rows, columns and channels; channels vary fastest.
+template <int PLANES, class T, class P>
+__device__ __forceinline__ Origin origin_of(const P& p, int tile) {
   Origin o;
   o.o0 = tile % p.n_tiles * T::BN;
   tile /= p.n_tiles;
@@ -198,7 +200,7 @@ __device__ __forceinline__ Origin origin_of(const Conv& p, int tile) {
   tile /= p.tiles_x;
   o.y0 = tile % p.tiles_y * T::BY;
   tile /= p.tiles_y;
-  o.z0 = tile % p.tiles_z * TZ;
+  o.z0 = tile % p.tiles_z * PLANES;
   o.b = tile / p.tiles_z;
   return o;
 }
@@ -399,14 +401,14 @@ __global__ void __launch_bounds__(32 * WY * WX * WNW) conv3d_k3_kernel_mma(const
 
   {
     int tile = blockIdx.x, c = 0;
-    Origin o = origin_of<T>(p, tile);
+    Origin o = origin_of<TZ, T>(p, tile);
     stage<T>(smem, smem + T::XS, p, o, 0);
     asm volatile("cp.async.commit_group;");
     for (int s = 0;; ++s) {
       const bool last = c + 1 == p.chunks;  // the tile's last chunk
       const int next = last ? tile + (int)gridDim.x : tile;
       const bool more = next < p.tiles;
-      const Origin no = last && more ? origin_of<T>(p, next) : o;
+      const Origin no = last && more ? origin_of<TZ, T>(p, next) : o;
       if (more) {
         float* nxt = smem + ((s + 1) & 1) * T::STAGE;
         stage<T>(nxt, nxt + T::XS, p, no, last ? 0 : (c + 1) * KC);
@@ -426,6 +428,12 @@ __global__ void __launch_bounds__(32 * WY * WX * WNW) conv3d_k3_kernel_mma(const
   }
 }
 
+// The SMs and the opt-in shared memory per block of a device.
+cudaError_t device_limits(int device, int* sms, int* smem_max) {
+  const cudaError_t e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  return e != cudaSuccess ? e : cudaDeviceGetAttribute(smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+}
+
 // The blocks of an instantiation that fit on the current device at once
 // (cached per instantiation), after allowing it its shared memory.
 template <int WY, int WX, int WN, int WNW>
@@ -437,10 +445,10 @@ int resident_blocks(int* blocks) {
   cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return (int)e;
   if (device != cached_device) {
-    int sms = 0, per_sm = 0;
+    int sms = 0, smem_max = 0, per_sm = 0;
     constexpr int smem = smem_bytes<T>();
     if ((e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) != cudaSuccess ||
-        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess ||
+        (e = device_limits(device, &sms, &smem_max)) != cudaSuccess ||
         (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, T::THREADS, smem)) != cudaSuccess)
       return (int)e;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
@@ -606,7 +614,6 @@ int launch_mma(const float* x, Strides is, const float* w, KStrides ks, const fl
 
 namespace bf {
 
-
 // A tile: TZ planes x 2*WY rows x 8*WX columns x BN = 8*WN*WNW output
 // channels, for WY x WX x WNW warps of TZ planes x 2 rows x 8 columns x 8*WN
 // channels: TZ m16 fragments (one per plane; a fragment's rows g and g + 8
@@ -656,20 +663,6 @@ struct Conv {  // a launch's arguments
   bool tma;      // the halo comes by TMA (an NCDHW volume, the map in map), else with 2-byte loads
   bool rows_out;  // the output is written in rows of 8 columns (NCDHW), else by element
 };
-
-template <class T>
-__device__ __forceinline__ Origin origin_of(const Conv& p, int tile) {
-  Origin o;
-  o.o0 = tile % p.n_tiles * T::BN;
-  tile /= p.n_tiles;
-  o.x0 = tile % p.tiles_x * T::BX;
-  tile /= p.tiles_x;
-  o.y0 = tile % p.tiles_y * T::BY;
-  tile /= p.tiles_y;
-  o.z0 = tile % p.tiles_z * T::TZ;
-  o.b = tile / p.tiles_z;
-  return o;
-}
 
 __device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
@@ -1031,7 +1024,7 @@ __global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS) conv3d_k3_bf16_kern
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   int tile = blockIdx.x, c = 0;
-  Origin o = origin_of<T>(p, tile);
+  Origin o = origin_of<T::TZ, T>(p, tile);
   stage_step<T>(base, wt, p, o, 0, 0);  // only the issuer, which initialised them, touches the barriers before the sync
   __syncthreads();
   for (int s = 0;; ++s) {
@@ -1041,7 +1034,7 @@ __global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS) conv3d_k3_bf16_kern
     const bool last = c + T::KS >= p.chunks;  // the tile's last chunks
     const int next = last ? tile + (int)gridDim.x : tile;
     const bool more = next < p.tiles;
-    const Origin no = last && more ? origin_of<T>(p, next) : o;
+    const Origin no = last && more ? origin_of<T::TZ, T>(p, next) : o;
     if (more)
       stage_step<T>(base + ((s + 1) & 1) * T::STAGE_BAR, wt + ((s + 1) & 1) * T::KS * T::WCHUNK, p, no,
                     last ? 0 : c + T::KS, s + 1);
@@ -1141,8 +1134,7 @@ int launch(Conv& p, int B, void* stream) {
   cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return (int)e;
   if (device != cached_device) {
-    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess ||
-        (e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) != cudaSuccess ||
+    if ((e = device_limits(device, &sms, &smem_max)) != cudaSuccess ||
         (e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max)) != cudaSuccess)
       return (int)e;
     cached_device = device;

@@ -35,9 +35,7 @@ says what bounds each. Launches are counted in all and by x's dtype.
 
 from __future__ import annotations
 
-import collections
 import ctypes
-import weakref
 
 import torch
 import torch.nn.functional as F
@@ -95,6 +93,9 @@ def conv3d_banded(x, kernel, bias=None, channels_first=False):
             float32, or bfloat16 for Cout > 4.
         kernel: (3, 3, 3, Cin, Cout), any strides (an ``nn.Conv3d`` weight
             as ``weight.permute(2, 3, 4, 1, 0)``); float32 or x's dtype.
+            The bf16 form lays it out per call, in the one copy that casts
+            it, unless it is already laid out
+            (:func:`conv3d_banded_bf16_weights`, Cin a multiple of 8).
         bias: (Cout,) or None; float32 or x's dtype, added in float32.
 
     Returns:
@@ -134,39 +135,32 @@ def _axes(t, channels_first):
     return [t.shape[a] for a in order], [t.stride(a) for a in order]
 
 
-# the bf16 form's laid-out weights by id of the tensor a kernel views: (a weak reference to that tensor, its
-# version, the view's dtype and geometry, the laid-out copy); the most recently used _LAID_OUT_KEPT of them
-_LAID_OUT = collections.OrderedDict()
-_LAID_OUT_KEPT = 256
-
-
-def _bf16_weights(kernel):
-    """The bf16 form's weights: ``kernel`` rounded once to bf16 (as the TPU
-    kernel casts its band matrix) and laid out by (dz, dy, dx, o, i), Cin
-    padded with zeros to a multiple of 8, seen as a DHWIO view: the kernel
-    copies a tap's 8 channels of an output as one 16-byte row. The copy is
-    kept while the tensor ``kernel`` views (an ``nn.Conv3d`` weight) keeps
-    its version, so a module's weights are laid out once, not per call; an
-    in-place change (an optimizer step, ``load_state_dict``) lays them out
-    again."""
-    base = kernel if kernel._base is None else kernel._base
-    geometry = (kernel.dtype, tuple(kernel.shape), kernel.stride(), kernel.storage_offset())
-    version = None if torch.is_inference(base) else base._version  # inference tensors keep no version
-    hit = _LAID_OUT.get(id(base))
-    if version is not None and hit is not None and hit[0]() is base and hit[1:3] == (version, geometry):
-        _LAID_OUT.move_to_end(id(base))
-        return hit[3]
+def conv3d_banded_bf16_weights(kernel):
+    """The bf16 form's weights: ``kernel`` (DHWIO, any strides) rounded once
+    to bf16, as the TPU kernel casts its band matrix, and laid out by (dz,
+    dy, dx, o, i) with Cin padded with zeros to a multiple of 8, seen as a
+    (3, 3, 3, Cin, Cout) view: the kernel copies a tap's 8 channels of an
+    output as one 16-byte row. :func:`conv3d_banded` lays out every other
+    kernel this way on each call, so a caller that keeps a bf16 weight may
+    lay it out once with this function."""
     cin, cout = kernel.shape[3], kernel.shape[4]
     pad = -cin % 8
     w = (torch.zeros if pad else torch.empty)((3, 3, 3, cout, cin + pad), dtype=torch.bfloat16, device=kernel.device)
     w[..., :cin] = kernel.permute(0, 1, 2, 4, 3)
-    w = w.permute(0, 1, 2, 4, 3)
-    if version is not None:
-        _LAID_OUT[id(base)] = (weakref.ref(base), version, geometry, w)
-        _LAID_OUT.move_to_end(id(base))
-        while len(_LAID_OUT) > _LAID_OUT_KEPT:
-            _LAID_OUT.popitem(last=False)
-    return w
+    return w.permute(0, 1, 2, 4, 3)[:, :, :, :cin]
+
+
+def _bf16_weights(kernel):
+    """``kernel`` as the bf16 form reads it: as it is where it is bf16 with
+    Cin a multiple of 8 and already meets the C entry's layout (unit Cin
+    stride, the other strides multiples of 8, 16-byte aligned), so nothing
+    pads it; else laid out anew (:func:`conv3d_banded_bf16_weights`). Nothing
+    is kept between calls, so every change to the weight is seen."""
+    s = kernel.stride()
+    if (kernel.dtype == torch.bfloat16 and kernel.shape[3] % 8 == 0 and s[3] == 1 and s[4] >= kernel.shape[3]
+            and all(v % 8 == 0 for v in (s[0], s[1], s[2], s[4])) and kernel.data_ptr() % 16 == 0):
+        return kernel
+    return conv3d_banded_bf16_weights(kernel)
 
 
 def _launch(x, kernel, bias, channels_first):

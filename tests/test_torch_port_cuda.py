@@ -731,9 +731,10 @@ def test_k5_bf16_matches_plain_version(cuda, shape, layout, kernel_dtype):
     |ref|, one bf16 step at the largest magnitude (the float32 sums differ in
     order, so a value may round to the neighbouring step), on at most 2% of
     the values; a float32 kernel is cast once to bf16, as a bf16 one is. The
-    layouts take the kernel's three halo copies: NCDHW by TMA (or 2-byte
-    loads where W's stride is not on 16 bytes), NDHWC by 16-byte cp.async,
-    the channel-strided view by TMA through its strides."""
+    layouts take the kernel's two halo copies: TMA for an NCDHW volume
+    whose strides allow it (unit W stride, the others multiples of 8, as
+    the channel-strided view's can be), else 2-byte loads with a channel
+    pair per 32-bit shared store (NDHWC, and NCDHW with W % 8 != 0)."""
     B, Cin, D, H, W, Cout = shape
     gen = torch.Generator(device=cuda).manual_seed(Cin * Cout + 1)
     x = torch.randn((B, Cin, D, H, W), generator=gen, device=cuda).to(torch.bfloat16)

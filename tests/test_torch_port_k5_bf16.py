@@ -118,17 +118,23 @@ def test_k5_bf16_order_keeps_cin_beyond_chunks_zero(rng):
 
 
 def test_bf16_weight_layout_is_kept_while_the_weight_is_unchanged():
-    """The wrapper lays an ``nn.Conv3d`` weight out for the kernel once per
-    version of the weight: the same copy while it is unchanged, a new one
-    after an in-place update; the copy is the bf16 rounding of the weight by
-    (dz, dy, dx, o, i), Cin padded with zeros to a multiple of 8."""
+    """The wrapper keeps nothing between calls: a kernel already in the bf16
+    form's layout (Cin a multiple of 8) is read as it is, any other is laid
+    out anew on each call, so an update of the weight, also one through
+    ``.data`` that leaves its version alone, is seen. The layout is the bf16
+    rounding of the weight by (dz, dy, dx, o, i), Cin padded with zeros to a
+    multiple of 8."""
     weight = torch.nn.Parameter(torch.randn(8, 12, 3, 3, 3))
     first = conv3d_kernels._bf16_weights(weight.permute(2, 3, 4, 1, 0))
-    assert conv3d_kernels._bf16_weights(weight.permute(2, 3, 4, 1, 0)) is first
-    assert first.shape == (3, 3, 3, 16, 8) and first.stride()[3] == 1
+    assert first.shape == (3, 3, 3, 12, 8) and first.stride()[3:] == (1, 16)
+    assert torch.equal(first, weight.permute(2, 3, 4, 1, 0).to(BF16))
+    assert not first._base.permute(0, 1, 2, 4, 3)[:, :, :, 12:].any()
+    # padded: the wrapper cannot vouch for the padding of a view, so it lays it out again
+    assert conv3d_kernels._bf16_weights(first) is not first
+    laid = conv3d_kernels.conv3d_banded_bf16_weights(torch.randn(3, 3, 3, 16, 8))
+    assert conv3d_kernels._bf16_weights(laid) is laid
     with torch.no_grad():
         weight.mul_(2)
-    second = conv3d_kernels._bf16_weights(weight.permute(2, 3, 4, 1, 0))
-    assert second is not first
-    assert torch.equal(second[:, :, :, :12], weight.permute(2, 3, 4, 1, 0).to(BF16))
-    assert not second[:, :, :, 12:].any()
+    assert torch.equal(conv3d_kernels._bf16_weights(weight.permute(2, 3, 4, 1, 0)), first.float().mul(2).to(BF16))
+    weight.data.copy_(torch.ones(8, 12, 3, 3, 3))
+    assert (conv3d_kernels._bf16_weights(weight.permute(2, 3, 4, 1, 0)) == 1).all()

@@ -329,7 +329,8 @@ def k5_bf16(baseline):
     import torch
     import torch.nn.functional as F
 
-    from robustmvd_tpu_torch.ops.kernels.conv3d import conv3d_banded, conv3d_banded_reference
+    from robustmvd_tpu_torch.ops.kernels.conv3d import (conv3d_banded, conv3d_banded_bf16_weights,
+                                                         conv3d_banded_reference)
 
     libs, ptxas = build_variants("conv3d_banded", {**K5_BF16_VARIANTS, **K5_BF16_ABLATIONS}, baseline)
     report = {"name": "conv3d_banded_bf16", "ptxas": ptxas, "cases": {}}
@@ -340,7 +341,7 @@ def k5_bf16(baseline):
         x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
         weight = (torch.randn((cout, shape[1], 3, 3, 3), generator=gen, device="cuda") / (27 * shape[1]) ** 0.5)
         weight = weight.to(torch.bfloat16)
-        k = weight.permute(2, 3, 4, 1, 0)
+        k = conv3d_banded_bf16_weights(weight.permute(2, 3, 4, 1, 0))  # laid out once, as cuDNN's is cast once
         plain = conv3d_banded_reference(x.movedim(1, -1), k).movedim(-1, 1).float()
         scale = float(plain.abs().max())
         for variant, lib in libs.items():
