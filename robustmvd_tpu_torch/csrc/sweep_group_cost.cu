@@ -41,8 +41,38 @@
 // and L2.
 //
 // Design: the TPU kernel turns sampling into x-tent matmuls over bands of
-// source rows because a TPU cannot gather; Hopper gathers. A block takes one
-// tile of one key row and a chunk of kPlanes planes: the tile along W from
+// source rows because a TPU cannot gather; Hopper gathers. Two routes,
+// chosen by sweep_group_cost_route below.
+//
+// The lane route (bf16 features whose groups fit a lane: C/G divides the
+// kLaneBytes / 2 = 16 channels of a lane, C is 1, 2, 4 or 8 lanes wide, the
+// maps and the output aligned): LPP = C / 16 lanes serve one key pixel (2 at
+// C 32), each owning 16 consecutive channels, so each tap is two 16-byte
+// __ldg per lane. The key pixel is flattened over (b, y, x) on blockIdx.x
+// and the planes are split into chunks of kLanePlanes on blockIdx.y. A lane
+// loads its key channels once, widened to float32 into registers, and walks
+// the chunk's planes min(kUnroll, LPP) at a time (a turn): lane `part` of
+// the pixel computes the taps of plane d + part (w, the homography, the
+// corner and the weights in registers) and __shfl_sync hands each plane's
+// taps to the pixel's other lanes, so no lane repeats another's coordinate
+// arithmetic and nothing passes through shared memory or a barrier. Every
+// tap is clamped onto the map and the tent of a column or row off the map
+// is set to 0 instead (on the map is separable in x and y), so the lane
+// issues all of the turn's gathers unpredicated, as one corner offset and
+// two steps, and a clamped tap adds a * 0 = 0 where the plain version adds
+// its zero: the same sums for finite features. It blends and multiplies in
+// float32 in the plain version's order (a group never spans two lanes, so
+// its sum keeps channel order) and writes its 16 / (C/G) groups' sums as one
+// vector (four bf16 in 8 bytes at C 32, G 8: a warp stores 256 contiguous
+// bytes a plane) with a streaming store. No shared memory: L1 keeps all of
+// its 256 KB for the gathered source lines. What holds it above its bytes
+// bound is the issue of instructions: the plain version's order leaves 11
+// float32 operations and 4 bf16 widenings per channel and plane, with no
+// fused multiply-add.
+//
+// The group route (every other shape: float32 features, C/G not dividing
+// 8, unaligned maps): a block takes one tile of one key row and a chunk of
+// kPlanes planes: the tile along W from
 // blockIdx.x (W split into equal tiles of at most kMaxTile pixels, fewer
 // for wide C), the row y from blockIdx.y and b with the chunk from
 // blockIdx.z, so no index is divided per pixel. Phase 1: the block copies
@@ -76,6 +106,14 @@ constexpr int kMaxTile = 64;       // key pixels per block
 constexpr int kPlanes = 8;         // planes per block, the key's tile loaded once for all of them
 constexpr int kTileFloats = 2048;  // the key tile's size that sets the tile for wide C
 constexpr int kSmemBytes = 48 * 1024;
+
+// the lane route
+constexpr int kLaneThreads = 128;
+constexpr int kLaneBytes = 32;       // a lane's channels: two 16-byte loads per tap
+constexpr int kUnroll = 4;           // planes whose gathers a lane issues together, at most
+constexpr int kLanePlanes = 16;      // planes per lane; blockIdx.y takes the chunks
+constexpr bool kShuffleTaps = true;  // one lane per plane computes the taps and shuffles them on
+constexpr unsigned kFullMask = 0xffffffffu;
 
 // VEC channels from global memory, widened to float32.
 template <int VEC>
@@ -116,14 +154,15 @@ __device__ __forceinline__ void store_streaming(__nv_bfloat16* p, float v) {
   __stcs(reinterpret_cast<unsigned short*>(p), __bfloat16_as_ushort(__float2bfloat16(v)));
 }
 
-// Taps of one pixel, in the plain version's op order: element offsets of
-// the taps (00, 01, 10, 11) into the source map, -1 for a tap off the map,
-// and the weights: the four bilinear weights (float32 features), or
-// SEPARABLE (bf16 features) the bf16-rounded x-tents and the y-tents
-// (tx0, tx1, 1 - wy, wy).
+// The sample point of one pixel, in the plain version's op order: the top
+// left tap (x0, y0), clamped to +-2^30, and the weights: the four bilinear
+// weights (float32 features), or SEPARABLE (bf16 features) the bf16-rounded
+// x-tents and the y-tents (tx0, tx1, 1 - wy, wy). homography_taps turns it
+// into the element offsets of the taps (00, 01, 10, 11) into the source
+// map, -1 for a tap off the map.
 template <bool SEPARABLE>
-__device__ __forceinline__ void homography_taps(const float (&A)[9], const float (&Bm)[9], float w, float xf,
-                                                float yf, int Hs, int Ws, int C, int4& offset, float4& weight) {
+__device__ __forceinline__ void sample_point(const float (&A)[9], const float (&Bm)[9], float w, float xf, float yf,
+                                             int2& corner, float4& weight) {
   float p[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
@@ -150,6 +189,15 @@ __device__ __forceinline__ void homography_taps(const float (&A)[9], const float
   } else {
     weight = make_float4(__fmul_rn(ux, uy), __fmul_rn(wx, uy), __fmul_rn(ux, wy), __fmul_rn(wx, wy));
   }
+  corner = make_int2(x0, y0);
+}
+
+template <bool SEPARABLE>
+__device__ __forceinline__ void homography_taps(const float (&A)[9], const float (&Bm)[9], float w, float xf,
+                                                float yf, int Hs, int Ws, int C, int4& offset, float4& weight) {
+  int2 corner;
+  sample_point<SEPARABLE>(A, Bm, w, xf, yf, corner, weight);
+  const int x0 = corner.x, y0 = corner.y;
   const bool x0_in = x0 >= 0 && x0 <= Ws - 1, x1_in = x0 >= -1 && x0 <= Ws - 2;
   const bool y0_in = y0 >= 0 && y0 <= Hs - 1, y1_in = y0 >= -1 && y0 <= Hs - 2;
   // modulo 2^32, exact for every tap on the map (Hs * Ws * C < 2^31)
@@ -157,6 +205,199 @@ __device__ __forceinline__ void homography_taps(const float (&A)[9], const float
   const uint32_t below = (uint32_t)Ws * (uint32_t)C;
   offset = make_int4(x0_in && y0_in ? (int)base : -1, x1_in && y0_in ? (int)(base + C) : -1,
                      x0_in && y1_in ? (int)(base + below) : -1, x1_in && y1_in ? (int)(base + below + C) : -1);
+}
+
+// The lane route's form of the taps (bf16 features): every tap clamped onto
+// the map, so that all four can be loaded, and the tent of a column or row
+// off the map set to 0 instead (on the map is separable: tap (dy, dx) lies
+// on it where column x0 + dx and row y0 + dy both do), so that a clamped
+// tap adds a0 * 0 = 0 where the plain version adds its zero: the same sums
+// for finite features. The element offset of tap 00, and those of taps 01
+// and 10 relative to it (0 or C; 0 or Ws * C); the weights (tx0, tx1, 1 -
+// wy, wy).
+__device__ __forceinline__ void homography_corner(const float (&A)[9], const float (&Bm)[9], float w, float xf,
+                                                  float yf, int Hs, int Ws, int C, int& offset, int& dx, int& dy,
+                                                  float4& weight) {
+  int2 corner;
+  sample_point<true>(A, Bm, w, xf, yf, corner, weight);
+  const int x0 = corner.x, y0 = corner.y;
+  if (!(x0 >= 0 && x0 <= Ws - 1)) weight.x = 0.0f;
+  if (!(x0 >= -1 && x0 <= Ws - 2)) weight.y = 0.0f;
+  if (!(y0 >= 0 && y0 <= Hs - 1)) weight.z = 0.0f;
+  if (!(y0 >= -1 && y0 <= Hs - 2)) weight.w = 0.0f;
+  const int cx0 = min(max(x0, 0), Ws - 1), cx1 = min(max(x0, -1), Ws - 2) + 1;
+  const int cy0 = min(max(y0, 0), Hs - 1), cy1 = min(max(y0, -1), Hs - 2) + 1;
+  offset = (cy0 * Ws + cx0) * C;
+  dx = (cx1 - cx0) * C;
+  dy = (cy1 - cy0) * Ws * C;
+}
+
+// WORDS 32-bit words from global memory, as they lie.
+template <int WORDS>
+__device__ __forceinline__ void load_words(const void* p, uint32_t* v) {
+  if constexpr (WORDS % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < WORDS / 4; ++i) {
+      const uint4 a = __ldg(reinterpret_cast<const uint4*>(p) + i);
+      v[4 * i] = a.x, v[4 * i + 1] = a.y, v[4 * i + 2] = a.z, v[4 * i + 3] = a.w;
+    }
+  } else {
+    static_assert(WORDS == 2, "a lane loads 8 or a multiple of 16 bytes");
+    const uint2 a = __ldg(reinterpret_cast<const uint2*>(p));
+    v[0] = a.x, v[1] = a.y;
+  }
+}
+
+// bf16 channel e of a lane's words, widened to float32 (the low half of a
+// word is the even channel).
+__device__ __forceinline__ float channel(const uint32_t* raw, int e) {
+  return __uint_as_float((e & 1) ? (raw[e >> 1] & 0xffff0000u) : (raw[e >> 1] << 16));
+}
+
+// A lane's NG consecutive group sums in one streaming store.
+template <int NG>
+__device__ __forceinline__ void store_groups(float* p, const float* v) {
+  if constexpr (NG == 1) {
+    __stcs(p, v[0]);
+  } else if constexpr (NG == 2) {
+    __stcs(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+  } else {
+#pragma unroll
+    for (int i = 0; i < NG; i += 4)
+      __stcs(reinterpret_cast<float4*>(p + i), make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]));
+  }
+}
+
+template <int NG>
+__device__ __forceinline__ void store_groups(__nv_bfloat16* p, const float* v) {
+  if constexpr (NG == 1) {
+    __stcs(reinterpret_cast<unsigned short*>(p), __bfloat16_as_ushort(__float2bfloat16(v[0])));
+  } else {
+    uint32_t packed[NG / 2];  // two sums rounded in one cvt.rn.bf16x2.f32, the first in the low half
+#pragma unroll
+    for (int i = 0; i < NG / 2; ++i) {
+      const __nv_bfloat162 pair = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      packed[i] = *reinterpret_cast<const uint32_t*>(&pair);
+    }
+    if constexpr (NG == 2) {
+      __stcs(reinterpret_cast<unsigned int*>(p), packed[0]);
+    } else if constexpr (NG == 4) {
+      __stcs(reinterpret_cast<uint2*>(p), make_uint2(packed[0], packed[1]));
+    } else {
+      static_assert(NG % 8 == 0, "a lane holds 1, 2, 4 or a multiple of 8 groups");
+#pragma unroll
+      for (int i = 0; i < NG / 2; i += 4)
+        __stcs(reinterpret_cast<uint4*>(p) + i / 4,
+               make_uint4(packed[i], packed[i + 1], packed[i + 2], packed[i + 3]));
+    }
+  }
+}
+
+// The lane route: LPP lanes per key pixel, each owning LC = kLaneBytes / 2
+// consecutive bf16 channels, whole groups of CG (C = LC * LPP, G = C / CG
+// are compile-time). The key pixel runs over (b, y, x) on blockIdx.x;
+// blockIdx.y takes chunks of kLanePlanes planes.
+template <typename TOut, int CG, int LPP>
+__global__ void __launch_bounds__(kLaneThreads)
+homography_group_cost_lanes_kernel(const __nv_bfloat16* __restrict__ ref,  // (B, H, W, C)
+                                   const __nv_bfloat16* __restrict__ src,  // (B, Hs, Ws, C)
+                                   const float* __restrict__ A,            // (B, 3, 3)
+                                   const float* __restrict__ Bm,           // (B, 3, 3)
+                                   const float* __restrict__ w,            // (B, D, H, W)
+                                   TOut* __restrict__ out,                 // (B, D, H, W, G)
+                                   int B, int D, int H, int W, int Hs, int Ws, int chunks) {
+  constexpr int LC = kLaneBytes / 2;
+  constexpr int WORDS = kLaneBytes / 4;
+  constexpr int C = LC * LPP;
+  constexpr int G = C / CG;
+  constexpr int NG = LC / CG;  // groups per lane
+  // shuffled taps come from the pixel's own lanes (1 lane: its own); planes per turn: at most LPP when
+  // shuffled, and at most 64 words of gathers in flight
+  constexpr bool kShuffle = kShuffleTaps && LPP > 1;
+  constexpr int kMaxTurn = 16 / WORDS > 1 ? 16 / WORDS : 1;
+  constexpr int kTurn = kUnroll < kMaxTurn ? kUnroll : kMaxTurn;
+  constexpr int U = kShuffle && kTurn > LPP ? LPP : kTurn;
+  const int64_t HW = (int64_t)H * W;
+  const int64_t lane = (int64_t)blockIdx.x * kLaneThreads + threadIdx.x;
+  const int part = (int)(lane % LPP);  // also the lane's rank in its LPP-wide shuffle segment
+  // lanes past the last pixel stay in the loop for the shuffles and touch nothing
+  const bool active = lane / LPP < B * HW;
+  const int64_t pixel = active ? lane / LPP : 0;
+  const int b = (int)(pixel / HW);
+  const int64_t yx = pixel - b * HW;
+  const int y = (int)(yx / W);
+  const float xf = (float)(yx - (int64_t)y * W), yf = (float)y;
+  float key[LC];
+  {
+    uint32_t raw[WORDS];
+    load_words<WORDS>(ref + pixel * C + part * LC, raw);
+#pragma unroll
+    for (int e = 0; e < LC; ++e) key[e] = channel(raw, e);
+  }
+  float Am[9], Bmm[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) Am[i] = __ldg(A + b * 9 + i), Bmm[i] = __ldg(Bm + b * 9 + i);
+  const __nv_bfloat16* map = src + (int64_t)b * Hs * Ws * C + part * LC;
+  const int64_t plane = HW * G;  // between one plane's outputs and the next's
+  for (int chunk = blockIdx.y; chunk < chunks; chunk += gridDim.y) {
+    const int d0 = chunk * kLanePlanes, d1 = min(D, d0 + kLanePlanes);
+    const float* w_turn = w + ((int64_t)b * D + d0) * HW + yx;
+    TOut* out_turn = out + ((int64_t)b * D + d0) * plane + yx * G + part * NG;
+    for (int d = d0; d < d1; d += U, w_turn += U * HW, out_turn += U * plane) {
+      int off[U], dx[U], dy[U];
+      float4 wt[U];
+      if constexpr (kShuffle) {
+        int o = 0, ox = 0, oy = 0;
+        float4 t = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (active && d + part % U < d1)
+          homography_corner(Am, Bmm, __ldg(w_turn + part % U * HW), xf, yf, Hs, Ws, C, o, ox, oy, t);
+#pragma unroll
+        for (int j = 0; j < U; ++j) {
+          off[j] = __shfl_sync(kFullMask, o, j, LPP);
+          dx[j] = __shfl_sync(kFullMask, ox, j, LPP);
+          dy[j] = __shfl_sync(kFullMask, oy, j, LPP);
+          wt[j] = make_float4(__shfl_sync(kFullMask, t.x, j, LPP), __shfl_sync(kFullMask, t.y, j, LPP),
+                              __shfl_sync(kFullMask, t.z, j, LPP), __shfl_sync(kFullMask, t.w, j, LPP));
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < U; ++j) {
+          off[j] = 0, dx[j] = 0, dy[j] = 0;
+          wt[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          if (active && d + j < d1)
+            homography_corner(Am, Bmm, __ldg(w_turn + j * HW), xf, yf, Hs, Ws, C, off[j], dx[j], dy[j], wt[j]);
+        }
+      }
+      // the turn's 4 U gathers, all issued before any is used; every tap lies on the map
+      uint32_t raw[U][4][WORDS];
+#pragma unroll
+      for (int j = 0; j < U; ++j) {
+        const __nv_bfloat16* t00 = map + off[j];
+        load_words<WORDS>(t00, raw[j][0]);
+        load_words<WORDS>(t00 + dx[j], raw[j][1]);
+        load_words<WORDS>(t00 + dy[j], raw[j][2]);
+        load_words<WORDS>(t00 + dy[j] + dx[j], raw[j][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < U; ++j) {
+        if (!(active && d + j < d1)) continue;
+        const float4 t = wt[j];
+        float acc[NG];
+#pragma unroll
+        for (int e = 0; e < LC; ++e) {
+          float a[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) a[k] = channel(raw[j][k], e);
+          // rows first, then the y-tents
+          const float s0 = __fadd_rn(__fmul_rn(a[0], t.x), __fmul_rn(a[1], t.y));
+          const float s1 = __fadd_rn(__fmul_rn(a[2], t.x), __fmul_rn(a[3], t.y));
+          const float prod = __fmul_rn(key[e], __fadd_rn(__fmul_rn(s0, t.z), __fmul_rn(s1, t.w)));
+          acc[e / CG] = (e % CG == 0) ? prod : __fadd_rn(acc[e / CG], prod);  // the group's channels in order
+        }
+        store_groups<NG>(out_turn + j * plane, acc);
+      }
+    }
+  }
 }
 
 // KEY_SMEM: the key tile is copied to shared memory (else read in place).
@@ -292,6 +533,71 @@ int launch_vec(const TIn* ref, const TIn* src, const float* A, const float* Bm, 
   return launch_tile<TIn, TOut, VEC, false>(ref, src, A, Bm, w, out, B, D, H, W, Hs, Ws, C, G, tile, taps, stream);
 }
 
+template <typename TOut, int CG, int LPP>
+int launch_lanes(const __nv_bfloat16* ref, const __nv_bfloat16* src, const float* A, const float* Bm,
+                 const float* w, void* out, int B, int D, int H, int W, int Hs, int Ws, void* stream) {
+  const int64_t blocks = ((int64_t)B * H * W * LPP + kLaneThreads - 1) / kLaneThreads;
+  const int chunks = (D + kLanePlanes - 1) / kLanePlanes;
+  if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, chunks < 65535 ? chunks : 65535);  // beyond 65535 in a loop
+  homography_group_cost_lanes_kernel<TOut, CG, LPP><<<grid, kLaneThreads, 0, (cudaStream_t)stream>>>(
+      ref, src, A, Bm, w, static_cast<TOut*>(out), B, D, H, W, Hs, Ws, chunks);
+  return (int)cudaGetLastError();
+}
+
+// The lane route's instantiations: C / G channels per group dividing a
+// lane's LC, 1, 2, 4 or 8 lanes per pixel.
+template <typename TOut, int CG>
+int launch_lanes_cg(const __nv_bfloat16* ref, const __nv_bfloat16* src, const float* A, const float* Bm,
+                    const float* w, void* out, int B, int D, int H, int W, int Hs, int Ws, int lpp, void* stream) {
+  switch (lpp) {
+    case 1: return launch_lanes<TOut, CG, 1>(ref, src, A, Bm, w, out, B, D, H, W, Hs, Ws, stream);
+    case 2: return launch_lanes<TOut, CG, 2>(ref, src, A, Bm, w, out, B, D, H, W, Hs, Ws, stream);
+    case 4: return launch_lanes<TOut, CG, 4>(ref, src, A, Bm, w, out, B, D, H, W, Hs, Ws, stream);
+    case 8: return launch_lanes<TOut, CG, 8>(ref, src, A, Bm, w, out, B, D, H, W, Hs, Ws, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename TOut>
+int launch_lanes_any(const __nv_bfloat16* ref, const __nv_bfloat16* src, const float* A, const float* Bm,
+                     const float* w, void* out, int B, int D, int H, int W, int Hs, int Ws, int C, int G,
+                     void* stream) {
+  constexpr int LC = kLaneBytes / 2;
+  const int lpp = C / LC;
+  switch (C / G) {
+    case 1: return launch_lanes_cg<TOut, 1>(ref, src, A, Bm, w, out, B, D, H, W, Hs, Ws, lpp, stream);
+    case 2:
+      if constexpr (LC % 2 == 0)
+        return launch_lanes_cg<TOut, 2>(ref, src, A, Bm, w, out, B, D, H, W, Hs, Ws, lpp, stream);
+      break;
+    case 4:
+      if constexpr (LC % 4 == 0)
+        return launch_lanes_cg<TOut, 4>(ref, src, A, Bm, w, out, B, D, H, W, Hs, Ws, lpp, stream);
+      break;
+    case 8:
+      if constexpr (LC % 8 == 0)
+        return launch_lanes_cg<TOut, 8>(ref, src, A, Bm, w, out, B, D, H, W, Hs, Ws, lpp, stream);
+      break;
+    case 16:
+      if constexpr (LC % 16 == 0)
+        return launch_lanes_cg<TOut, 16>(ref, src, A, Bm, w, out, B, D, H, W, Hs, Ws, lpp, stream);
+      break;
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// 1 where the lane route takes the shape (bf16 features; C / G dividing a
+// lane's channels; 1, 2, 4 or 8 lanes per pixel; the maps aligned to a lane's
+// load and the output to a lane's store), else 0: the group route.
+int lane_route(const void* ref, const void* src, const void* out, int C, int G, bool in_bf16, bool out_bf16) {
+  if (!in_bf16 || G <= 0 || C <= 0 || C % G != 0) return 0;
+  const int lc = kLaneBytes / 2, cg = C / G, lpp = C / lc;
+  if (lc % cg != 0 || C % lc != 0 || (lpp != 1 && lpp != 2 && lpp != 4 && lpp != 8)) return 0;
+  const size_t load = kLaneBytes < 16 ? kLaneBytes : 16, store = (size_t)(lc / cg) * (out_bf16 ? 2 : 4);
+  return aligned(ref, load) && aligned(src, load) && aligned(out, store < 16 ? store : 16);
+}
+
 template <typename TIn, typename TOut>
 int launch(const TIn* ref, const TIn* src, const float* A, const float* Bm, const float* w, void* out,
            int B, int D, int H, int W, int Hs, int Ws, int C, int G, void* stream) {
@@ -299,6 +605,10 @@ int launch(const TIn* ref, const TIn* src, const float* A, const float* Bm, cons
   // int32 offsets into one map; H rows on gridDim.y
   if (C % G != 0 || (int64_t)Hs * Ws * C >= (1LL << 31) || (int64_t)B * D >= (1LL << 31) || H > 65535)
     return (int)cudaErrorInvalidValue;
+  if constexpr (std::is_same<TIn, __nv_bfloat16>::value) {
+    if (lane_route(ref, src, out, C, G, true, std::is_same<TOut, __nv_bfloat16>::value))
+      return launch_lanes_any<TOut>(ref, src, A, Bm, w, out, B, D, H, W, Hs, Ws, C, G, stream);
+  }
   // 4 channels per load where each group is whole vectors and the rows are aligned
   if ((C / G) % 4 == 0 && aligned(ref, 4 * sizeof(TIn)) && aligned(src, 4 * sizeof(TIn))) {
     return launch_vec<TIn, TOut, 4>(ref, src, A, Bm, w, out, B, D, H, W, Hs, Ws, C, G, stream);
@@ -319,6 +629,13 @@ int launch_in(const void* ref, const void* src, const void* A, const void* Bm, c
 }
 
 }  // namespace
+
+// The route sweep_group_cost takes: 1 the lane route, 0 the group route
+// (the design note above). out: the output's address.
+extern "C" int sweep_group_cost_route(const void* ref, const void* src, const void* out, int32_t C, int32_t G,
+                                      int32_t in_bf16, int32_t out_bf16) {
+  return lane_route(ref, src, out, C, G, in_bf16 != 0, out_bf16 != 0);
+}
 
 // in_bf16 / out_bf16 select bf16 (else float32) features and output; the
 // homography and the multipliers are float32.

@@ -12,7 +12,10 @@ raises. For a CPU tensor it computes the same function with
 :func:`homography_group_cost_reference`, the plain torch version (the TPU
 kernel's coordinates, a bilinear gather, group sums written out in channel
 order), which is also what the kernel is held against. The kernel's source
-note says what bounds it.
+note says what bounds it and how its two routes work: the lane route (bf16
+features whose groups fit a lane's 16 channels, as vis_mvsnet's C 32, G 8)
+and the group route (float32 features and every other shape);
+:func:`homography_group_cost_route` says which one a call takes.
 
 The features are float32 or bf16, both of one dtype. bf16 features sample
 as the TPU kernel does with its bf16 ``samp_dtype``: the x-tent weights are
@@ -170,6 +173,23 @@ def homography_group_cost(ref_feat, src_feat, Amat, Bmat, w_dense, groups=8, out
 
 homography_group_cost.launches = 0
 homography_group_cost.launches_by_dtype = {"float32": 0, "bfloat16": 0}
+
+
+def homography_group_cost_route(ref_feat, src_feat, groups=8, out_dtype=torch.float32, out=None):
+    """The route the kernel takes for these CUDA maps: "lanes" (bf16
+    features, 16 channels a lane holding whole groups, 1, 2, 4 or 8 lanes a
+    pixel, the maps and ``out`` aligned to a lane's loads and stores) or
+    "groups". ``out`` defaults to a fresh output, which the caching
+    allocator aligns to 512 bytes."""
+    fn = build.load(_NAME).sweep_group_cost_route
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int32
+        fn.argtypes = [p, p, p, i, i, i, i]
+        fn.restype = ctypes.c_int
+    out_ptr = 512 if out is None else out.data_ptr()
+    lanes = fn(ref_feat.data_ptr(), src_feat.data_ptr(), out_ptr, ref_feat.shape[-1], groups,
+               int(ref_feat.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16))
+    return "lanes" if lanes else "groups"
 
 
 def _entry():

@@ -34,6 +34,7 @@ from robustmvd_tpu_torch.ops.kernels.soft_argmin import (
 from robustmvd_tpu_torch.ops.kernels.sweep_group_cost import (
     homography_group_cost,
     homography_group_cost_reference,
+    homography_group_cost_route,
 )
 from robustmvd_tpu_torch.ops.kernels.sweep_warp import sweep_variance, sweep_variance_reference, sweep_warp_tiling
 from robustmvd_tpu_torch.ops.kernels.conv3d import conv3d_banded, conv3d_banded_path, conv3d_banded_reference
@@ -486,14 +487,131 @@ def test_k2_group_bf16_unaligned_maps_match_plain_version(cuda, which):
 
 def test_k2_group_bf16_at_vis_stage3_matches_plain_version(cuda):
     """vis_mvsnet's stage-3 pair volume at bf16, (1, 16, 192, 640), C 32,
-    G 8, bf16 out as the bf16 model asks: within one bf16 step of the
-    plain version where a float32 sum lies on a rounding boundary."""
+    G 8, bf16 out as the bf16 model asks: bit for bit (the kernel keeps the
+    plain version's order of operations and rounds once)."""
     ref, src, A, Bm, w = (a.to(cuda) for a in _group_inputs(19, B=1, H=192, W=640, C=32, D=16, singular=False))
     ref, src = ref.bfloat16(), src.bfloat16()
-    out = homography_group_cost(ref, src, A, Bm, w, out_dtype=torch.bfloat16).float()
-    plain = homography_group_cost_reference(ref, src, A, Bm, w, out_dtype=torch.bfloat16).float()
-    assert (out - plain).abs().max() <= 1e-5 + 2.0**-8 * plain.abs().max()
+    assert homography_group_cost_route(ref, src, out_dtype=torch.bfloat16) == "lanes"
+    out = homography_group_cost(ref, src, A, Bm, w, out_dtype=torch.bfloat16)
+    plain = homography_group_cost_reference(ref, src, A, Bm, w, out_dtype=torch.bfloat16)
+    assert torch.equal(out, plain)
     assert (out != 0).any(-1).float().mean() > 0.5
+
+
+def _per_plane_w(w, seed):
+    """w as vis_mvsnet's stage 1 passes it: one value per plane, 1 / (depth
+    + 1e-9) over an even sweep of depths 1..4, expanded to every pixel."""
+    B, D, H, W = w.shape
+    start = 1.0 + np.random.RandomState(seed).rand()
+    depth = torch.tensor(start + 3.0 * np.arange(D) / D, dtype=torch.float32, device=w.device)
+    return (1.0 / (depth + 1e-9)).reshape(1, D, 1, 1).expand(B, D, H, W).contiguous()
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w_kind", ["per_plane", "per_pixel"])
+@pytest.mark.parametrize("stage,D,H,W", [(1, 64, 48, 160), (2, 32, 96, 320), (3, 16, 192, 640)])
+def test_k2_group_bf16_lane_route_at_vis_stages_matches_plain_version_bit_for_bit(cuda, out_dtype, w_kind, stage,
+                                                                                 D, H, W):
+    """vis_mvsnet's three stage volumes at 384x1280 (C 32, G 8, bf16
+    features), with w per plane as stage 1 passes it and per pixel as
+    stages 2-3 pass it: the lane route, bit for bit."""
+    ref, src, A, Bm, w = (a.to(cuda) for a in _group_inputs(40 + stage, B=1, H=H, W=W, C=32, D=D, singular=False))
+    ref, src = ref.bfloat16(), src.bfloat16()
+    if w_kind == "per_plane":
+        w = _per_plane_w(w, stage)
+    assert homography_group_cost_route(ref, src, out_dtype=out_dtype) == "lanes"
+    before = dict(homography_group_cost.launches_by_dtype)
+    out = homography_group_cost(ref, src, A, Bm, w, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert homography_group_cost.launches_by_dtype == {**before, "bfloat16": before["bfloat16"] + 1}
+    assert out.dtype == out_dtype and out.shape == (1, D, H, W, 8)
+    assert torch.equal(out, homography_group_cost_reference(ref, src, A, Bm, w, out_dtype=out_dtype))
+    assert (out != 0).any(-1).float().mean() > 0.5
+
+
+def _lane_route_expected(C, G):
+    """The lane route's shape rule (csrc/sweep_group_cost.cu lane_route) for
+    aligned bf16 maps: C/G divides a lane's 16 channels, 1, 2, 4 or 8 lanes."""
+    return "lanes" if 16 % (C // G) == 0 and C % 16 == 0 and C // 16 in (1, 2, 4, 8) else "groups"
+
+
+@pytest.mark.parametrize("G,C", [(G, C) for G in (4, 8, 16) for C in (16, 32, 64, 24, 8) if C % G == 0])
+@pytest.mark.parametrize("W", [20, 100, 130])  # a partial last warp of pixels at every C
+def test_k2_group_bf16_groups_and_widths_match_plain_version_bit_for_bit(cuda, G, C, W):
+    """bf16 features at every G of 4, 8, 16 dividing C: the lane route
+    where C/G divides 16 and C is 1, 2, 4 or 8 lanes of 16 channels (C 24
+    and C 8 take the group route); W 20, 100, 130 end on a partial warp of
+    pixels; 13 planes end on a partial turn and chunk."""
+    ref, src, A, Bm, w = (a.to(cuda) for a in _group_inputs(50 + G + C + W, H=8, W=W, C=C, D=13,
+                                                             shift=(0.3, 0.0), singular=False))
+    ref, src = ref.bfloat16(), src.bfloat16()
+    assert homography_group_cost_route(ref, src, G, torch.bfloat16) == _lane_route_expected(C, G)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        out = homography_group_cost(ref, src, A, Bm, w, groups=G, out_dtype=out_dtype)
+        assert out.shape == (2, 13, 8, W, G)
+        assert torch.equal(out, homography_group_cost_reference(ref, src, A, Bm, w, groups=G, out_dtype=out_dtype))
+    assert (out != 0).any(-1).float().mean() > 0.3
+
+
+@pytest.mark.parametrize("D", [1, 2, 3, 5, 17, 33])  # one plane; remainders of the 2-plane turn, 16-plane chunk
+@pytest.mark.parametrize("w_kind", ["per_plane", "per_pixel"])
+def test_k2_group_bf16_plane_counts_match_plain_version_bit_for_bit(cuda, D, w_kind):
+    ref, src, A, Bm, w = (a.to(cuda) for a in _group_inputs(60 + D, H=7, W=45, C=32, D=D, singular=False))
+    ref, src = ref.bfloat16(), src.bfloat16()
+    if w_kind == "per_plane":
+        w = _per_plane_w(w, D)
+    out = homography_group_cost(ref, src, A, Bm, w, out_dtype=torch.bfloat16)
+    assert torch.equal(out, homography_group_cost_reference(ref, src, A, Bm, w, out_dtype=torch.bfloat16))
+    assert (out != 0).any(-1).float().mean() > 0.3
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_k2_group_bf16_non_finite_and_off_map_w_give_zeros(cuda, out_dtype):
+    """The lane route on w of NaN, +-inf, 1e30 and -1e30 (and at D = 11 a
+    plane through p_z = 0 and an infinite w at one pixel): zeros where every
+    tap is off the map, as in the plain version, bit for bit; D = 1 and 11."""
+    for D in (1, 11):
+        ref, src, A, Bm, w = (a.to(cuda) for a in _group_inputs(70 + D, H=6, W=70, D=D, singular=D > 1))
+        ref, src = ref.bfloat16(), src.bfloat16()
+        bad = torch.tensor([float("nan"), float("inf"), -float("inf"), 1e30, -1e30], device=cuda)
+        w[:, :, 2, :5] = bad
+        w[0, -1, 4] = float("nan")
+        assert homography_group_cost_route(ref, src, out_dtype=out_dtype) == "lanes"
+        out = homography_group_cost(ref, src, A, Bm, w, out_dtype=out_dtype)
+        assert torch.equal(out, homography_group_cost_reference(ref, src, A, Bm, w, out_dtype=out_dtype))
+        assert (out[:, :, 2, :5] == 0).all() and (out[0, -1, 4] == 0).all()
+        assert (out != 0).any()
+
+
+@pytest.mark.parametrize("which", ["src", "ref", "out"])
+@pytest.mark.parametrize("offset", [1, 4])  # 2 and 8 bytes: off a lane's 16-byte loads
+def test_k2_group_bf16_unaligned_maps_take_the_group_route(cuda, which, offset):
+    """A bf16 key or source map 2 or 8 bytes into its storage cannot be read
+    in 16-byte loads: the group route, bit for bit. An output off a lane's
+    store is refused by the route as well."""
+    ref, src, A, Bm, w = (a.to(cuda) for a in _group_inputs(80 + offset, H=6, W=90, C=32))
+    ref, src = ref.bfloat16(), src.bfloat16()
+
+    def shifted(t):
+        return torch.empty(t.numel() + offset, dtype=t.dtype, device=cuda)[offset:].view(t.shape).copy_(t)
+
+    if which == "out":
+        # a lane stores four sums: 8 bytes in bf16, 16 in float32; an offset of 4 elements keeps either aligned
+        for out_dtype in (torch.bfloat16, torch.float32):
+            out = shifted(torch.empty((2, 8, 6, 90, 8), dtype=out_dtype, device=cuda))
+            assert homography_group_cost_route(ref, src, out_dtype=out_dtype, out=out) == (
+                "groups" if offset == 1 else "lanes")
+        return
+    ref_in = shifted(ref) if which == "ref" else ref
+    src_in = shifted(src) if which == "src" else src
+    assert homography_group_cost_route(ref_in, src_in) == "groups"
+    out = homography_group_cost(ref_in, src_in, A, Bm, w, out_dtype=torch.bfloat16)
+    assert torch.equal(out, homography_group_cost_reference(ref, src, A, Bm, w, out_dtype=torch.bfloat16))
+
+
+def test_k2_group_float32_takes_the_group_route(cuda):
+    ref, src, *_ = _group_inputs(90, H=4, W=10, C=32)
+    assert homography_group_cost_route(ref.to(cuda), src.to(cuda)) == "groups"
 
 
 @pytest.mark.parametrize("shape", [(2, 16, 12, 20), (1, 64, 5, 7), (2, 192, 3, 5), (1, 32, 48, 160)])

@@ -121,6 +121,31 @@ def test_k5_score_head_stays_float32(rng):
 
 # --- K2 group's bf16 form ---
 
+def _k2_group_bf16_close_to_jax(rng, B, C, D, h, w, out_dtype, groups=8, per_pixel=True):
+    """K2 group's plain version on bf16 features against JAX's
+    ``homography_group_cost`` in interpret mode on the same features, within
+    the bounds :func:`test_k2_group_plain_bf16_matches_jax_kernel` states;
+    the features widened to float32 first miss them."""
+    key, src = _cams(rng, B, h, w)
+    A, Bm, wd = _kernel_args(key, src, _depth_start(rng, B, h, w, per_pixel), 0.25, D, h, w)
+    ref, src_feat = (t(rng.randn(B, h, w, C).astype(np.float32)).to(BF16) for _ in range(2))
+    jax_bf16 = [jnp.asarray(a.float().numpy(), jnp.bfloat16) for a in (ref, src_feat)]
+    jax_out = np.asarray(jax_group_cost(*jax_bf16, *(jnp.asarray(a) for a in (A, Bm, wd)), groups=groups,
+                                        interpret=True,
+                                        out_dtype=jnp.bfloat16 if out_dtype == BF16 else jnp.float32), np.float32)
+    tol = 5e-5 + 1e-4 * np.abs(jax_out) + (2.0**-8 * np.abs(jax_out) if out_dtype == BF16 else 0)
+    ours = k2g.homography_group_cost(ref, src_feat, t(A), t(Bm), t(wd), groups=groups, out_dtype=out_dtype)
+    assert ours.dtype == out_dtype and ours.shape == (B, D, h, w, groups)
+    diff = np.abs(ours.float().numpy() - jax_out)
+    assert (diff > tol).mean() <= 0.01, (diff > tol).mean()
+    flip = (C // groups) * 2.0**-7 * float(ref.float().abs().max() * src_feat.float().abs().max())
+    assert diff.max() <= flip + 2.0**-8 * np.abs(jax_out).max()
+    assert (jax_out != 0).any(-1).mean() > 0.5
+    widened = k2g.homography_group_cost(ref.float(), src_feat.float(), t(A), t(Bm), t(wd), groups=groups,
+                                        out_dtype=out_dtype)
+    assert (np.abs(widened.float().numpy() - jax_out) > tol).mean() > 0.1
+
+
 @pytest.mark.parametrize("B,C,D,w,out_dtype", [(1, 16, 6, 20, torch.float32), (2, 32, 20, 20, BF16),
                                                (1, 32, 8, 160, torch.float32), (1, 32, 8, 160, BF16)])
 def test_k2_group_plain_bf16_matches_jax_kernel(rng, B, C, D, w, out_dtype):
@@ -134,23 +159,23 @@ def test_k2_group_plain_bf16_matches_jax_kernel(rng, B, C, D, w, out_dtype):
     step of the value for a bf16 output; measured <= 0.15%), each within
     the flip bound (C/G) 2^-7 max|ref| max|src|. Widening the features to
     float32 before sampling puts 24-85% of the values beyond it."""
-    h = 12 if w < 100 else 24
-    key, src = _cams(rng, B, h, w)
-    A, Bm, wd = _kernel_args(key, src, _depth_start(rng, B, h, w, True), 0.25, D, h, w)
-    ref, src_feat = (t(rng.randn(B, h, w, C).astype(np.float32)).to(BF16) for _ in range(2))
-    jax_bf16 = [jnp.asarray(a.float().numpy(), jnp.bfloat16) for a in (ref, src_feat)]
-    jax_out = np.asarray(jax_group_cost(*jax_bf16, *(jnp.asarray(a) for a in (A, Bm, wd)), interpret=True,
-                                        out_dtype=jnp.bfloat16 if out_dtype == BF16 else jnp.float32), np.float32)
-    tol = 5e-5 + 1e-4 * np.abs(jax_out) + (2.0**-8 * np.abs(jax_out) if out_dtype == BF16 else 0)
-    ours = k2g.homography_group_cost(ref, src_feat, t(A), t(Bm), t(wd), out_dtype=out_dtype)
-    assert ours.dtype == out_dtype and ours.shape == (B, D, h, w, 8)
-    diff = np.abs(ours.float().numpy() - jax_out)
-    assert (diff > tol).mean() <= 0.01, (diff > tol).mean()
-    flip = (C // 8) * 2.0**-7 * float(ref.float().abs().max() * src_feat.float().abs().max())
-    assert diff.max() <= flip + 2.0**-8 * np.abs(jax_out).max()
-    assert (jax_out != 0).any(-1).mean() > 0.5
-    widened = k2g.homography_group_cost(ref.float(), src_feat.float(), t(A), t(Bm), t(wd), out_dtype=out_dtype)
-    assert (np.abs(widened.float().numpy() - jax_out) > tol).mean() > 0.1
+    _k2_group_bf16_close_to_jax(rng, B, C, D, 12 if w < 100 else 24, w, out_dtype)
+
+
+@pytest.mark.parametrize("h,w,D,G,per_pixel", [
+    (6, 20, 8, 8, False),  # vis stage 1's aspect (48x160 / 8), its w one value per plane expanded to every pixel
+    (6, 20, 8, 8, True),
+    (12, 40, 4, 8, True),  # stage 2's (96x320 / 8), per-pixel w
+    (24, 80, 2, 8, True),  # stage 3's (192x640 / 8)
+    (12, 40, 4, 4, True),  # G 4 and 16 at C 32: the lane route's other groupings on the card
+    (12, 40, 4, 16, True),
+])
+def test_k2_group_plain_bf16_at_vis_stage_aspects_matches_jax_kernel(rng, h, w, D, G, per_pixel):
+    """The bounds of :func:`test_k2_group_plain_bf16_matches_jax_kernel` at
+    vis_mvsnet's three stage aspects cut to an eighth (hypotheses too), bf16
+    out as the bf16 model asks: w per plane as stage 1 passes it and per
+    pixel as stages 2-3 pass it, and G 4 and 16."""
+    _k2_group_bf16_close_to_jax(rng, 1, 32, D, h, w, BF16, groups=G, per_pixel=per_pixel)
 
 
 def test_k2_group_rejects_mixed_feature_dtypes(rng):

@@ -247,3 +247,76 @@ def test_scale_camera_matches_jax(rng):
     cam = rng.randn(2, 2, 4, 4).astype(np.float32)
     np.testing.assert_array_equal(scale_camera(t(cam), 1 / 8).numpy(),
                                   np.asarray(jax_scale_camera(jnp.asarray(cam), 1 / 8)))
+
+
+# --- chip_smoke.py's K2 group cases and its bf16 gate ---
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    return _chip_smoke()
+
+
+@pytest.fixture(scope="module")
+def k2_group_cases(smoke):
+    return smoke.k2_group_cases(torch.device("cpu"))
+
+
+def test_chip_smoke_k2_group_cases_are_vis_mvsnets_calls(monkeypatch, smoke, k2_group_cases):
+    """``k2_group_cases`` times K2 group at the shapes vis_mvsnet's
+    SingleStage passes it: recorded from the port's vis_mvsnet on the CPU at
+    1+2 views of 128x192, scaled to 384x1280 by ``FEATURE_STRIDES``, with
+    ``DEPTH_NUMS`` planes and the recorded feature width and groups."""
+    from robustmvd_tpu_torch import create_model
+    from robustmvd_tpu_torch.models.blocks import vis_mvsnet as vis_blocks
+    from robustmvd_tpu_torch.models.vis_mvsnet import DEPTH_NUMS, FEATURE_STRIDES
+
+    calls = []
+
+    def record(ref, src, A, Bm, w, groups=8, out_dtype=torch.float32):
+        calls.append((tuple(ref.shape), tuple(src.shape), tuple(w.shape), groups))
+        return k2g.homography_group_cost(ref, src, A, Bm, w, groups=groups, out_dtype=out_dtype)
+
+    H0, W0 = 128, 192
+    model = create_model("vis_mvsnet", device="cpu", seed=0)
+    monkeypatch.setattr(vis_blocks, "homography_group_cost", record)
+    model.run(**smoke.sideways_sample(np.random.RandomState(3), H0, W0, 3))
+    assert len(calls) == 2 * len(DEPTH_NUMS)  # two source views a stage
+    assert list(k2_group_cases) == [f"stage{k}" for k in range(1, len(DEPTH_NUMS) + 1)]
+    for k, (D, stride) in enumerate(zip(DEPTH_NUMS, FEATURE_STRIDES)):
+        (ref, src, w, groups), other = calls[2 * k], calls[2 * k + 1]
+        assert other == (ref, src, w, groups)
+        C = ref[3]
+        assert ref == src == (1, H0 // stride, W0 // stride, C) and w == (1, D, H0 // stride, W0 // stride)
+        case = k2_group_cases[f"stage{k + 1}"]
+        assert tuple(case[0].shape) == tuple(case[1].shape) == (1, 384 // stride, 1280 // stride, C)
+        assert tuple(case[4].shape) == (1, D, 384 // stride, 1280 // stride) and groups == 8
+        assert tuple(case[2].shape) == tuple(case[3].shape) == (1, 3, 3)
+
+
+def test_chip_smoke_gates_k2_group_bf16_against_float32_at_every_stage(smoke, k2_group_cases):
+    """Phase ``kernel`` sweep_group_cost fails where K2 group's bf16 form is
+    not faster than its float32 form in the same run, at each of the three
+    stages it times."""
+    import inspect
+
+    assert smoke.K2_GROUP_BF16_MUST_BEAT_F32 == ("stage1", "stage2", "stage3") == tuple(k2_group_cases)
+    assert "check_k2_group_bf16_beats_f32(results)" in inspect.getsource(smoke.phase_kernel_k2_group)
+
+    def results(**bf16_ms):
+        return {case: {"ms": 0.1, "bf16": {"ms": bf16_ms.get(case, 0.05)}} for case in k2_group_cases}
+
+    smoke.check_k2_group_bf16_beats_f32(results())
+    for case in k2_group_cases:
+        for ms in (0.1, 0.2):  # as slow as the float32 form, slower
+            with pytest.raises(AssertionError, match=case):
+                smoke.check_k2_group_bf16_beats_f32(results(**{case: ms}))
