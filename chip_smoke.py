@@ -130,7 +130,24 @@ CUDA toolkit (``nvcc``). Phases, each printing one JSON line:
             the bf16 mma route and the float32 score heads);
             ``main_family_xla`` (cvp's and vis's
             ``warp_impl="xla"`` routes at fp32 beside their fused routes).
-13. the kernels line, and last the ``{"ok": true, ...}`` line.
+13. family training (the MVSNet family's training):
+            ``kernel_k3_grad`` (K3's autograd gradient, the kernel forward
+            and the closed-form backward in torch ops, against autograd
+            through its plain version at vis's training readouts, 256x320,
+            batch 2, with and without the window mass; forward, backward
+            and plain times); ``train_vis_parity`` (one vis_mvsnet train
+            step card vs CPU at 128x160, score heads conditioned: loss,
+            gradients, BatchNorm running statistics); ``train_vis`` (the JAX
+            bench's vis configuration, batch 2, 1+2 views, 256x320, adam 1e-3,
+            mvsnet_scheduler, vismvsnet_loss, fp32, TF32 off, through
+            create_training on ``synthetic``: 3 + 10 steps, K5 45 and K3 9
+            times per step, the running statistics moved, a resume, a
+            profiled step); ``train_vis_bf16`` (the same at bf16 through
+            create_training, 3 + 5 steps, K5's bf16 form 36 and its float32 heads 9
+            times per step); ``train_family`` (mvsnet_train with mvsnet_loss,
+            D 48, and cvp_mvsnet with SL1Loss at 128x160, 3 steps each, the
+            first loss against the CPU's).
+14. the kernels line, and last the ``{"ok": true, ...}`` line.
 
 Any failed check raises and the script exits non-zero; it does nothing
 without a CUDA device. Weights are random, from a seed.
@@ -2116,13 +2133,20 @@ def phase_train_parity(counters):
 
 
 def train_kernel_kind(name):
-    """Group a training step's kernels: K1b, K1, cuDNN's convolutions forward
-    (fprop), backward (dgrad, wgrad) and FFT (either direction), GEMMs outside
-    cuDNN (the score matmul and its backward), the optimizer, the rest."""
+    """Group a training step's kernels: K1b, K1, K5 (and its bf16 form), K3,
+    cuDNN's convolutions forward (fprop), backward (dgrad, wgrad) and FFT
+    (either direction), GEMMs outside cuDNN (the score matmul and its
+    backward), the optimizer, the rest."""
     if "planesweep_sample_backward" in name:
         return "k1b_planesweep_sample_backward"
     if "planesweep_sample" in name:
         return "k1_planesweep_sample"
+    if "conv3d_k3_bf16_kernel" in name:
+        return "k5_conv3d_banded_bf16"
+    if "conv3d_k3_kernel" in name:
+        return "k5_conv3d_banded"
+    if "soft_argmin_" in name:
+        return "k3_soft_argmin"
     if any(key in name for key in FFT_KERNEL_KEYS):
         return "convolutions_fft"
     if "dgrad" in name or "wgrad" in name:
@@ -2467,6 +2491,386 @@ def phase_train_bf16(counters, fp32):
     return result
 
 
+# --- the MVSNet family's training: K3's gradient, vis_mvsnet's steps, mvsnet_train and cvp_mvsnet ---
+
+K3_GRAD_SHAPES = ((2, 64, 32, 40), (2, 32, 64, 80), (2, 16, 128, 160))  # vis's readouts at 256x320, batch 2
+# K3's gradient (the kernel forward, the closed-form backward) vs autograd through its plain version, relative
+# to the gradient's largest |value|: the kernel's prob differs from the plain version's by up to 1e-6
+K3_GRAD_LIMIT = 1e-4
+VIS_TRAIN_LAUNCHES = {"conv3d_banded": 45, "soft_argmin": 9}  # per step, 1+2 views: pairs one at a time
+VIS_TRAIN_LAUNCHES_BF16 = {"conv3d_banded[bfloat16]": 36, "conv3d_banded[float32]": 9, "soft_argmin": 9}
+
+
+def k3_backward_bound(volume):
+    """Least time for K3's backward: prob read once, the three upstream maps
+    and the expectation read once, the score gradient written once, at the
+    HBM rate; against ~12 flops per element (log counted as one) at the f32
+    rate."""
+    B, D, H, W = volume.shape
+    nbytes = 2 * volume.numel() * 4 + 4 * B * H * W * 4
+    flops = 12 * volume.numel()
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def phase_kernel_k3_grad(device="cuda"):
+    """K3's autograd gradient at vis's training readouts (256x320, batch 2):
+    the kernel's forward and the closed-form backward against autograd through
+    the plain version, random upstream gradients of the expectation, the
+    entropy and (``mass``) the window mass, window 2; within K3_GRAD_LIMIT of
+    the gradient's largest |value|, pixels whose window mask differs between
+    the two expectations left out (at most FLIPPED_SHARE). Times: the forward,
+    the backward alone (``soft_argmin_backward`` on the saved results), and
+    the plain version's forward + backward."""
+    import torch
+
+    from robustmvd_tpu_torch.ops.kernels.soft_argmin import (
+        fused_soft_argmin,
+        fused_soft_argmin_reference,
+        soft_argmin_backward,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(12)
+    results = {}
+    for shape in K3_GRAD_SHAPES:
+        B, D, H, W = shape
+        vol = torch.randn(shape, generator=gen, device=device) * 3
+        gs = [torch.randn((B, 1, H, W), generator=gen, device=device) for _ in range(3)]
+        for mass in (False, True):
+            grads, outs = [], []
+            for fn in (fused_soft_argmin, fused_soft_argmin_reference):
+                leaf = vol.clone().requires_grad_()
+                out = fn(leaf, window=2)
+                terms = [out[1], out[2]] + ([out[3]] if mass else [])
+                torch.autograd.backward(terms, gs[:len(terms)])
+                grads.append(leaf.grad)
+                outs.append([o.detach() for o in out])
+            index = torch.arange(D, device=device, dtype=torch.float32).reshape(1, D, 1, 1)
+            keep = torch.ones((B, 1, H, W), dtype=torch.bool, device=device)
+            if mass:
+                keep = ((torch.abs(index - outs[0][1]) <= 2) == (torch.abs(index - outs[1][1]) <= 2)).all(1, True)
+            flipped = 1.0 - float(keep.float().mean())
+            err = float(((grads[0] - grads[1]).abs() * keep).max())
+            scale = float(grads[1].abs().max())
+            if not (err <= K3_GRAD_LIMIT * scale and flipped <= FLIPPED_SHARE and torch.isfinite(grads[0]).all()):
+                raise AssertionError(f"K3's gradient at {shape} (mass {mass}) is off its plain version's by {err} "
+                                     f"(max |grad| {scale}), mask flipped on {flipped} of the pixels")
+            prob, expectation = outs[0][0], outs[0][1]
+            upstream = (None, gs[0], gs[1], gs[2] if mass else None)
+
+            def plain_step():
+                leaf = vol.clone().requires_grad_()
+                out = fused_soft_argmin_reference(leaf, window=2)
+                terms = [out[1], out[2]] + ([out[3]] if mass else [])
+                torch.autograd.backward(terms, gs[:len(terms)])
+
+            results[f"{'x'.join(map(str, shape))}{'_mass' if mass else ''}"] = {
+                "shape": list(shape), "mass": mass, "max_abs_err": err, "grad_max_abs": scale,
+                "limit": K3_GRAD_LIMIT * scale, "flipped_share": flipped,
+                "forward_ms": time_ms(lambda: fused_soft_argmin(vol, window=2)) if device == "cuda" else None,
+                "backward_ms": time_ms(lambda: soft_argmin_backward(prob, expectation, 2.0, *upstream))
+                if device == "cuda" else None,
+                "plain_forward_backward_ms": time_ms(plain_step, runs=10, warmup=2) if device == "cuda" else None,
+                **k3_backward_bound(vol),
+            }
+    emit("kernel_k3_grad", **results)
+    return results
+
+
+def family_engine(out_dir, model, dataset, loss, max_iterations, batch_size, num_workers=0, lr=1e-3):
+    """The family's training through create_training, as the JAX bench trains
+    vis_mvsnet (bench.py:257-340): adam lr 1e-3, mvsnet_scheduler, no clip."""
+    import robustmvd_tpu_torch as rmvd
+
+    optimizer = rmvd.create_optimizer("adam", model=model, lr=lr)
+    return rmvd.create_training(
+        "mvd", out_dir=out_dir, model=model, dataset=dataset, optimizer=optimizer,
+        scheduler=rmvd.create_scheduler("mvsnet_scheduler", optimizer=optimizer),
+        loss=rmvd.create_loss(loss, model=model), batch_size=batch_size, max_iterations=max_iterations,
+        num_workers=num_workers, verbose=False)
+
+
+def running_stats(model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items() if "running" in k}
+
+
+def timed_steps(step, warmup, timed, notes):
+    """``step`` wrapped to note each call: host clock, CUDA events, loss; the
+    peak memory reset after the warm-up; the card synchronised after the last
+    timed step, whose end time is noted too."""
+    import torch
+
+    def noted_step(*args):
+        if len(notes) == warmup:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        loss, sub_losses = step(*args)
+        end.record()
+        notes.append((t0, start, end, loss))
+        if len(notes) == warmup + timed:
+            torch.cuda.synchronize()
+            notes.append(time.perf_counter())
+        return loss, sub_losses
+
+    return noted_step
+
+
+def step_times(notes, warmup):
+    """(walls, device ms) of the timed steps from ``timed_steps``' notes."""
+    t_end = notes.pop()
+    starts = [n[0] for n in notes] + [t_end]
+    walls = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])][warmup:]
+    return walls, [n[1].elapsed_time(n[2]) for n in notes][warmup:]
+
+
+def check_family_launches(label, launches, steps, expected):
+    per_step = {name: launches[name] / steps for name in expected}
+    others = {k: v for k, v in launches.items() if v and k.split("[")[0] not in {n.split("[")[0] for n in expected}}
+    if per_step != expected or others:
+        raise AssertionError(f"{label}: launches {launches} in {steps} steps, expected {expected} per step and no "
+                             "other kernel")
+    return per_step
+
+
+def phase_train_vis(counters, size=(256, 320), warmup=3, timed=10):
+    """vis_mvsnet's training as the JAX bench configures it (bench.py:257-340:
+    batch 2, 1+2 views, 256x320, adam 1e-3, mvsnet_scheduler,
+    vismvsnet_loss), at fp32 with TF32 off, through create_training on
+    ``synthetic.train.mvd``: BatchNorm on batch statistics, the pairs one at a
+    time, the "xla" warp route; 3 warm-up and 10 timed steps (ms per step,
+    host share, peak MiB, K5 and K3 launches per step, every loss finite),
+    the running statistics moved, every parameter upstream of the readouts
+    with a gradient, a resume from the final snapshot and one more step, a
+    profile of one step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import robustmvd_tpu_torch as rmvd
+
+    tf32 = set_tf32(False)
+    batch = 2
+    dataset = rmvd.create_dataset("synthetic.train.mvd", num_samples=batch * (warmup + timed), num_views=3,
+                                  height=size[0], width=size[1])
+    torch.manual_seed(42)
+    with tempfile.TemporaryDirectory() as out_dir:
+        model = rmvd.create_model("vis_mvsnet", seed=0, train=True)
+        initial = running_stats(model)
+        training = family_engine(out_dir, model, dataset, "vismvsnet_loss", warmup + timed, batch)
+        step = training.train_step
+        notes = []
+        training.train_step = timed_steps(step, warmup, timed, notes)
+        counters.reset()
+        training()
+        launches = counters.read()
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        losses = [float(n[3]) for n in notes[:-1]]
+        if len(losses) != warmup + timed or not all(np.isfinite(losses)):
+            raise AssertionError(f"train_vis: {len(losses)} steps, losses {losses}")
+        per_step = check_family_launches("train_vis", launches, warmup + timed, VIS_TRAIN_LAUNCHES)
+        walls, device_ms = step_times(notes, warmup)
+        moved = [k for k, v in running_stats(model).items() if not torch.equal(v, initial[k])]
+        no_grad = sorted(n for n, p in model.named_parameters() if p.grad is None or not p.grad.any())
+        if len(moved) != len(initial) or any(not n.endswith("uncert_net.head_1.weight") for n in no_grad):
+            raise AssertionError(f"train_vis: {len(moved)} of {len(initial)} running statistics moved; "
+                                 f"no gradient at {no_grad}")
+
+        t0 = time.perf_counter()
+        model2 = rmvd.create_model("vis_mvsnet", seed=1, train=True)
+        resumed = family_engine(out_dir, model2, dataset, "vismvsnet_loss", warmup + timed + 1, batch)
+        resume_s = time.perf_counter() - t0
+        if resumed.finished_iterations != warmup + timed or any(
+                not torch.equal(p, q) for p, q in zip(model.state_dict().values(), model2.state_dict().values())):
+            raise AssertionError("train_vis: the resumed engine did not restore the snapshot")
+        if resumed()["iteration"] != warmup + timed + 1:
+            raise AssertionError("train_vis: the resumed engine took no step")
+
+        inputs, gt = training.prepare_batch(rmvd.utils.numpy_collate([dataset[i] for i in range(batch)]))
+        torch.cuda.synchronize()
+        for _ in range(2):  # the first profile pays the tracer's start-up
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                step(inputs, gt)
+                torch.cuda.synchronize()
+                profiled_ms = (time.perf_counter() - t0) * 1e3
+        del model, model2, training, resumed
+    result = {"ms_per_step": statistics.median(walls), "ms_per_step_mean": statistics.mean(walls),
+              "ms_per_step_min": min(walls), "ms_per_timed_step": walls, "device_ms_per_timed_step": device_ms,
+              "device_ms_per_step": statistics.median(device_ms),
+              "host_share": statistics.median(1 - d / w for d, w in zip(device_ms, walls)), "peak_mib": peak_mib,
+              "launches": launches, "launches_per_step": per_step, "losses": losses,
+              "running_stats_moved": len(moved), "params_without_gradient": no_grad, "resume_s": resume_s}
+    emit("train_vis", tf32=tf32, dataset="synthetic.train.mvd", size=list(size), views=3, batch=batch,
+         warmup=warmup, timed=timed, dtype="float32", **result)
+    emit("breakdown_train_vis", **step_breakdown(prof, profiled_ms))
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_train_vis_bf16(counters, fp32, size=(256, 320), warmup=3, timed=5):
+    """The same at ``dtype="bfloat16"``: ``create_model("vis_mvsnet",
+    train=True, dtype="bfloat16")`` through create_training (the train CLI
+    refuses ``--dtype`` for the family, as JAX's does), on
+    ``synthetic.train.mvd`` at 256x320, batch 2, 2 loader workers. 3 warm-up
+    and 5 timed steps: ms per step, host share, peak MiB, every loss finite,
+    K5's bf16 form 36 times, its float32 score heads 9 times and K3 9 times
+    per step, the final snapshot written."""
+    import torch
+
+    import robustmvd_tpu_torch as rmvd
+
+    tf32 = set_tf32(False)
+    batch = 2
+    dataset = rmvd.create_dataset("synthetic.train.mvd", num_samples=batch * (warmup + timed), num_views=3,
+                                  height=size[0], width=size[1])
+    notes = []
+    torch.manual_seed(42)
+    with tempfile.TemporaryDirectory() as out:
+        model = rmvd.create_model("vis_mvsnet", seed=0, train=True, dtype="bfloat16")
+        training = family_engine(out, model, dataset, "vismvsnet_loss", warmup + timed, batch, num_workers=2)
+        training.train_step = timed_steps(training.train_step, warmup, timed, notes)
+        counters.reset()
+        training()
+        launches = counters.read()
+        del model, training
+        snaps = sorted(os.listdir(os.path.join(out, "checkpoints")))
+    losses = [float(n[3]) for n in notes[:-1]]
+    if len(losses) != warmup + timed or not all(np.isfinite(losses)):
+        raise AssertionError(f"train_vis_bf16: {len(losses)} steps, losses {losses}")
+    if snaps != [f"snapshot-iter-{warmup + timed:09d}.pt"]:
+        raise AssertionError(f"train_vis_bf16: snapshots {snaps}")
+    per_step = check_family_launches("train_vis_bf16", launches, warmup + timed, VIS_TRAIN_LAUNCHES_BF16)
+    walls, device_ms = step_times(notes, warmup)
+    result = {"ms_per_step": statistics.median(walls), "ms_per_step_mean": statistics.mean(walls),
+              "ms_per_step_min": min(walls), "ms_per_timed_step": walls, "device_ms_per_timed_step": device_ms,
+              "device_ms_per_step": statistics.median(device_ms),
+              "host_share": statistics.median(1 - d / w for d, w in zip(device_ms, walls)),
+              "peak_mib": torch.cuda.max_memory_allocated() / 2**20, "launches": launches,
+              "launches_per_step": per_step, "losses": losses}
+    emit("train_vis_bf16", tf32=tf32, dataset="synthetic.train.mvd", size=list(size), views=3, batch=batch,
+         warmup=warmup, timed=timed, dtype="bfloat16",
+         fp32_train_vis={k: fp32[k] for k in ("ms_per_step", "device_ms_per_step", "host_share", "peak_mib")},
+         **result)
+    torch.cuda.empty_cache()
+    return result
+
+
+def family_train_batch(seed, B, H, W):
+    """A synthetic batch as the engine feeds the family: images 0..255 (the
+    engines apply no input adapter), absolute intrinsics, poses, depth."""
+    import robustmvd_tpu_torch as rmvd
+
+    dataset = rmvd.create_dataset("synthetic.train.mvd", num_samples=seed + B, num_views=3, height=H, width=W)
+    return rmvd.utils.numpy_collate([dataset[seed + i] for i in range(B)])
+
+
+def family_step(name, device, loss, batch, counters=None, **kwargs):
+    """One engine train_step of a family model built with train=True and
+    seed 0 (score heads conditioned): {"loss", "grads", "stats" (running
+    statistics after the step), "initial_stats", "launches" (with
+    ``counters``), "training"}."""
+    import robustmvd_tpu_torch as rmvd
+
+    model = conditioned_heads(rmvd.create_model(name, device=device, seed=0, train=True, **kwargs), name)
+    initial = {k: v.cpu() for k, v in running_stats(model).items()}
+    with tempfile.TemporaryDirectory() as tmp:  # train_step writes nothing there
+        training = family_engine(tmp, model, rmvd.create_dataset("synthetic.train.mvd", num_samples=1), loss, 3, 1)
+    inputs, gt = training.prepare_batch(batch)
+    if counters is not None:
+        counters.reset()
+    total, _ = training.train_step(inputs, gt)
+    training.finished_iterations += 1
+    launches = counters.read() if counters is not None else None
+    return {"loss": float(total), "grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+                                           if p.grad is not None},
+            "stats": {k: v.cpu() for k, v in running_stats(model).items()}, "initial_stats": initial,
+            "launches": launches, "training": training}
+
+
+def phase_train_vis_parity(counters, size=(128, 160), device="cuda"):
+    """One vis_mvsnet train step (the engine's train_step) on the card vs the
+    CPU: seed-0 weights with the score heads conditioned (FAMILY_HEAD_GAINS),
+    128x160, B 1, 1+2 views, TF32 off, cuDNN deterministic: the loss within
+    rtol 1e-4, the gradients at train_parity's bounds (grad_errors), the
+    running statistics after the step within rtol 1e-5 (atol 1e-6); K5 45
+    and K3 9 times on the card."""
+    import torch
+
+    tf32 = set_tf32(False)
+    torch.backends.cudnn.deterministic = True
+    try:
+        batch = family_train_batch(3, 1, *size)
+        card = family_step("vis_mvsnet", device, "vismvsnet_loss", batch, counters)
+        cpu = family_step("vis_mvsnet", "cpu", "vismvsnet_loss", batch)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    worst, failed = grad_errors(card["grads"], cpu["grads"])
+    stats_excess = max(float(((card["stats"][k] - v).abs() - (1e-5 * v.abs() + 1e-6)).max())
+                       for k, v in cpu["stats"].items())
+    moved = sum(not torch.equal(v, card["initial_stats"][k]) for k, v in card["stats"].items())
+    per_step = {k: card["launches"][k] for k in VIS_TRAIN_LAUNCHES}
+    if not (loss_rel <= 1e-4 and not failed and stats_excess <= 0 and per_step == VIS_TRAIN_LAUNCHES
+            and card["grads"].keys() == cpu["grads"].keys() and moved == len(card["stats"])):
+        raise AssertionError(f"train_vis_parity: loss {card['loss']} vs {cpu['loss']}, gradients off at {failed}, "
+                             f"running statistics off by {stats_excess} ({moved} moved), launches {card['launches']}")
+    result = {"loss_card": card["loss"], "loss_cpu": cpu["loss"], "loss_rel_err": loss_rel,
+              "grad_max_abs_err_worst": max(worst.values()), "grad_max_abs_err_worst_param": max(worst, key=worst.get),
+              "running_stats_excess_max": stats_excess, "running_stats_moved": moved,
+              "launches_card": {k: v for k, v in card["launches"].items() if v}}
+    emit("train_vis_parity", tf32=tf32, batch=1, views=3, shape=list(size), heads=FAMILY_HEAD_GAINS["vis_mvsnet"],
+         **result)
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_train_family(counters, size=(128, 160), device="cuda"):
+    """mvsnet_train (``mvsnet_loss``, 48 hypotheses) and cvp_mvsnet
+    (``SL1Loss``, nscale 5) with ``train=True`` (the "xla" routes, BatchNorm
+    frozen, cvp's constant training interval): 3 engine train_steps each on
+    the card at 128x160, B 1, 1+2 views, score heads conditioned; every loss
+    finite, the first within mvsnet rtol 1e-4 / cvp 1e-2 (its finer levels,
+    CVP_FINE_BOUNDS) of the same step on the CPU, the running statistics
+    unchanged; no forward-only kernel launched."""
+    import torch
+
+    tf32 = set_tf32(False)
+    results = {}
+    for name, loss, kwargs, rtol in (("mvsnet_train", "mvsnet_loss", {"num_sampling_steps": 48}, 1e-4),
+                                     ("cvp_mvsnet", "SL1Loss", {}, CVP_FINE_BOUNDS[0])):
+        torch.backends.cudnn.deterministic = True
+        try:
+            batches = [family_train_batch(seed, 1, *size) for seed in (4, 5, 6)]
+            card = family_step(name, device, loss, batches[0], counters, **kwargs)
+            cpu = family_step(name, "cpu", loss, batches[0], **kwargs)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        training = card["training"]
+        losses = [card["loss"]]
+        for batch in batches[1:]:
+            inputs, gt = training.prepare_batch(batch)
+            losses.append(float(training.train_step(inputs, gt)[0]))
+            training.finished_iterations += 1
+        unchanged = all(torch.equal(v.cpu(), card["initial_stats"][k]) for k, v in running_stats(training.model).items())
+        rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+        forward_only = {k: v for k, v in card["launches"].items() if v and k.split("[")[0] in
+                        ("sweep_warp", "sweep_group_cost", "warp_volume")}
+        if not (np.isfinite(losses).all() and rel <= rtol and unchanged and not forward_only):
+            raise AssertionError(f"train_family {name}: losses {losses}, first vs CPU {cpu['loss']} ({rel}), running "
+                                 f"statistics unchanged {unchanged}, forward-only launches {forward_only}")
+        results[name] = {"losses": losses, "loss_cpu": cpu["loss"], "first_loss_rel_err": rel, "rtol": rtol,
+                         "running_stats_unchanged": unchanged,
+                         "launches_first_step": {k: v for k, v in card["launches"].items() if v}}
+        del card, cpu, training
+    emit("train_family", tf32=tf32, batch=1, views=3, shape=list(size), **results)
+    torch.cuda.empty_cache()
+    return results
+
+
 def kernel_kind(name):
     """Group profiler rows: convolutions (cuDNN, 2D and 3D, direct, implicit
     GEMM and FFT), GEMMs outside cuDNN (robust_mvd's score matmul; the
@@ -2565,6 +2969,11 @@ def main():
     phase_train_parity(counters)
     train = phase_train_main(counters)
     train_bf16 = phase_train_bf16(counters, train)
+    k3_grad = phase_kernel_k3_grad()
+    vis_parity = phase_train_vis_parity(counters)
+    vis_train = phase_train_vis(counters)
+    vis_train_bf16 = phase_train_vis_bf16(counters, vis_train)
+    phase_train_family(counters)
 
     f32, bf16 = k1["f32"], k1["bf16"]
     # K1 v2 (the bf16 instantiation) and K1b's bf16 form on the bf16 paths
@@ -2575,11 +2984,14 @@ def main():
     k2_main = k2["mvsnet_f32"]
     k2_launches = {path: family[path]["fp32"]["launches"]["sweep_warp"] for path in ("mvsnet_train", "cvp_mvsnet")}
     k5_launches = {"vis_mvsnet": vis["banded"]["fp32"]["launches"]["conv3d_banded"],
-                   "mvsnet_train_banded_xla": family["mvsnet_train_banded_xla"]["fp32"]["launches"]["conv3d_banded"]}
+                   "mvsnet_train_banded_xla": family["mvsnet_train_banded_xla"]["fp32"]["launches"]["conv3d_banded"],
+                   "train_vis": vis_train["launches"]["conv3d_banded"],
+                   "train_vis_parity": vis_parity["launches_card"]["conv3d_banded"]}
     k5_main = k5["vis_stage3_reg"]
     k5_bf16 = {case: r["bf16"] for case, r in k5.items() if "bf16" in r}
     k5_bf16_runs = {path: family_bf16[path, "bfloat16"] for path in ("vis_mvsnet", "mvsnet_train_banded_xla")}
     k5_bf16_launches = {f"{path}_bf16": r["launches"]["conv3d_banded[bfloat16]"] for path, r in k5_bf16_runs.items()}
+    k5_bf16_launches["train_vis_bf16"] = vis_train_bf16["launches"]["conv3d_banded[bfloat16]"]
     k4_main = k4["f32"]
     k2g_bf16 = {case: r["bf16"] for case, r in k2g.items()}
     k2g_bf16_run = family_bf16["vis_mvsnet", "bfloat16"]
@@ -2689,6 +3101,16 @@ def main():
         "source": "robustmvd_tpu_torch/csrc/soft_argmin.cu",
         "replaces": "robustmvd_tpu/ops/pallas/softargmin.py:46 (fused_soft_argmin, pallas_call :92)",
         "launches": vis["banded"]["fp32"]["launches"]["soft_argmin"],
+        "launches_by_path": {"vis_mvsnet": vis["banded"]["fp32"]["launches"]["soft_argmin"],
+                             "train_vis": vis_train["launches"]["soft_argmin"],
+                             "train_vis_bf16": vis_train_bf16["launches"]["soft_argmin"],
+                             "train_vis_parity": vis_parity["launches_card"]["soft_argmin"]},
+        "launches_per_train_step": {"train_vis": vis_train["launches_per_step"]["soft_argmin"],
+                                    "train_vis_bf16": vis_train_bf16["launches_per_step"]["soft_argmin"]},
+        # the closed-form backward in torch ops (no kernel) at vis's training readouts, 256x320, batch 2
+        "backward": {case: {k: r[k] for k in ("max_abs_err", "limit", "flipped_share", "forward_ms", "backward_ms",
+                                              "plain_forward_backward_ms", "bound_ms", "bound_by")}
+                     for case, r in k3_grad.items()},
         "max_abs_err": max(r["max_abs_err"] for r in k3.values()),
         "ms": k3["stage3_pair"]["ms"],
         "plain_ms": k3["stage3_pair"]["plain_ms"],
@@ -2707,6 +3129,8 @@ def main():
                     "pallas_call :101)",
         "launches": sum(k5_launches.values()),
         "launches_by_path": k5_launches,
+        "launches_per_train_step": {"train_vis": vis_train["launches_per_step"]["conv3d_banded"],
+                                    "train_vis_bf16": vis_train_bf16["launches_per_step"]["conv3d_banded[float32]"]},
         "max_abs_err": max(r["max_abs_err"] for r in k5.values()),
         "ms": k5_main["ms"],
         "plain_ms": k5_main["plain_ms"],
@@ -2723,6 +3147,8 @@ def main():
                  "launches": sum(k5_bf16_launches.values()), "launches_by_path": k5_bf16_launches,
                  "launches_per_frame": {f"{path}_bf16": r["launches_per_frame"]["conv3d_banded[bfloat16]"]
                                         for path, r in k5_bf16_runs.items()},
+                 "launches_per_train_step": {"train_vis_bf16":
+                                             vis_train_bf16["launches_per_step"]["conv3d_banded[bfloat16]"]},
                  "cases": {case: {k: r[k] for k in ("max_abs_err", "limit", "differing_share", "ms", "plain_ms",
                                                     "library_ms", "weight_layout_ms", "f32_ms", "bound_ms",
                                                     "bound_by")}

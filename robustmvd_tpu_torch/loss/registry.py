@@ -5,8 +5,9 @@ from ..utils.registry import Registry
 _registry = Registry("loss")
 
 
-def register_loss(fn):
-    return _registry.register(fn)
+def register_loss(fn, name=None):
+    """Register a loss entrypoint under ``name`` (default: its own name)."""
+    return _registry.register(fn, name=name)
 
 
 def list_losses():

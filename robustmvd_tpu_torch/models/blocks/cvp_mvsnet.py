@@ -79,10 +79,10 @@ class CostRegNet(nn.Module):
                                     ("conv4a", 64, 64)):
             setattr(self, name, ConvBnReLU3D(in_ch, out_ch, conv3d_impl=impl, dtype=dt))
         self.conv5_deconv = layers.ConvTranspose3d(64, 32, 3, stride=1, padding=1, bias=False, dtype=dt)
-        self.conv5_bn = nn.BatchNorm3d(32, eps=1e-5)
+        self.conv5_bn = layers.BatchNorm3d(32, eps=1e-5)
         self.conv6_deconv = layers.ConvTranspose3d(32, 16, 3, stride=2, padding=1, output_padding=1, bias=False,
                                                    dtype=dt)
-        self.conv6_bn = nn.BatchNorm3d(16, eps=1e-5)
+        self.conv6_bn = layers.BatchNorm3d(16, eps=1e-5)
         self.prob0 = Conv3d(16, 1, bias=True, impl=impl)  # float32 (JAX :156)
 
     def forward(self, x):
@@ -179,12 +179,17 @@ def cal_depth_hypo_interval(ref_depths, ref_K, src_K, ref_ex, src_ex):
     return torch.mean(torch.abs(delta_d), dim=1)
 
 
-def cal_depth_hypos(ref_depths, ref_K, src_K, ref_ex, src_ex, d=4):
-    """2d hypotheses around the upsampled depth, spaced by the interval
-
-    (reference: :248-373, inference). Returns (B, 2d, H, W)."""
+def cal_depth_hypos(ref_depths, ref_K, src_K, ref_ex, src_ex, mode="test", d=4, train_interval=6.8085):
+    """2d hypotheses around the upsampled depth (reference: :248-373), spaced
+    by the epipolar interval (``mode="test"``) or, in training, by the
+    constant ``train_interval``. Returns (B, 2d, H, W)."""
     levels = torch.arange(-d, d, dtype=torch.float32, device=ref_depths.device)
-    interval = cal_depth_hypo_interval(ref_depths, ref_K, src_K, ref_ex, src_ex)
+    if mode == "train":
+        interval = torch.full((ref_depths.shape[0],), train_interval, dtype=torch.float32, device=ref_depths.device)
+    elif mode == "test":
+        interval = cal_depth_hypo_interval(ref_depths, ref_K, src_K, ref_ex, src_ex)
+    else:
+        raise ValueError(f"mode must be 'test' or 'train', got {mode!r}")
     return ref_depths[:, None] + levels[None, :, None, None] * interval[:, None, None, None]
 
 

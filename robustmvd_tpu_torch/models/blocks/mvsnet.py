@@ -11,8 +11,10 @@ JAX parameter tree onto ``state_dict()`` one to one.
 ``conv3d_impl`` picks the lowering of the stride-1 3x3x3 convolutions
 where the JAX blocks take it (``ops/conv3d.py``): "banded" runs K5, "xla"
 cuDNN; the strided and transposed convolutions are
-``nn.Conv3d`` / ``nn.ConvTranspose3d`` (cuDNN on the card). BatchNorm runs
-in eval mode (running statistics, eps 1e-5).
+``nn.Conv3d`` / ``nn.ConvTranspose3d`` (cuDNN on the card). BatchNorm is
+``ops/layers.py``'s (eps 1e-5): running statistics in eval, flax's batch
+statistics in training; the MVSNet and CVP-MVSNet models keep it frozen in
+eval while they train, as the JAX package does.
 
 Each block takes a compute ``dtype``, as the JAX blocks do: the convolutions
 run at it (``layers.py``, ``ops/conv3d.py``), the parameters stay float32,
@@ -39,7 +41,7 @@ class ConvBnReLU(nn.Module):
     def __init__(self, in_ch, out_ch, kernel_size=3, stride=1, pad=1, dtype=torch.float32):
         super().__init__()
         self.conv = layers.Conv2d(in_ch, out_ch, kernel_size, stride=stride, padding=pad, bias=False, dtype=dtype)
-        self.bn = nn.BatchNorm2d(out_ch, eps=1e-5)
+        self.bn = layers.BatchNorm2d(out_ch, eps=1e-5)
 
     def forward(self, x):
         return F.relu(self.bn(self.conv(x)))
@@ -57,7 +59,7 @@ class ConvBnReLU3D(nn.Module):
             self.conv = Conv3d(in_ch, out_ch, impl=conv3d_impl, dtype=dtype)
         else:
             self.conv = layers.Conv3d(in_ch, out_ch, 3, stride=stride, padding=1, bias=False, dtype=dtype)
-        self.bn = nn.BatchNorm3d(out_ch, eps=1e-5)
+        self.bn = layers.BatchNorm3d(out_ch, eps=1e-5)
 
     def forward(self, x):
         return F.relu(self.bn(self.conv(x)))
@@ -72,7 +74,7 @@ class DeconvBnReLU3D(nn.Module):
         super().__init__()
         self.conv = layers.ConvTranspose3d(in_ch, out_ch, 3, stride=2, padding=1, output_padding=1, bias=False,
                                            dtype=dtype)
-        self.bn = nn.BatchNorm3d(out_ch, eps=1e-5)
+        self.bn = layers.BatchNorm3d(out_ch, eps=1e-5)
 
     def forward(self, x):
         return F.relu(self.bn(self.conv(x)))

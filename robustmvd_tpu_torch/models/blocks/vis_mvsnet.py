@@ -16,8 +16,9 @@ the JAX blocks take it (``ops/conv3d.py``): "banded" runs K5, "xla"
 cuDNN. Each ``Reg`` runs 4 of them, ``RegPair`` 1 and
 ``RegFuse`` 5: 10 per stage. Every other convolution is ``nn.Conv{2,3}d`` /
 ``nn.ConvTranspose{2,3}d`` (cuDNN on the card; the strided 3D ones are JAX's
-``Conv3dPackedS2``, the same function). BatchNorm runs in eval mode
-(running statistics, eps 1e-5). The U-Net's bottom and head layers are
+``Conv3dPackedS2``, the same function). BatchNorm is ``ops/layers.py``'s
+(eps 1e-5): running statistics in eval, flax's batch statistics in training
+(``bn_mode="batch"``). The U-Net's bottom and head layers are
 empty in every Vis-MVSNet use and are not ported.
 
 ``FeatExt``, ``UNet``, ``Reg``, ``RegFuse`` and ``SingleStage`` take a
@@ -65,7 +66,7 @@ def _conv(in_ch, out_ch, k, stride, dim, conv3d_impl="xla", dtype=torch.float32)
 
 
 def _bn(ch, dim):
-    return (nn.BatchNorm2d if dim == 2 else nn.BatchNorm3d)(ch, eps=1e-5)
+    return (layers.BatchNorm2d if dim == 2 else layers.BatchNorm3d)(ch, eps=1e-5)
 
 
 def torch_deconv(in_ch, out_ch, dim, dtype=torch.float32):
@@ -151,7 +152,7 @@ class FeatExt(nn.Module):
     def __init__(self, dtype=torch.float32):
         super().__init__()
         self.init_conv = layers.Conv2d(3, 16, 5, stride=2, padding=2, bias=False, dtype=dtype)
-        self.init_bn = nn.BatchNorm2d(16, eps=1e-5)
+        self.init_bn = layers.BatchNorm2d(16, eps=1e-5)
         self.unet = UNet(16, enc=2, dec=1, filters=(32, 64, 128), dim=2, dtype=dtype)
         for i, in_ch in enumerate((128, 64, 32), 1):
             setattr(self, f"final_conv_{i}", layers.Conv2d(in_ch, 32, 3, padding=1, bias=False, dtype=dtype))
@@ -204,9 +205,9 @@ class UncertNet(nn.Module):
     def __init__(self):
         super().__init__()
         self.conv1_conv = nn.Conv2d(1, 8, 3, padding=1, bias=False)
-        self.conv1_bn = nn.BatchNorm2d(8, eps=1e-5)
+        self.conv1_bn = layers.BatchNorm2d(8, eps=1e-5)
         self.conv2_conv = nn.Conv2d(8, 8, 3, padding=1, bias=False)
-        self.conv2_bn = nn.BatchNorm2d(8, eps=1e-5)
+        self.conv2_bn = layers.BatchNorm2d(8, eps=1e-5)
         self.head_0 = nn.Conv2d(8, 1, 3, padding=1, bias=False)
         self.head_1 = nn.Conv2d(8, 1, 3, padding=1, bias=False)
 
@@ -230,14 +231,22 @@ class SingleStage(nn.Module):
         self.reg_fuse = RegFuse(conv3d_impl, dtype)
         self.uncert_net = UncertNet()
 
+    def _regularise(self, cost):
+        """A (N, D, h, w, 8) pair volume -> (regularised (N, 8, D, h, w),
+        expected index (N, 1, h, w), uncertainty heads [(N, 1, h, w)])."""
+        interm = self.reg(cost.permute(0, 4, 1, 2, 3).contiguous())
+        _, index, ent, _ = fused_soft_argmin(self.reg_pair(interm)[:, 0])
+        return interm, index, self.uncert_net(ent)
+
     def forward(self, ref_feat, ref_cam, srcs_feat, srcs_cam, depth_num, mode="soft", depth_start=None,
-                depth_interval=None, s_scale=1, src_valid=None):
+                depth_interval=None, s_scale=1, src_valid=None, train=False):
         """ref_feat (B, h, w, C) and srcs_feat [(B, h, w, C)] channel-last,
         float32 or bf16; cams (B, 2, 4, 4); depth_start / depth_interval
         (B, 1, 1, 1) or (B, 1, h, w) (default: the key cam's); src_valid
-        [(B,)] 0/1 per source view (default: all). The fused route writes
-        the pair volumes in the features' dtype (JAX :426-428), the "xla"
-        route in float32.
+        [(B,)] 0/1 per source view (default: all); ``train``: BatchNorm on
+        batch statistics, so the pairs are regularised one at a time. The
+        fused route writes the pair volumes in the features' dtype (JAX
+        :426-428), the "xla" route in float32.
 
         Returns (est_depth (B, 1, h, w), prob_map (B, 1, h, w), pair_results
         [[est_depth, [uncertainty heads (B, 1, h, w)]] per source view])."""
@@ -270,22 +279,26 @@ class SingleStage(nn.Module):
                                                    matmul_sums(Bm, centres), w_dense, groups=GROUPS,
                                                    out_dtype=ref_feat.dtype))
 
-        # phase 2: the P pairs through the shared regularisers in one batch
-        interm = self.reg(torch.cat(costs, dim=0).permute(0, 4, 1, 2, 3).contiguous())  # (P*B, 8, D, h, w)
-        _, index, ent, _ = fused_soft_argmin(self.reg_pair(interm)[:, 0])
-        heads = self.uncert_net(ent)
+        # phase 2: pair regularisation and readout; in training each pair on
+        # its own, so that BatchNorm sees each pair's statistics and moves its
+        # running statistics once per pair (JAX :483-497); else the P pairs
+        # through the shared regularisers in one batch
+        if train:
+            pairs = [self._regularise(cost) for cost in costs]
+        else:
+            interm, index, heads = self._regularise(torch.cat(costs, dim=0))
+            pairs = [(interm[p * B:(p + 1) * B], index[p * B:(p + 1) * B], [hd[p * B:(p + 1) * B] for hd in heads])
+                     for p in range(P)]
 
         # phase 3: visibility-aware fusion, float32 accumulators (JAX :389-390)
-        fused = torch.zeros(interm[:B].shape, device=interm.device)
+        fused = torch.zeros(pairs[0][0].shape, device=ref_feat.device)
         weight_sum = torch.zeros((B, 1, 1, h, w), device=ref_feat.device)
         min_weight = None
         pair_results = []
-        for p in range(P):
+        for p, (interm, index, pair_heads) in enumerate(pairs):
             valid = src_valid[p].float().reshape(B, 1, 1, 1, 1)
-            pair = slice(p * B, (p + 1) * B)
-            pair_heads = [hd[pair] for hd in heads]
-            pair_results.append([index[pair] * depth_interval + depth_start, pair_heads])
-            x, h0 = interm[pair].float(), pair_heads[0][:, :, None]  # (B, 1, 1, h, w)
+            pair_results.append([index * depth_interval + depth_start, pair_heads])
+            x, h0 = interm.float(), pair_heads[0][:, :, None]  # (B, 1, 1, h, w)
             if mode == "soft":
                 weight = torch.exp(-h0) * valid
                 weight_sum = weight_sum + weight

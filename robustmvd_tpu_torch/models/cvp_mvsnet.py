@@ -22,8 +22,14 @@ K2 writes the variance in bf16 (the "xla" route's float32 variance is cast
 at CostRegNet's first convolution); ``prob0``, the softmax, the depth
 regression, the hypotheses and the confidence are float32.
 
+``train=True`` is JAX's training mode (:239-244): the "xla" route (K2 is
+forward-only), refinement hypotheses spaced by the constant training
+interval 6.8085 (``cal_depth_hypos(mode="train")``) instead of the epipolar
+one, and CostRegNet's BatchNorm frozen on its running statistics while the
+model trains (JAX applies it with ``train=False``, :184, :214).
+
 The JAX input adapter pads the view list to a bucket; the port does not, so
-every source view counts. Only inference ("test" mode) is ported.
+every source view counts.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import torch
 from ..ops.homography import inverse, rt_planesweep_warp
 from ..ops.interpolate import resize_bicubic_x2
 from ..ops.kernels.sweep_warp import warp_variance_rt
+from ..ops.layers import freeze_batchnorm
 from ..ops.reductions import variance_over_views
 from .blocks.cvp_mvsnet import (
     CostRegNet,
@@ -64,13 +71,16 @@ class CVPMVSNet(ModelBase):
     """The forward takes images (B, V, 3, H, W) in [0, 1], poses (B, V, 4, 4),
 
     absolute intrinsics (B, V, 3, 3), keyview_idx (B,), min_depth and
-    max_depth (B,)."""
+    max_depth (B,) (default 0.2 and 100). As JAX's ``apply_fn`` it takes and
+    ignores other inputs, such as the training engine's ``depth_range``."""
 
     def __init__(self, device, nscale=5, weights=None, seed=0, conv3d_impl="xla", warp_impl="fused",
-                 dtype="float32"):
+                 dtype="float32", train=False):
         super().__init__()
         self.nscale = nscale
-        self.warp_impl = check_warp_impl(warp_impl)
+        self.mode = "train" if train else "test"
+        # training differentiates through the warp: the "xla" route (JAX :242-244)
+        self.warp_impl = "xla" if train else check_warp_impl(warp_impl)
         self.compute_dtype = cdt = compute_dtype_of(dtype, "cvp_mvsnet")
         self.featurePyramid = FeaturePyramid(cdt)
         self.cost_reg_refine = CostRegNet(conv3d_impl=conv3d_impl, dtype=cdt)
@@ -78,7 +88,7 @@ class CVPMVSNet(ModelBase):
             init_weights(self, torch.Generator().manual_seed(seed))
         else:
             self.load_state_dict(load_checkpoint(weights))
-        self.to(device).eval()
+        freeze_batchnorm(self.to(device).train(train))
 
     def _regress(self, volume, hypos):
         """Variance volume (B, D, h, w, C) -> (depth (B, h, w), prob)."""
@@ -88,8 +98,11 @@ class CVPMVSNet(ModelBase):
             hypos = hypos[:, :, None, None]
         return torch.sum(prob * hypos, dim=1), prob
 
-    def forward(self, images, poses, intrinsics, keyview_idx, min_depth, max_depth):
+    def forward(self, images, poses, intrinsics, keyview_idx, min_depth=None, max_depth=None, **_):
         B, V, _, H, W = images.shape
+        if min_depth is None:
+            min_depth = torch.full((B,), 0.2, device=images.device)
+            max_depth = torch.full((B,), 100.0, device=images.device)
         image_key, images_src = split_key_sources(images, keyview_idx)
         K_key, K_srcs = split_key_sources(intrinsics, keyview_idx)
         pose_key, poses_src = split_key_sources(poses, keyview_idx)
@@ -119,7 +132,7 @@ class CVPMVSNet(ModelBase):
         for level in range(self.nscale - 2, -1, -1):
             depth_up = resize_bicubic_x2(depth)
             hypos = cal_depth_hypos(depth_up, ref_K_ms[:, level], src_K_ms[:, 0, level], pose_key,
-                                    poses_src[:, 0])
+                                    poses_src[:, 0], mode=self.mode)
             volume = proj_cost_volume(fp[level][:, 0], fp[level][:, 1:], ref_K_ms[:, level],
                                       src_K_ms[:, :, level], pose_key, poses_src, hypos, self.warp_impl, cdt)
             depth, prob = self._regress(volume, hypos)
@@ -159,9 +172,8 @@ def cvp_mvsnet(pretrained=True, weights=None, train=False, device="cuda", seed=0
     pretrained weights: pass a port ``.pt`` as ``weights``, or get weights
     from ``seed``. ``conv3d_impl`` picks the lowering of CostRegNet's
     stride-1 3x3x3 convolutions (``ops/conv3d.py``; "banded": K5; "xla",
-    the JAX default: cuDNN); ``warp_impl`` and ``dtype`` as in
-    :class:`CVPMVSNet`."""
-    if train:
-        raise NotImplementedError("cvp_mvsnet training is not ported yet; use train=False")
+    the JAX default: cuDNN); ``warp_impl`` (training takes "xla"),
+    ``dtype`` and ``train`` as in :class:`CVPMVSNet`. Not in
+    ``list_models(trainable_only=True)``, as in JAX."""
     return CVPMVSNet(device=device, nscale=nscale, weights=weights, seed=seed, conv3d_impl=conv3d_impl,
-                     warp_impl=warp_impl, dtype=dtype)
+                     warp_impl=warp_impl, dtype=dtype, train=train)

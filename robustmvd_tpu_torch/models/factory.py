@@ -19,9 +19,13 @@ def create_model(name, pretrained=True, weights=None, train=False, device=None, 
         pretrained: accepted for interface parity; there is no download,
             so without ``weights`` the weights are initialised from ``seed``.
         weights: path to a rmvd ``.pt`` checkpoint.
-        train: build the model for training (``.train()`` mode); only
-            robust_mvd and robust_mvd_5M train in the port so far, the
-            MVSNet family raises.
+        train: build the model for training (``.train()`` mode), with the
+            JAX package's training routes: the MVSNet family takes its
+            ``warp_impl="xla"`` route (K2, K2 group and K4 are forward-only);
+            vis_mvsnet trains its BatchNorms on batch statistics
+            (``bn_mode="batch"``, or ``"frozen"``), mvsnet_train and
+            cvp_mvsnet keep theirs frozen, and cvp_mvsnet spaces its
+            refinement hypotheses by the constant training interval.
         device: ``None`` (the card), ``"cuda"``, ``"cuda:N"`` or ``"cpu"``.
             Without a card, ``None`` raises instead of using the CPU.
         **kwargs: the model's own arguments; ``conv3d_impl`` and

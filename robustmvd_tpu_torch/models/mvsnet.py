@@ -14,12 +14,17 @@ statistics (:170-199), on the card.
 
 ``warp_impl`` picks the cost-volume route: "fused" (the default) runs K2;
 "xla" warps each source view into a materialised (B, D, h, w, C) volume
-with K4 (``ops/kernels/warp_volume.py::homo_warp_volume``) and keeps running
-float32 sums of the views and their squares, updated in place (JAX
-:188-215, without its optimization barrier, an XLA artefact). The "xla"
-route is slower and holds twice the memory at inference; it exists for
-what the JAX package sends through it, training and view-parallel runs,
-neither of which the port has yet (ROADMAP). ``conv3d_impl`` picks the
+and keeps running float32 sums of the views and their squares, updated in
+place (JAX :188-215, without its optimization barrier, an XLA artefact):
+with K4 (``ops/kernels/warp_volume.py::homo_warp_volume``), or, for a model
+built with ``train=True``, through ``ops/homography.py::homo_warp`` (the
+torch op of JAX's XLA ``homo_warp``, which JAX trains through: K2 and K4
+are forward-only). The "xla" route is
+slower and holds twice the memory at inference; it exists for what the JAX
+package sends through it, training and view-parallel runs (the latter not
+ported, ROADMAP). ``train=True`` takes the "xla" route and keeps BatchNorm
+frozen on its running statistics while the model trains (JAX trains MVSNet
+with ``train_bn=False``, :257-261). ``conv3d_impl`` picks the
 lowering of CostRegNet's stride-1 3x3x3 convolutions (``ops/conv3d.py``):
 "banded" runs K5, "xla" cuDNN. ``create_model`` also takes the JAX
 package's names (:data:`WARP_ALIASES`, ``ops/conv3d.py::CONV3D_ALIASES``):
@@ -42,9 +47,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.homography import inverse, matmul_sums
+from ..ops.homography import homo_warp, inverse, matmul_sums
 from ..ops.kernels.sweep_warp import warp_variance
 from ..ops.kernels.warp_volume import homo_warp_volume
+from ..ops.layers import freeze_batchnorm
 from ..ops.reductions import variance_over_views
 from .blocks.mvsnet import CostRegNet, FeatureNet, init_weights
 from .helpers import ModelBase, compute_dtype_of, resize_to_multiple, to_device
@@ -116,11 +122,14 @@ class MVSNet(ModelBase):
     depth_range = (min (B,), max (B,))."""
 
     def __init__(self, device, num_sampling_steps=192, sample_in_inv_depth_space=False, weights=None, seed=0,
-                 conv3d_impl="xla", warp_impl="fused", dtype="float32"):
+                 conv3d_impl="xla", warp_impl="fused", dtype="float32", train=False):
         super().__init__()
         self.num_sampling_steps = num_sampling_steps
         self.sample_in_inv_depth_space = sample_in_inv_depth_space
-        self.warp_impl = check_warp_impl(warp_impl)
+        # training differentiates through the warp: the "xla" route (JAX :254-256)
+        # with homo_warp, since K4 is forward-only
+        self.warp_impl = "xla" if train else check_warp_impl(warp_impl)
+        self.warp = homo_warp if train else homo_warp_volume
         self.compute_dtype = cdt = compute_dtype_of(dtype, "mvsnet_train")
         self.feature = FeatureNet(cdt)
         self.cost_regularization = CostRegNet(conv3d_impl=conv3d_impl, dtype=cdt)
@@ -128,7 +137,7 @@ class MVSNet(ModelBase):
             init_weights(self, torch.Generator().manual_seed(seed))
         else:
             self.load_state_dict(load_checkpoint(weights))
-        self.to(device).eval()
+        freeze_batchnorm(self.to(device).train(train))
 
     def depth_samples(self, B, depth_range, device):
         """(B, D) hypotheses from the first sample's range (mvsnet.py:46-74)."""
@@ -160,7 +169,8 @@ class MVSNet(ModelBase):
         ref_feats, src_feats = split_key_sources(feats, keyview_idx)
 
         if self.warp_impl == "xla":
-            volume = self.warped_variance(ref_feats, src_feats, proj_src, proj_key, depth_samples).to(cdt)
+            volume = self.warped_variance(ref_feats, src_feats, proj_src, proj_key, depth_samples,
+                                          self.warp).to(cdt)
         else:
             volume = warp_variance(ref_feats, src_feats, proj_src, proj_key, depth_samples, out_dtype=cdt)
         cost_reg = self.cost_regularization(volume.permute(0, 4, 1, 2, 3).contiguous())[:, 0]
@@ -173,11 +183,11 @@ class MVSNet(ModelBase):
         return pred, aux
 
     @staticmethod
-    def warped_variance(ref_feats, src_feats, proj_src, proj_key, depth_samples):
+    def warped_variance(ref_feats, src_feats, proj_src, proj_key, depth_samples, warp=homo_warp_volume):
         """The float32 variance volume through one warped volume per source
-        view (K4, ``homo_warp_volume``) and float32 running sums (JAX
-        :188-215)."""
-        warped = (homo_warp_volume(src_feats[:, v], proj_src[:, v], proj_key, depth_samples)
+        view (``warp``: K4, ``homo_warp_volume``, or in training
+        ``homo_warp``) and float32 running sums (JAX :188-215)."""
+        warped = (warp(src_feats[:, v], proj_src[:, v], proj_key, depth_samples)
                   for v in range(src_feats.shape[1]))
         return variance_over_views(ref_feats, warped, depth_samples.shape[1])
 
@@ -210,10 +220,10 @@ def mvsnet_train(pretrained=True, weights=None, train=False, device="cuda", seed
                  sample_in_inv_depth_space=False, conv3d_impl="xla", warp_impl="fused", dtype="float32"):
     """MVSNet as trained in the reference (mvsnet.py:206-217), 256 hypotheses;
     registered without pretrained weights: pass a port ``.pt`` as ``weights``,
-    or get weights from ``seed``. ``conv3d_impl``, ``warp_impl`` and
+    or get weights from ``seed``. Not in ``list_models(trainable_only=True)``,
+    as in JAX, but ``train=True`` trains it (the "xla" route, BatchNorm
+    frozen). ``conv3d_impl``, ``warp_impl`` (training takes "xla") and
     ``dtype`` ("float32" or "bfloat16") as in :class:`MVSNet`."""
-    if train:
-        raise NotImplementedError("mvsnet_train training is not ported yet; use train=False")
     return MVSNet(device=device, num_sampling_steps=num_sampling_steps,
                   sample_in_inv_depth_space=sample_in_inv_depth_space, weights=weights, seed=seed,
-                  conv3d_impl=conv3d_impl, warp_impl=warp_impl, dtype=dtype)
+                  conv3d_impl=conv3d_impl, warp_impl=warp_impl, dtype=dtype, train=train)

@@ -24,9 +24,19 @@ bf16 form with ``conv3d_impl="banded"``), with float32 parameters and
 BatchNorm statistics; the score heads, the readouts (K3), the uncertainty net
 and the fusion are float32.
 
+``train=True`` is JAX's training configuration (:173-200): the "xla" warp
+route (K2's group mode is forward-only), the model in ``.train()`` mode and,
+with ``bn_mode="batch"`` (the default), BatchNorm on flax's batch statistics
+(``ops/layers.py``), each source pair regularised on its own so that the
+running statistics move once per pair (with two source views K5 runs 15
+times and K3 3 times per stage forward, 10 and 2 at inference);
+``bn_mode="frozen"`` keeps every BatchNorm on its running
+statistics whoever calls ``.train()``. The next stage's depth start takes no
+gradient (JAX's ``stop_gradient``). K3's backward is its closed form in torch
+ops, K5's cuDNN's.
+
 The JAX input adapter pads the view list to a bucket (that bounds XLA
-compiles); the port does not, so every source view counts. Only inference
-is ported.
+compiles); the port does not, so every source view counts.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ import numpy as np
 import torch
 
 from ..ops.interpolate import resize_bilinear
+from ..ops.layers import freeze_batchnorm
 from .blocks.mvsnet import init_weights
 from .blocks.vis_mvsnet import FeatExt, SingleStage
 from .helpers import ModelBase, compute_dtype_of, resize_to_multiple, to_device
@@ -52,6 +63,7 @@ FEATURE_STRIDES = (8, 4, 2)
 # argmax that rounding flips. The heads are scaled down so that a random
 # network's softmax is moderately peaked (max probability ~0.3-0.7).
 SCORE_HEAD_GAIN = 1 / 64
+BN_MODES = ("batch", "frozen")
 
 
 class VisMVSNet(ModelBase):
@@ -60,14 +72,18 @@ class VisMVSNet(ModelBase):
     optionally depth_range = (min (B,), max (B,))."""
 
     def __init__(self, device, num_sampling_steps=192, weights=None, seed=0, conv3d_impl="banded",
-                 warp_impl="fused", dtype="float32"):
+                 warp_impl="fused", dtype="float32", train=False, bn_mode="batch"):
         super().__init__()
+        if bn_mode not in BN_MODES:
+            raise ValueError(f"bn_mode must be one of {BN_MODES}, got {bn_mode!r}")
         self.num_sampling_steps = num_sampling_steps
-        self.warp_impl = check_warp_impl(warp_impl)
+        self.bn_mode = bn_mode
+        # training differentiates through the warp: the "xla" route (JAX :179-182)
+        self.warp_impl = "xla" if train else check_warp_impl(warp_impl)
         self.compute_dtype = cdt = compute_dtype_of(dtype, "vis_mvsnet")
         self.feat_ext = FeatExt(cdt)
         for k in (1, 2, 3):
-            setattr(self, f"stage{k}", SingleStage(conv3d_impl, cdt, warp_impl))
+            setattr(self, f"stage{k}", SingleStage(conv3d_impl, cdt, self.warp_impl))
         if weights is None:
             init_weights(self, torch.Generator().manual_seed(seed))
             with torch.no_grad():
@@ -76,7 +92,9 @@ class VisMVSNet(ModelBase):
                     stage.reg_fuse.final_conv.weight.mul_(SCORE_HEAD_GAIN)
         else:
             self.load_state_dict(load_checkpoint(weights))
-        self.to(device).eval()
+        self.to(device).train(train)
+        if bn_mode == "frozen":
+            freeze_batchnorm(self)
 
     def forward(self, images, poses, intrinsics, keyview_idx, depth_range=None):
         B, V, _, H, W = images.shape
@@ -96,6 +114,7 @@ class VisMVSNet(ModelBase):
         depth_start = cam_key[:, 1:2, 3:4, 0:1]  # (B, 1, 1, 1)
         depth_interval = cam_key[:, 1:2, 3:4, 1:2]
 
+        train_bn = self.training and self.bn_mode == "batch"
         outputs, prob_maps = [], []
         est_depth = None
         for k, feat in enumerate(self.feat_ext(images.reshape(B * V, 3, H, W))):
@@ -104,11 +123,12 @@ class VisMVSNet(ModelBase):
             size = ref.shape[1:3]
             start = None
             if est_depth is not None:
-                start = resize_bilinear(est_depth, size) - DEPTH_NUMS[k] * depth_interval * INTERVAL_SCALES[k] / 2
+                start = resize_bilinear(est_depth.detach(), size) - DEPTH_NUMS[k] * depth_interval * INTERVAL_SCALES[k] / 2
             stage = getattr(self, f"stage{k + 1}")
             est_depth, prob_map, pairs = stage(ref.contiguous(), cam_key, [srcs[:, i] for i in range(V - 1)],
                                                srcs_cam, DEPTH_NUMS[k], "soft", start,
-                                               depth_interval * INTERVAL_SCALES[k], FEATURE_STRIDES[k])
+                                               depth_interval * INTERVAL_SCALES[k], FEATURE_STRIDES[k],
+                                               train=train_bn)
             outputs.append([est_depth, pairs])
             up = FEATURE_STRIDES[k] // FEATURE_STRIDES[-1]
             prob_maps.append(resize_bilinear(prob_map, (size[0] * up, size[1] * up)) if up > 1 else prob_map)
@@ -140,18 +160,17 @@ class VisMVSNet(ModelBase):
         return sample
 
 
-@register_model(trainable=False)
+@register_model
 def vis_mvsnet(pretrained=True, weights=None, train=False, device="cuda", seed=0, num_sampling_steps=192,
-               conv3d_impl="banded", warp_impl="fused", dtype="float32"):
+               conv3d_impl="banded", warp_impl="fused", dtype="float32", bn_mode="batch"):
     """Vis-MVSNet (reference: vis_mvsnet.py:232-242) with soft fusion,
     registered without pretrained weights: pass a port ``.pt`` as
     ``weights``, or get weights from ``seed``. ``conv3d_impl`` picks the
     lowering of the 3D U-Nets' stride-1 3x3x3 convolutions
     (``ops/conv3d.py``): "banded", the JAX default, runs K5 (30 launches
     per frame; 24 of them in bf16 at ``dtype="bfloat16"``, the 6 score heads in
-    float32), "xla" cuDNN. ``warp_impl`` and ``dtype`` as in
+    float32), "xla" cuDNN. ``warp_impl`` ("fused" or "xla"; training takes
+    "xla"), ``dtype``, ``train`` and ``bn_mode`` ("batch" or "frozen") as in
     :class:`VisMVSNet`."""
-    if train:
-        raise NotImplementedError("vis_mvsnet training is not ported yet; use train=False")
     return VisMVSNet(device=device, num_sampling_steps=num_sampling_steps, weights=weights, seed=seed,
-                     conv3d_impl=conv3d_impl, warp_impl=warp_impl, dtype=dtype)
+                     conv3d_impl=conv3d_impl, warp_impl=warp_impl, dtype=dtype, train=train, bn_mode=bn_mode)

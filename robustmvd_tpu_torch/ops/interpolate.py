@@ -39,19 +39,22 @@ def _keys_cubic(x):
 @functools.lru_cache(maxsize=32)
 def _bicubic_x2_weights(in_size, device):
     """(in_size, 2 * in_size) float32 weights of ``jax.image``'s
-    ``compute_weight_mat`` for a scale of 2 (no translation)."""
-    out_size = 2 * in_size
-    sample_f = (torch.arange(out_size, dtype=torch.float32) + 0.5) * 0.5 - 0.5
-    x = torch.abs(sample_f[None, :] - torch.arange(in_size, dtype=torch.float32)[:, None])
-    weights = _keys_cubic(x)
-    total = torch.sum(weights, dim=0, keepdim=True)
-    eps = torch.finfo(torch.float32).eps
-    weights = torch.where(torch.abs(total) > 1000.0 * eps,
-                          weights / torch.where(total != 0, total, torch.ones_like(total)),
-                          torch.zeros_like(weights))
-    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
-    weights = torch.where(inside[None, :], weights, torch.zeros_like(weights))
-    return weights.to(device)
+    ``compute_weight_mat`` for a scale of 2 (no translation). Built outside
+    inference mode whatever the caller's: the cached tensor serves later
+    calls, and an inference tensor cannot take part in a training step."""
+    with torch.inference_mode(False):
+        out_size = 2 * in_size
+        sample_f = (torch.arange(out_size, dtype=torch.float32) + 0.5) * 0.5 - 0.5
+        x = torch.abs(sample_f[None, :] - torch.arange(in_size, dtype=torch.float32)[:, None])
+        weights = _keys_cubic(x)
+        total = torch.sum(weights, dim=0, keepdim=True)
+        eps = torch.finfo(torch.float32).eps
+        weights = torch.where(torch.abs(total) > 1000.0 * eps,
+                              weights / torch.where(total != 0, total, torch.ones_like(total)),
+                              torch.zeros_like(weights))
+        inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+        weights = torch.where(inside[None, :], weights, torch.zeros_like(weights))
+        return weights.to(device)
 
 
 def resize_bicubic_x2(x):

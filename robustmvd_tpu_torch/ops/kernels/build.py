@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 with ``nvcc`` into ``build/robustmvd_tpu_torch/lib<name>.so`` at the root of
 the checkout (``/build/`` is git-ignored). A library is rebuilt when its
 source is newer. :func:`build` starts one ``nvcc`` per source, all at once,
-and waits for all of them.
+and waits for all of them. :func:`refuse_gradient` is the guard of the
+wrappers whose kernels have no backward.
 """
 
 from __future__ import annotations
@@ -33,6 +34,19 @@ def _nvcc():
     if nvcc is None:
         raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
     return nvcc
+
+
+def refuse_gradient(kernel, *tensors):
+    """Raise where a forward-only kernel would drop a gradient: grad mode
+    is on and one of ``tensors`` requires grad. Inference runs under
+    ``torch.no_grad()`` / ``torch.inference_mode()``; the models train through
+    their ``warp_impl="xla"`` routes."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{kernel} is forward-only and would drop the gradient of its inputs: run it under "
+                           "torch.no_grad(), or train through the model's warp_impl='xla' route "
+                           "(create_model(..., train=True) takes it)")
 
 
 def library_path(name):

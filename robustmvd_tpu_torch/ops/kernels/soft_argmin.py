@@ -7,8 +7,12 @@ probability mass within +-window of the expectation, in one kernel. The JAX
 function's ``tile`` and ``interpret`` arguments set the TPU kernel's tiling
 and are not taken.
 
-For a CUDA tensor :func:`fused_soft_argmin` launches the kernel or raises.
-For a CPU tensor it computes the same function with
+For a CUDA tensor :func:`fused_soft_argmin` launches the kernel or raises,
+as a ``torch.autograd.Function`` whose backward is the closed-form gradient
+of the four results in torch ops (:func:`soft_argmin_backward`), the
+gradient the JAX package takes through its XLA ``soft_argmin`` and
+``entropy``; no kernel runs backward, and the backward does not call the
+plain version. For a CPU tensor it computes the same function with
 :func:`fused_soft_argmin_reference`, the plain torch version (the math of
 the JAX ``fused_soft_argmin_reference``: ``ops/reductions.py``'s
 ``soft_argmin`` and ``entropy``), which is also what the kernel is held
@@ -52,19 +56,60 @@ def fused_soft_argmin(volume, window=2):
         return fused_soft_argmin_reference(volume, window)
     if volume.device.type != "cuda":
         raise ValueError(f"soft_argmin runs on cuda or cpu, not {volume.device}")
+    return _SoftArgmin.apply(volume.contiguous(), float(window))
+
+
+def _launch(volume, window):
     B, D, H, W = volume.shape
-    volume = volume.contiguous()
     prob = torch.empty_like(volume)
-    maps = torch.empty((3, B, 1, H, W), dtype=torch.float32, device=volume.device)
+    maps = [torch.empty((B, 1, H, W), dtype=torch.float32, device=volume.device) for _ in range(3)]
     fn = _entry()
     with torch.cuda.device(volume.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(volume.data_ptr(), prob.data_ptr(), maps[0].data_ptr(), maps[1].data_ptr(), maps[2].data_ptr(),
-                 B, D, H * W, float(window), stream)
+        err = fn(volume.data_ptr(), prob.data_ptr(), *(m.data_ptr() for m in maps), B, D, H * W, window, stream)
     if err != 0:
         raise RuntimeError(f"soft_argmin kernel launch failed: cudaError {err}")
     fused_soft_argmin.launches += 1
-    return prob, maps[0], maps[1], maps[2]
+    return (prob, *maps)
+
+
+def soft_argmin_backward(prob, expectation, window, g_prob, g_expectation, g_entropy, g_mass):
+    """The score volume's gradient from the results' gradients (any of them
+    None), in closed form: with d the hypothesis index,
+    ``g_p = g_prob + g_E d + g_H (-log clip(p, 1e-9, 1) - [1e-9 <= p <= 1])
+    + g_M [|d - E| <= window]``, then through the softmax
+    ``g_s = p (g_p - sum_d p g_p)``. The window mask is a step function of
+    E and passes no gradient. prob (B, D, H, W); the rest (B, 1, H, W)."""
+    g_p = torch.zeros_like(prob) if g_prob is None else g_prob.clone()
+    index = None
+    if g_expectation is not None or g_mass is not None:
+        index = torch.arange(prob.shape[1], dtype=prob.dtype, device=prob.device).reshape(1, -1, 1, 1)
+    if g_expectation is not None:
+        g_p += g_expectation * index
+    if g_entropy is not None:
+        inside = ((prob >= 1e-9) & (prob <= 1.0)).to(prob.dtype)
+        g_p -= g_entropy * (torch.log(prob.clamp(1e-9, 1.0)) + inside)
+    if g_mass is not None:
+        g_p += g_mass * (torch.abs(index - expectation) <= window).to(prob.dtype)
+    return prob * (g_p - (prob * g_p).sum(dim=1, keepdim=True))
+
+
+class _SoftArgmin(torch.autograd.Function):
+    """K3 forward; backward :func:`soft_argmin_backward`, in torch ops."""
+
+    @staticmethod
+    def forward(ctx, volume, window):
+        out = _launch(volume, window)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(out[0], out[1])
+        ctx.window = window
+        return out
+
+    @staticmethod
+    def backward(ctx, g_prob, g_expectation, g_entropy, g_mass):
+        prob, expectation = ctx.saved_tensors
+        grad = soft_argmin_backward(prob, expectation, ctx.window, g_prob, g_expectation, g_entropy, g_mass)
+        return grad, None
 
 
 fused_soft_argmin.launches = 0

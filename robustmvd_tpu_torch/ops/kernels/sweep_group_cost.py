@@ -8,7 +8,10 @@ and layouts are the JAX entry's (channel-last maps); its ``dc``, ``band``
 and ``interpret`` arguments set the TPU kernel's tiling and are not taken.
 
 For a CUDA tensor :func:`homography_group_cost` launches the kernel or
-raises. For a CPU tensor it computes the same function with
+raises. The kernel is forward-only, as the JAX kernel: a CUDA input that
+requires grad while grad mode is on raises (``build.py::
+refuse_gradient``), and Vis-MVSNet trains through ``warp_impl="xla"``. For a
+CPU tensor it computes the same function with
 :func:`homography_group_cost_reference`, the plain torch version (the TPU
 kernel's coordinates, a bilinear gather, group sums written out in channel
 order), which is also what the kernel is held against. The kernel's source
@@ -150,6 +153,7 @@ def homography_group_cost(ref_feat, src_feat, Amat, Bmat, w_dense, groups=8, out
         return homography_group_cost_reference(ref_feat, src_feat, Amat, Bmat, w_dense, groups, out_dtype)
     if ref_feat.device.type != "cuda":
         raise ValueError(f"sweep_group_cost runs on cuda or cpu, not {ref_feat.device}")
+    build.refuse_gradient("sweep_group_cost (K2 group)", ref_feat, src_feat, Amat, Bmat, w_dense)
     B, H, W, C = ref_feat.shape
     Hs, Ws = src_feat.shape[1:3]
     D = w_dense.shape[1]

@@ -17,7 +17,10 @@ kernel's tiling and are not taken. The group-correlation entry
 (``homography_group_cost``, Vis-MVSNet) is its own kernel,
 ``sweep_group_cost.py``.
 
-For a CUDA tensor each entry launches the kernel or raises. For a CPU tensor
+For a CUDA tensor each entry launches the kernel or raises. The kernel is
+forward-only, as the JAX kernel (which has no VJP): a CUDA input that
+requires grad while grad mode is on raises (``build.py::refuse_gradient``), and
+training takes the models' ``warp_impl="xla"`` route. For a CPU tensor
 it computes the same function with :func:`sweep_variance_reference`, the
 plain torch version (``rt_planesweep_warp`` per view, then
 ``E[x^2] - E[x]^2`` over the reference and the valid sources in float32),
@@ -109,6 +112,7 @@ def sweep_variance(ref_feat, src_feats, rot, trans, depth, src_valid=None, out_d
         return sweep_variance_reference(ref_feat, src_feats, rot, trans, depth, src_valid, out_dtype)
     if ref_feat.device.type != "cuda":
         raise ValueError(f"sweep_warp runs on cuda or cpu, not {ref_feat.device}")
+    build.refuse_gradient("sweep_warp (K2)", ref_feat, src_feats, rot, trans, depth)
     _, H, W, C = ref_feat.shape
     Hs, Ws = src_feats.shape[2:4]
     D = depth.shape[1]

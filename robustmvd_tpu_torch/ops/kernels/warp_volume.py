@@ -10,11 +10,12 @@ taken. Float32 features give ``homo_warp``'s own function; bfloat16
 features give ``homo_warp_pallas``'s (bf16 source, float32 weights); the
 volume is float32 either way.
 
-For a CUDA tensor :func:`homo_warp_volume` launches the kernel or raises,
-as a ``torch.autograd.Function`` whose backward differentiates the plain
-version (the JAX VJP differentiates the XLA ``homo_warp``; with float32
-features forward and backward are the same function, so no ``ALLOW_TRAIN``
-guard is needed). For a CPU tensor it computes the same function with
+For a CUDA tensor :func:`homo_warp_volume` launches the kernel or raises.
+The kernel is forward-only: the JAX kernel's VJP refuses training
+(``ALLOW_TRAIN = False``), and a CUDA input that requires grad while grad
+mode is on raises here (``build.py::refuse_gradient``). MVSNet trains
+through ``ops/homography.py::homo_warp``, as JAX trains through its XLA
+``homo_warp``. For a CPU tensor it computes the same function with
 :func:`homo_warp_volume_reference`, the plain torch version
 (``ops/homography.py::homo_warp``, ``rt_planesweep_warp``'s gather), which
 is also what the kernel is held against. The
@@ -73,7 +74,8 @@ def homo_warp_volume(src_feat, src_proj, ref_proj_inv, depth_values):
         return rt_planesweep_warp(src_feat, rot, trans, depth)
     if src_feat.device.type != "cuda":
         raise ValueError(f"warp_volume runs on cuda or cpu, not {src_feat.device}")
-    return _WarpVolume.apply(src_feat, rot, trans, depth)
+    build.refuse_gradient("warp_volume (K4)", src_feat, src_proj, ref_proj_inv, depth_values)
+    return _launch(src_feat, rot, trans, depth)
 
 
 homo_warp_volume.launches = 0
@@ -93,24 +95,6 @@ def _launch(src_feat, rot, trans, depth):
         raise RuntimeError(f"warp_volume kernel launch failed: cudaError {err}")
     homo_warp_volume.launches += 1
     return out
-
-
-class _WarpVolume(torch.autograd.Function):
-    """K4 forward; backward through the plain version (autograd)."""
-
-    @staticmethod
-    def forward(ctx, src_feat, rot, trans, depth):
-        ctx.save_for_backward(src_feat, rot, trans, depth)
-        return _launch(src_feat, rot, trans, depth)
-
-    @staticmethod
-    def backward(ctx, grad):
-        inputs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        with torch.enable_grad():
-            out = rt_planesweep_warp(*inputs)
-        wanted = [t for t in inputs if t.requires_grad]
-        grads = iter(torch.autograd.grad(out, wanted, grad, allow_unused=True))
-        return tuple(next(grads) if t.requires_grad else None for t in inputs)
 
 
 def _entry():

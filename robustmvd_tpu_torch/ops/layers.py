@@ -1,4 +1,5 @@
-"""Convolutions that compute at a given dtype, for the models' mixed precision.
+"""Convolutions that compute at a given dtype, for the models' mixed precision,
+and the family's BatchNorm with flax's training statistics.
 
 Each is the ``torch.nn`` module of its name with a ``dtype`` argument, as the
 JAX blocks take flax's ``dtype=``: the parameters stay float32 (so the
@@ -61,3 +62,62 @@ class ConvTranspose3d(ComputeDtype, nn.ConvTranspose3d):
     def forward(self, x):
         return F.conv_transpose3d(*self.cast(x), self.stride, self.padding, self.output_padding, self.groups,
                                   self.dilation)
+
+
+class _FlaxBatchNorm:
+    """flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` in training, the
+    MVSNet family's BatchNorm (the JAX blocks, ``models/blocks/vis_mvsnet.py``
+    and ``blocks/mvsnet.py``); in eval exactly the ``torch.nn`` module.
+
+    In training the input is normalised with its biased batch statistics,
+    computed in float32 whatever its dtype as flax computes them (mean and
+    ``max(0, E[x^2] - E[x]^2)``), scaled and shifted in float32 and given back
+    in the input's dtype; the running statistics move by ``momentum`` (0.1,
+    flax's 0.9 the other way round) towards the batch mean and the *biased*
+    batch variance. ``torch.nn``'s own BatchNorm moves them towards the
+    unbiased variance, n / (n - 1) of it. The ``state_dict`` keys are
+    ``torch.nn``'s, so the weight bridge (``models/weights.py``) is unchanged.
+
+    ``frozen`` keeps the module in eval mode whatever ``.train()`` asks: the
+    JAX package trains its MVSNet, CVP-MVSNet and frozen Vis-MVSNet
+    BatchNorms on their running averages (:func:`freeze_batchnorm`).
+    """
+
+    frozen = False
+
+    def train(self, mode=True):
+        return super().train(bool(mode) and not self.frozen)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        dims = (0, *range(2, x.dim()))
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        x32 = x.float()
+        mean = x32.mean(dims)
+        var = torch.clamp((x32 * x32).mean(dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            keep = 1.0 - self.momentum
+            self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)
+            self.running_var.copy_(keep * self.running_var + self.momentum * var)
+            self.num_batches_tracked.add_(1)
+        y = (x32 - mean.reshape(shape)) * (torch.rsqrt(var + self.eps) * self.weight).reshape(shape)
+        return (y + self.bias.reshape(shape)).to(x.dtype)
+
+
+class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's training statistics (:class:`_FlaxBatchNorm`)."""
+
+
+class BatchNorm3d(_FlaxBatchNorm, nn.BatchNorm3d):
+    """``nn.BatchNorm3d`` with flax's training statistics (:class:`_FlaxBatchNorm`)."""
+
+
+def freeze_batchnorm(model):
+    """Keep every BatchNorm of ``model`` in eval mode (running statistics,
+    not updated), whoever calls ``.train()`` later; returns ``model``."""
+    for m in model.modules():
+        if isinstance(m, _FlaxBatchNorm):
+            m.frozen = True
+            m.eval()
+    return model

@@ -14,7 +14,11 @@ the JAX package's event writer is not ported. It saves the train state every
 ``save_checkpoint_interval_min`` minutes as ``snapshot-iter-{:09d}.pt``
 (the newest 3 kept), resumes from the newest snapshot when built, and ends
 with a train state and a weights-only snapshot that
-``create_model(..., weights=...)`` loads.
+``create_model(..., weights=...)`` loads. A snapshot's model state is the
+``state_dict``, BatchNorm running statistics included (the MVSNet family
+trains them in place, as JAX's mutable-BN step threads them). The engine
+never switches the model's mode: a model built with ``train=True`` trains in
+the modes it was built with, and frozen BatchNorms stay in eval.
 """
 
 from __future__ import annotations

@@ -12,10 +12,12 @@ class Registry:
         self._entrypoints: Dict[str, Callable] = {}
         self._meta: Dict[str, dict] = {}
 
-    def register(self, fn, **meta):
-        """Register ``fn`` under its own name, with metadata ``meta``."""
-        self._entrypoints[fn.__name__] = fn
-        self._meta[fn.__name__] = meta
+    def register(self, fn, name=None, **meta):
+        """Register ``fn`` under ``name`` (default: its own name), with
+        metadata ``meta``."""
+        name = fn.__name__ if name is None else name
+        self._entrypoints[name] = fn
+        self._meta[name] = meta
         return fn
 
     def get(self, name: str) -> Callable:

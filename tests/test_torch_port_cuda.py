@@ -1072,17 +1072,20 @@ def test_k4_at_mvsnet_shape_matches_plain_version_bit_for_bit(cuda):
 
 
 def test_k4_backward_matches_plain_version(cuda):
-    """K4's backward differentiates the plain version: the same gradients
-    for the features and the projections as autograd through it (no 0/0
-    plane: its coordinates' gradient is NaN in both)."""
+    """What stands in for K4's backward in training: MVSNet trains through
+    the plain version's op, ``ops/homography.py::homo_warp``, whose gradient
+    on the card matches the CPU's for the features and the projections (no
+    0/0 plane: its coordinates' gradient is NaN on both). K4's own refusal
+    of a gradient is ``test_forward_only_kernels_refuse_a_gradient``'s."""
     src, proj, inv, depth = (a.to(cuda) for a in _warp_inputs(12, C=8))
     depth[:, 0] = 0.25
     weight = torch.randn((2, 8, 12, 20, 8), device=cuda)
     grads = []
-    for fn in (homo_warp_volume, homo_warp_volume_reference):
-        leaves = [a.clone().requires_grad_() for a in (src, proj)]
-        (fn(leaves[0], leaves[1], inv, depth) * weight).sum().backward()
-        grads.append([a.grad for a in leaves])
+    for device in ("cuda", "cpu"):
+        leaves = [a.to(device).clone().requires_grad_() for a in (src, proj)]
+        (homo_warp_volume_reference(leaves[0], leaves[1], inv.to(device), depth.to(device))
+         * weight.to(device)).sum().backward()
+        grads.append([a.grad.cpu() for a in leaves])
     for ours, ref in zip(*grads):
         torch.testing.assert_close(ours, ref, rtol=1e-5, atol=1e-5)
 
@@ -1402,3 +1405,183 @@ def test_bf16_train_step_on_card_matches_cpu(cuda, tmp_path):
     assert abs(steps["cuda"][0] - steps["cpu"][0]) <= 1e-2 * abs(steps["cpu"][0])
     g, c = steps["cuda"][1], steps["cpu"][1]
     assert float(g @ c / (g.norm() * c.norm())) > 0.99
+
+
+# --- the MVSNet family's training: K3's gradient, the forward-only guards, BatchNorm, a vis step ---
+
+K3_GRAD_SHAPES = [(2, 64, 32, 40), (2, 32, 64, 80), (2, 16, 128, 160)]  # vis's readouts at 256x320, batch 2
+
+
+@pytest.mark.parametrize("shape", K3_GRAD_SHAPES)
+@pytest.mark.parametrize("with_mass", [False, True])
+def test_k3_gradient_matches_plain_version(cuda, shape, with_mass):
+    """K3's autograd Function (the kernel forward, the closed-form backward in
+    torch ops) against autograd through the plain version, random upstream
+    gradients of the expectation, the entropy and (``with_mass``) the window
+    mass: within 1e-4 of the gradient's largest |value| (the kernel's prob
+    differs from the plain version's by up to 1e-5). With the mass, pixels
+    whose window mask differs between the two expectations (a tie at a
+    window edge, on at most 1% of them) are left out."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    vol = torch.randn(shape, generator=gen, device=cuda) * 3
+    B, D, H, W = shape
+    gs = [torch.randn((B, 1, H, W), generator=gen, device=cuda) for _ in range(3)]
+    grads, outs = [], []
+    for fn in (fused_soft_argmin, fused_soft_argmin_reference):
+        leaf = vol.clone().requires_grad_()
+        out = fn(leaf, window=2)
+        terms = [out[1], out[2]] + ([out[3]] if with_mass else [])
+        torch.autograd.backward(terms, gs[:len(terms)])
+        grads.append(leaf.grad)
+        outs.append(out)
+    before = fused_soft_argmin.launches
+    fused_soft_argmin(vol, window=2)
+    assert fused_soft_argmin.launches == before + 1  # the backward launches no kernel
+    keep = torch.ones((B, 1, H, W), dtype=torch.bool, device=cuda)
+    if with_mass:
+        index = torch.arange(D, device=cuda, dtype=torch.float32).reshape(1, D, 1, 1)
+        masks = [(torch.abs(index - o[1]) <= 2) for o in outs]
+        keep = (masks[0] == masks[1]).all(dim=1, keepdim=True)
+        assert keep.float().mean() >= 0.99
+    ours, ref = grads
+    assert torch.isfinite(ours).all()
+    assert ((ours - ref).abs() * keep).max() <= 1e-4 * ref.abs().max()
+
+
+def _guarded_calls(cuda):
+    """Each forward-only wrapper with its CUDA arguments; the first requires grad."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    ref = torch.randn((1, 6, 8, 16), generator=gen, device=cuda).requires_grad_()
+    src = torch.randn((1, 6, 8, 16), generator=gen, device=cuda)
+    eye3 = torch.eye(3, device=cuda)
+    depth = torch.linspace(1, 5, 4, device=cuda).reshape(1, 4)
+    proj = torch.eye(4, device=cuda)[None].clone()
+    proj[0, 0, 3] = 0.1
+    w = (1.0 / depth).reshape(1, 4, 1, 1).expand(1, 4, 6, 8).contiguous()
+    A = torch.tensor([[6.0, 0, 4], [0, 6, 3], [0, 0, 1]], device=cuda)[None]
+    return {
+        "sweep_warp": (sweep_variance, sweep_variance_reference,
+                       (ref, src[:, None], eye3.expand(1, 1, 3, 3).contiguous(), torch.full((1, 1, 3), 0.1, device=cuda),
+                        depth, torch.ones((1, 1), device=cuda))),
+        "sweep_group_cost": (homography_group_cost, homography_group_cost_reference,
+                             (ref, src, A, A * 0.1, w)),
+        "warp_volume": (homo_warp_volume, homo_warp_volume_reference, (ref, proj, torch.eye(4, device=cuda)[None], depth)),
+    }
+
+
+@pytest.mark.parametrize("kernel", ["sweep_warp", "sweep_group_cost", "warp_volume"])
+def test_forward_only_kernels_refuse_a_gradient(cuda, kernel):
+    """K2, K2 group and K4 have no backward (JAX's K2 has no VJP, its K4's VJP
+    refuses training): a CUDA input that requires grad raises while grad mode
+    is on; under torch.no_grad() the kernel runs and matches its plain version."""
+    fn, plain, args = _guarded_calls(cuda)[kernel]
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fn(*args)
+    before = fn.launches
+    with torch.no_grad():
+        out = fn(*args)
+        torch.testing.assert_close(out, plain(*args), atol=1e-5, rtol=0)
+    assert fn.launches == before + 1
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batchnorm_training_on_card_matches_cpu(cuda, dim, dtype):
+    """The family's BatchNorm in training (flax's statistics): output within
+    1e-5 (bf16: one rounding step, 2^-8 relative), running mean and variance
+    within rtol 1e-5, the card against the CPU."""
+    from robustmvd_tpu_torch.ops import layers
+
+    gen = torch.Generator().manual_seed(4)
+    x = (torch.randn((2, 8, 6, 9, 20)[: dim + 2], generator=gen) * 2 + 0.5).to(dtype)
+    outs = {}
+    for device in ("cpu", "cuda"):
+        bn = (layers.BatchNorm2d if dim == 2 else layers.BatchNorm3d)(8).to(device).train()
+        with torch.no_grad():
+            bn.weight.copy_(torch.linspace(0.5, 1.5, 8)), bn.bias.copy_(torch.linspace(-0.2, 0.2, 8))
+        y = bn(x.to(device))
+        outs[device] = (y.float().cpu(), bn.running_mean.cpu(), bn.running_var.cpu())
+    (y_g, m_g, v_g), (y_c, m_c, v_c) = outs["cuda"], outs["cpu"]
+    tol = 1e-5 if dtype == torch.float32 else 2.0**-8
+    assert ((y_g - y_c).abs() <= tol * (1 + y_c.abs())).all()
+    torch.testing.assert_close(m_g, m_c, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(v_g, v_c, rtol=1e-5, atol=0)
+
+
+def test_conv3d_bf16_weight_gradient_is_float32(cuda):
+    """``ops/conv3d.py::Conv3d`` at bf16 on K5's bf16 form: the weight's
+    gradient is float32 (through the per-call bf16 layout), within 2^-6 of its
+    largest magnitude of the CPU's (bf16 sums)."""
+    from robustmvd_tpu_torch.ops.conv3d import Conv3d
+
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn((1, 8, 6, 10, 12), generator=gen)
+    grads = {}
+    for device in ("cpu", "cuda"):
+        conv = Conv3d(8, 16, impl="banded", dtype=torch.bfloat16)
+        with torch.no_grad():
+            conv.weight.copy_(torch.randn(conv.weight.shape, generator=torch.Generator().manual_seed(7)) / 10)
+        conv = conv.to(device)
+        before = conv3d_banded.launches_by_dtype["bfloat16"]
+        (conv(x.to(device)).float() ** 2).sum().backward()
+        assert conv3d_banded.launches_by_dtype["bfloat16"] == before + (device == "cuda")
+        assert conv.weight.grad.dtype == torch.float32
+        grads[device] = conv.weight.grad.cpu()
+    assert (grads["cuda"] - grads["cpu"]).abs().max() <= 2.0**-6 * grads["cpu"].abs().max()
+
+
+def _grad_off_bound(ours, ref):
+    """Parameters whose gradient leaves ``tests/test_gradient_parity.py``'s
+    bound: rtol 2e-3, atol max(2e-3 x its max |g|, 1e-4 x the largest)."""
+    largest = max(float(r.abs().max()) for r in ref.values())
+    return [n for n, r in ref.items()
+            if ((ours[n] - r).abs() > 2e-3 * r.abs() + max(2e-3 * float(r.abs().max()), 1e-4 * largest)).any()]
+
+
+def test_vis_train_step_on_card_matches_cpu(cuda):
+    """One vis_mvsnet training step (train=True: BatchNorm on batch statistics,
+    the pairs one at a time, the "xla" warp route), card vs CPU, 64x64, B 1,
+    1+2 views, score heads conditioned (FAMILY_HEAD_GAINS), cuDNN
+    deterministic: K5 45 times and K3 9 times forward on the card, none in the
+    backward; loss within rtol 1e-4, gradients at test_gradient_parity.py's
+    bounds, every parameter upstream of the readouts with a non-zero gradient,
+    the new running statistics within rtol 1e-5."""
+    import robustmvd_tpu_torch as rmvd
+
+    rng = np.random.RandomState(9)
+    B, V, H, W = 1, 3, 64, 64
+    images = rng.rand(B, V, 3, H, W).astype(np.float32) - 0.45
+    K = np.tile(np.array([[0.8 * W, 0, W / 2], [0, 0.8 * W, H / 2], [0, 0, 1]], np.float32), (B, V, 1, 1))
+    poses = np.tile(np.eye(4, dtype=np.float32), (B, V, 1, 1))
+    poses[:, 1:, 0, 3] = [0.1, -0.12]
+    depth = rng.uniform(1.0, 12.0, size=(B, 1, H, W)).astype(np.float32)
+    torch.backends.cudnn.deterministic = True
+    steps = {}
+    try:
+        for device in ("cpu", "cuda"):
+            model = conditioned_heads(rmvd.create_model("vis_mvsnet", device=device, train=True, seed=0), "vis_mvsnet")
+            loss = rmvd.create_loss("vismvsnet_loss", model=model)
+            inputs = {"images": torch.from_numpy(images).to(device), "poses": torch.from_numpy(poses).to(device),
+                      "intrinsics": torch.from_numpy(K).to(device),
+                      "keyview_idx": torch.zeros(B, dtype=torch.int64, device=device),
+                      "depth_range": (torch.full((B,), 1.0, device=device), torch.full((B,), 10.0, device=device))}
+            before = (conv3d_banded.launches, fused_soft_argmin.launches)
+            pred, aux = model(**inputs)
+            forward = (conv3d_banded.launches - before[0], fused_soft_argmin.launches - before[1])
+            total = loss(inputs, {"depth": torch.from_numpy(depth).to(device)}, pred, aux, iteration=0)[0]
+            total.backward()
+            assert (conv3d_banded.launches - before[0], fused_soft_argmin.launches - before[1]) == forward
+            steps[device] = (float(total.detach()), {n: p.grad.cpu() for n, p in model.named_parameters()
+                                                     if p.grad is not None},
+                             {k: v.cpu() for k, v in model.state_dict().items() if "running" in k}, forward)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (l_g, g_g, s_g, n_g), (l_c, g_c, s_c, n_c) = steps["cuda"], steps["cpu"]
+    assert n_g == (45, 9) and n_c == (0, 0)
+    assert np.isfinite(l_g) and abs(l_g - l_c) <= 1e-4 * abs(l_c)
+    assert g_g.keys() == g_c.keys()
+    assert not _grad_off_bound(g_g, g_c)
+    zero = sorted(n for n, g in g_g.items() if not g.any())
+    assert all(n.endswith("uncert_net.head_1.weight") for n in zero)
+    for k, v in s_c.items():
+        torch.testing.assert_close(s_g[k], v, rtol=1e-5, atol=1e-6, msg=k)

@@ -7,7 +7,9 @@
   convolutions, and robust_mvd at bf16; then a benchmark sample list and
   DTU's MVSNet training list (pickled with the JAX package's class paths),
   ``synthetic``, an evaluation of robust_mvd, the augmentation presets and
-  a training run of robust_mvd at bf16 (the train CLI).
+  a training run of robust_mvd at bf16 (the train CLI); in a second
+  interpreter, a training run of vis_mvsnet (the train CLI) and one step of
+  mvsnet_train and cvp_mvsnet with their losses.
 - No source file of the package, nor ``chip_smoke.py``, imports them or
   names them in a string (``importlib`` style).
 - Entry points default to the card and raise, naming ``device='cpu'``,
@@ -71,6 +73,41 @@ from robustmvd_tpu_torch.train.cli import main as train_main
 train_main(["--device", "cpu", "--dataset", "synthetic.train.mvd", "--model", "robust_mvd", "--dtype", "bfloat16", "--loss",
             "robust_mvd_loss", "--batch_augmentations", "robust_mvd_batch_augmentations", "--max_iterations", "1",
             "--batch_size", "1", "--num_workers", "0", "--output", sys.argv[1]])
+bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
+print("LOADED", bad)
+""" % (FORBIDDEN,)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_training_the_family_loads_no_jax(tmp_path):
+    """The family's training in a fresh interpreter loads no JAX. torch runs
+    on 2 threads there (``torch_port_helpers.torch_threads``' reason: the
+    suite runs one process per core)."""
+    code = """
+import sys
+import numpy as np
+import torch
+torch.set_num_threads(2)
+import robustmvd_tpu_torch as r
+from robustmvd_tpu_torch.train.cli import main as train_main
+train_main(["--device", "cpu", "--dataset", "synthetic.train.mvd", "--model", "vis_mvsnet", "--loss", "vismvsnet_loss",
+            "--input_size", "64", "64", "--max_iterations", "1", "--batch_size", "1", "--num_workers", "0",
+            "--output", sys.argv[1]])
+sample = r.utils.numpy_collate([r.create_dataset("synthetic.train.mvd", num_views=3, height=64, width=64)[0]])
+for name, loss, kwargs in (("mvsnet_train", "mvsnet_loss", {"num_sampling_steps": 8}),
+                           ("cvp_mvsnet", "SL1Loss", {"nscale": 3})):
+    model = r.create_model(name, device="cpu", train=True, **kwargs)
+    inputs = {"images": torch.from_numpy(np.stack(sample["images"], 1)), "poses": torch.from_numpy(np.stack(sample["poses"], 1)),
+              "intrinsics": torch.from_numpy(np.stack(sample["intrinsics"], 1)),
+              "keyview_idx": torch.from_numpy(np.asarray(sample["keyview_idx"]).reshape(-1))}
+    pred, aux = model(**inputs)
+    total = r.create_loss(loss, model=model)(inputs, {"depth": torch.from_numpy(sample["depth"])}, pred, aux, iteration=0)[0]
+    total.backward()
+    assert torch.isfinite(total), name
 bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
 print("LOADED", bad)
 """ % (FORBIDDEN,)
@@ -149,13 +186,13 @@ def test_facade():
     assert robustmvd_tpu_torch.list_models() == ["cvp_mvsnet", "mvsnet_train", "robust_mvd", "robust_mvd_5M",
                                                  "vis_mvsnet"]
     assert robustmvd_tpu_torch.has_model("robust_mvd")
-    assert robustmvd_tpu_torch.list_models(trainable_only=True) == ["robust_mvd"]
+    assert robustmvd_tpu_torch.list_models(trainable_only=True) == ["robust_mvd", "vis_mvsnet"]
     assert robustmvd_tpu_torch.create_model("robust_mvd", device="cpu", train=True).training
     assert not robustmvd_tpu_torch.create_model("robust_mvd", device="cpu").training
     for name in ("mvsnet_train", "cvp_mvsnet", "vis_mvsnet"):
-        with pytest.raises(NotImplementedError):
-            robustmvd_tpu_torch.create_model(name, device="cpu", train=True)
-    assert robustmvd_tpu_torch.list_losses() == ["robust_mvd_loss", "supervised_monodepth2_loss"]
+        assert robustmvd_tpu_torch.create_model(name, device="cpu", train=True).training
+    assert robustmvd_tpu_torch.list_losses() == ["SL1Loss", "VismvnsetMultiscaleMultiviewAggregate", "mvsnet_loss",
+                                                 "robust_mvd_loss", "supervised_monodepth2_loss", "vismvsnet_loss"]
     assert robustmvd_tpu_torch.has_loss("robust_mvd_loss")
     assert robustmvd_tpu_torch.list_optimizers() == ["adam", "rmsprop"]
     assert robustmvd_tpu_torch.list_schedulers() == ["flownet_scheduler", "mvsnet_scheduler"]

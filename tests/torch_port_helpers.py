@@ -6,6 +6,8 @@ runs its plain version); weights made by the JAX package's ``init`` are
 carried into the port with ``state_dict_from_jax``.
 """
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -14,6 +16,19 @@ from test_epipolar import random_pose  # noqa: F401  (re-exported for the port t
 from robustmvd_tpu_torch.models.weights import state_dict_from_jax
 
 K_REL = np.array([[1.1, 0, 0.5], [0, 1.4, 0.5], [0, 0, 1]], dtype=np.float32)
+
+
+@contextlib.contextmanager
+def torch_threads(n):
+    """torch's intra-op threads set to ``n`` for the block: the suite runs
+    one process per core, and a model of thousands of small ops on all cores
+    in each of them spends its time in the thread pools."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
 
 
 def t(a, dtype=None):
