@@ -62,15 +62,29 @@ CUDA toolkit (``nvcc``). Phases, each printing one JSON line:
             with conv3d_impl="xla" (cuDNN) beside its default, each with
             every kernel's launches per frame.
 9. eval:    the evaluation engine (``create_evaluation("mvd")``) with
-            robust_mvd at full width over ``synthetic``: on the card vs on the
-            CPU (5 views, 128x256, 2 samples, nearest ordering, uncertainty,
-            TF32 off, cuDNN deterministic), every metric column but runtime
-            and memory within PERF.md §2's limits; then at KITTI's evaluation
-            configuration (21 views, key view 10, 375x1242, quasi-optimal
-            ordering, 3 samples, the first a burn-in sample) and at ETH3D's
-            (11 views, 1024x1536, 2 samples): model runs and K1 launches per
-            sample, the engine's runtimes, wall seconds per sample, host
-            share, peak memory.
+            robust_mvd at full width over ``synthetic``, each sample's views
+            uploaded once and resized on the card (``resize_bilinear_torch``):
+            on the card vs on the CPU (5 views, 128x256 and 120x250 -> 128x256,
+            2 samples, nearest ordering, uncertainty, TF32 off, cuDNN
+            deterministic), every metric column but runtime and memory within
+            PERF.md §2's limits; ``resize_parity`` (KITTI's 21 views
+            375x1242 -> 384x1280 resized on the card against the host's
+            numpy resize, max abs diff within 2^-16 x 255); then at KITTI's
+            evaluation configuration (21 views, key view 10, 375x1242,
+            quasi-optimal ordering, 3 samples, the first a burn-in sample) and
+            at ETH3D's (11 views, 1024x1536, 2 samples): model runs and K1
+            launches per sample, the engine's runtimes, wall seconds per
+            sample, host share and the adapters' share, peak memory, and the
+            burn-in sample's host-to-device copies (torch.profiler), which
+            must come to one upload of its views.
+9b. models: ``vis_rmvd_checkpoint`` (vis_mvsnet's seeded weights saved in
+            rmvd's naming, loaded with ``create_model(weights=...)``: a
+            384x1280 frame bit-equal to the port-named load's, K5, K2 group
+            and K3 30, 6 and 6 times); ``wrapped`` (the seven wrapped models
+            on stub repositories written by ``tests/wrapper_stubs.py``: built
+            on the card with every parameter there, ``model.run`` at each
+            stub's native size against the CPU within 1e-5, 3 + 10 timed
+            runs).
 10. train:  K1b (the backward of K1) at the recipe's shape (B = 4, 48x96
             score images of 384x768 crops, S = 256), held against its plain
             version, timed beside its bound and grid_sample's input gradient;
@@ -1757,43 +1771,86 @@ def phase_eval_parity(counters):
 
     tf32 = set_tf32(False)
     torch.backends.cudnn.deterministic = True
-    config = dict(num_views=5, height=128, width=256, num_samples=2)
-    tables, curves, launches = {}, {}, {}
-    with tempfile.TemporaryDirectory() as tmp:
-        for device in ("cpu", "cuda"):
-            evaluation = rmvd.create_evaluation("mvd", out_dir=os.path.join(tmp, device), inputs=["poses", "intrinsics"],
-                                                view_ordering="nearest", eval_uncertainty=True, verbose=False)
-            model = rmvd.create_model("robust_mvd", device=device, seed=0)
-            counters.reset()
-            tables[device] = evaluation(dataset=rmvd.create_dataset("synthetic.train.mvd", **config), model=model,
-                                        qualitatives=0, burn_in_samples=1)
-            launches[device] = counters.read()["planesweep_sample"]
-            curves[device] = pd.read_pickle(os.path.join(tmp, device, "per_sample", "sparsification_curves.pickle"))
-            del model
+    # 128x256 as it is, and 120x250, which the staged views are resized from on each device
+    for height, width in ((128, 256), (120, 250)):
+        config = dict(num_views=5, height=height, width=width, num_samples=2)
+        tables, curves, launches = {}, {}, {}
+        with tempfile.TemporaryDirectory() as tmp:
+            for device in ("cpu", "cuda"):
+                evaluation = rmvd.create_evaluation("mvd", out_dir=os.path.join(tmp, device),
+                                                    inputs=["poses", "intrinsics"], view_ordering="nearest",
+                                                    eval_uncertainty=True, verbose=False)
+                model = rmvd.create_model("robust_mvd", device=device, seed=0)
+                counters.reset()
+                tables[device] = evaluation(dataset=rmvd.create_dataset("synthetic.train.mvd", **config),
+                                            model=model, qualitatives=0, burn_in_samples=1)
+                launches[device] = counters.read()["planesweep_sample"]
+                curves[device] = pd.read_pickle(os.path.join(tmp, device, "per_sample",
+                                                             "sparsification_curves.pickle"))
+                del model
+        # nearest ordering sweeps 1..4 source views: 10 launches of K1 per sample on the card, none on the CPU
+        if launches != {"cpu": 0, "cuda": 10 * config["num_samples"]}:
+            raise AssertionError(f"evaluation K1 launches {launches}, expected 0 on the CPU and 20 on the card")
+        errors = compare_eval_tables(tables["cuda"], tables["cpu"], curves["cuda"], curves["cpu"])
+        best = tables["cuda"]["best"]
+        emit("eval_parity", tf32=tf32, **config, model_input=[-(-height // 64) * 64, -(-width // 64) * 64],
+             view_ordering="nearest", bounds=MODEL_BOUNDS, inlier_flip_share=INLIER_FLIP_SHARE,
+             k1_launches=launches, errors=errors, best_absrel=best["absrel"].tolist(),
+             best_num_views=best["num_views"].tolist(), best_ause=best["ause"].tolist(),
+             best_inliers103=best["inliers103"].tolist())
     torch.backends.cudnn.deterministic = False
-    # nearest ordering sweeps 1..4 source views: 10 launches of K1 per sample on the card, none on the CPU
-    if launches != {"cpu": 0, "cuda": 10 * config["num_samples"]}:
-        raise AssertionError(f"evaluation K1 launches {launches}, expected 0 on the CPU and 20 on the card")
-    errors = compare_eval_tables(tables["cuda"], tables["cpu"], curves["cuda"], curves["cpu"])
-    best = tables["cuda"]["best"]
-    emit("eval_parity", tf32=tf32, **config, view_ordering="nearest", bounds=MODEL_BOUNDS,
-         inlier_flip_share=INLIER_FLIP_SHARE, k1_launches=launches, errors=errors,
-         best_absrel=best["absrel"].tolist(), best_num_views=best["num_views"].tolist(),
-         best_ause=best["ause"].tolist(), best_inliers103=best["inliers103"].tolist())
     torch.cuda.empty_cache()
 
 
+def h2d_copies(prof):
+    """The bytes of each host-to-device copy in a torch.profiler trace
+    (CUPTI's memcpy records, as the Chrome trace export writes them)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    copies = [e for e in events if "Memcpy HtoD" in e.get("name", "")]
+    sizes = [e["args"]["bytes"] for e in copies if "bytes" in e.get("args", {})]
+    if not copies or len(sizes) != len(copies):
+        raise AssertionError(f"the trace has {len(copies)} host-to-device copies, {len(sizes)} with a byte count")
+    return sizes
+
+
 class TimedDataset:
-    """A dataset that notes the host clock when the engine loads each sample."""
+    """A dataset that notes the host clock when the engine loads each sample.
+    After ``profile_first_sample()``, the runs up to the second sample (the
+    first, a burn-in sample whose times the engine and this script leave
+    out) run under torch.profiler, which counts their host-to-device
+    copies."""
 
     def __init__(self, dataset):
         self.dataset = dataset
         self.starts = []
+        self.profiler = None
+        self.h2d_first_sample = None
+
+    def profile_first_sample(self):
+        """Start the profiler before the evaluation: copies issued right
+        after ``start()`` were seen to go unrecorded (9 of 21 views in one
+        run), so a copy and a pause come first."""
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        self.profiler = profile(activities=[ProfilerActivity.CUDA])
+        self.profiler.start()
+        torch.ones(1).cuda()
+        torch.cuda.synchronize()
+        time.sleep(1.0)
 
     def __len__(self):
         return len(self.dataset)
 
     def __getitem__(self, index):
+        if self.profiler is not None and self.starts:  # the first sample's runs have ended
+            self.profiler.stop()
+            self.h2d_first_sample = h2d_copies(self.profiler)
+            self.profiler = None
         self.starts.append(time.perf_counter())
         return self.dataset[index]
 
@@ -1804,7 +1861,12 @@ def phase_eval_run(counters, label, num_views, keyview_idx, height, width, num_s
     and image size, quasi-optimal ordering, uncertainty on, the first sample
     a burn-in sample. Each of the engine's model runs is noted with its
     runtimes and memory; K1's launches are counted over the whole evaluation
-    (at bf16 all of them K1 v2's)."""
+    (at bf16 all of them K1 v2's). The engine uploads each sample's views
+    once (robust_mvd takes staged views): the burn-in sample's host-to-device
+    copies of a view's size or more, counted by torch.profiler, must not
+    exceed one upload of its views (a profiler that drops records can only
+    count fewer); the small copies of each run (poses, intrinsics, the
+    resize's taps) are reported beside them."""
     import torch
 
     import robustmvd_tpu_torch as rmvd
@@ -1827,6 +1889,7 @@ def phase_eval_run(counters, label, num_views, keyview_idx, height, width, num_s
 
     evaluation._run_model = noted_run
     counters.reset()
+    dataset.profile_first_sample()
     results = evaluation(dataset=dataset, model=model, qualitatives=0, burn_in_samples=1)
     end = time.perf_counter()
     launches = counters.read()
@@ -1866,6 +1929,15 @@ def phase_eval_run(counters, label, num_views, keyview_idx, height, width, num_s
     absrel = results["best"]["absrel"].to_numpy(np.float64)
     if not np.isfinite(absrel).all():
         raise AssertionError(f"{label}: absrel {absrel}")
+    view_bytes = 3 * height * width * 4
+    h2d = dataset.h2d_first_sample
+    image_copies = [b for b in h2d if b >= view_bytes]
+    h2d_report = {"image_bytes": sum(image_copies), "image_copies": len(image_copies),
+                  "views_once_bytes": num_views * view_bytes, "other_bytes": sum(h2d) - sum(image_copies),
+                  "other_copies": len(h2d) - len(image_copies)}
+    if not 0 < sum(image_copies) <= num_views * view_bytes:
+        raise AssertionError(f"{label}: the burn-in sample's host-to-device copies of image size {h2d_report}: none "
+                             f"recorded, or more than one upload of its {num_views} views of {view_bytes} bytes")
     host_share = [1 - sum(r[1] for r in per_sample[n]) / 1e3 / walls[n] for n in range(1, num_samples)]
     sweep_ms = {n: float(results[n]["runtime_model_in_msec"].iloc[1:].median()) for n in (1, sources // 2, sources)}
     emit(label, tf32=tf32, dtype=dtype, views=num_views, keyview_idx=keyview_idx, size=[height, width],
@@ -1875,10 +1947,145 @@ def phase_eval_run(counters, label, num_views, keyview_idx, height, width, num_s
          runtime_model_and_io_ms_median=statistics.median(r[2] for r in timed),
          runtime_model_ms_by_source_views=sweep_ms,
          wall_s_per_sample=walls, wall_s_per_timed_sample_median=statistics.median(walls[1:]),
-         host_share=host_share, host_share_in_adapters=adapters_share,
+         host_share=host_share, host_share_in_adapters=adapters_share, h2d_per_sample=h2d_report,
          device_mem_peak_mib=max(r[3] for r in timed), all_views_forward=all_views,
          best_absrel=absrel.tolist(), best_num_views=results["best"]["num_views"].tolist())
     return {"k1_launches": k1, "k1_launches_per_sample": k1 / num_samples}
+
+
+def phase_resize_parity():
+    """The staged views' resize on the card (``utils/image.py::resize_bilinear_torch``)
+    against the numpy resize on the host, for KITTI's 21 views at 375x1242 ->
+    384x1280: the largest absolute difference (raises above 2^-16 x 255), and
+    both resizes' times for the 21 views."""
+    import torch
+
+    from robustmvd_tpu_torch.utils.image import resize_bilinear, resize_bilinear_torch
+
+    rng = np.random.RandomState(9)
+    views = [(rng.rand(1, 3, 375, 1242) * 255).astype(np.float32) for _ in range(21)]
+    staged = [torch.from_numpy(v).cuda() for v in views]
+    size = (384, 1280)
+    diff = max(float(np.abs(resize_bilinear_torch(x, size).cpu().numpy() - resize_bilinear(v, size)).max())
+               for x, v in zip(staged, views))
+    limit = 2.0**-16 * 255
+    if diff > limit:
+        raise AssertionError(f"resize on the card vs the host: max abs diff {diff} > {limit}")
+    device_ms = time_ms(lambda: [resize_bilinear_torch(x, size) for x in staged], runs=10, warmup=2)
+    t0 = time.perf_counter()
+    for v in views:
+        resize_bilinear(v, size)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    emit("resize_parity", views=21, size=[375, 1242], model_input=list(size), max_abs_diff=diff, limit=limit,
+         bit_equal=diff == 0, device_ms_21_views=device_ms, host_numpy_ms_21_views=host_ms)
+
+
+# the native input size of each stub (wrapper_stubs.py): monodepth2's from its encoder checkpoint, MiDaS's
+# 192x384 (its Resize keeps it), the rest a multiple of 64
+WRAPPED_NATIVE = {"midas_big_v2_1_wrapped": (192, 384)}
+
+
+def phase_wrapped():
+    """The seven wrapped models on stub repositories (``tests/wrapper_stubs.py``:
+    the real repositories' import layout and checkpoint naming, seeded
+    weights; mvsnet_pl's checkpoint pickles Lightning-style hyper-parameter
+    objects), pointed at through the wrappers module's ``PATHS_FILE``: each
+    name built with ``create_model`` (the card), every parameter of its
+    network on the card, ``model.run`` on a 1+2-view sample at its native
+    size against the same wrapper built with ``device="cpu"`` (TF32 off, max
+    |d| within 1e-5 of the mean |ref|), then 3 + 10 timed runs."""
+    import torch
+
+    import robustmvd_tpu_torch as rmvd
+    import robustmvd_tpu_torch.models.wrappers.wrappers as wrappers
+    from robustmvd_tpu_torch.utils import check_torch_model_cuda
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from wrapper_stubs import WRAPPED, isolated_imports, stub_sample, write_stub_repos
+
+    tf32 = set_tf32(False)
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths_file, wrappers.PATHS_FILE = wrappers.PATHS_FILE, write_stub_repos(tmp, seed=0, lightning_hparams=True)
+        try:
+            for name in WRAPPED:
+                with isolated_imports():
+                    card = rmvd.create_model(name)
+                    cpu = rmvd.create_model(name, device="cpu")
+                networks = [v for v in vars(card).values() if isinstance(v, torch.nn.Module)]
+                on_card = [check_torch_model_cuda(net) for net in networks]  # raises where a network is split
+                if card.device.type != "cuda" or not on_card or not all(on_card):
+                    raise AssertionError(f"{name}: device {card.device}, networks on the card {on_card}")
+                height, width = WRAPPED_NATIVE.get(name, (getattr(card, "height", 64), getattr(card, "width", 128)))
+                sample = stub_sample(seed=3, height=height, width=width)
+                ours, _ = card.run(**sample)
+                ref, _ = cpu.run(**stub_sample(seed=3, height=height, width=width))
+                errors = {}
+                for key in ref:
+                    if not (isinstance(ours[key], np.ndarray) and np.isfinite(ours[key]).all()):
+                        raise AssertionError(f"{name}: {key} not a finite numpy array")
+                    errors[key] = float(np.abs(ours[key] - ref[key]).max() / np.abs(ref[key]).mean())
+                if max(errors.values()) > 1e-5:
+                    raise AssertionError(f"{name}: card vs CPU {errors} > 1e-5")
+                for _ in range(3):
+                    card.run(**sample)
+                times = []
+                for _ in range(10):
+                    t0 = time.perf_counter()
+                    card.run(**sample)  # ends in a device->host copy
+                    times.append((time.perf_counter() - t0) * 1e3)
+                report[name] = {"size": [height, width], "pred_shape": list(ours["depth"].shape),
+                                "max_rel_err": errors, "ms_per_run": statistics.median(times),
+                                "ms_per_run_min": min(times), "parameters": card.num_parameters()}
+        finally:
+            wrappers.PATHS_FILE = paths_file
+    emit("wrapped", tf32=tf32, views=3, runs="3 + 10", note="stub networks of a few channels: times are the "
+         "wrappers' host adapters and transfers, not the real networks'", **report)
+    torch.cuda.empty_cache()
+
+
+def phase_vis_rmvd_checkpoint(counters):
+    """vis_mvsnet's seeded weights saved in the port's naming and in rmvd's
+    (``models/weights.py::vis_state_dict_to_rmvd``), each loaded with
+    ``create_model("vis_mvsnet", weights=...)`` and run on a 384x1280,
+    1+2-view frame: the depths equal bit for bit, and the rmvd-named
+    model's frame launches K5, K2 group and K3 30, 6 and 6 times."""
+    import torch
+
+    import robustmvd_tpu_torch as rmvd
+    from robustmvd_tpu_torch.models.weights import RMVD_VIS_KEY, vis_state_dict_to_rmvd
+
+    tf32 = set_tf32(False)
+    torch.backends.cudnn.deterministic = True
+    sample = sideways_sample(np.random.RandomState(8), 384, 1280, 3)
+    preds, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        state = {k: v.cpu() for k, v in rmvd.create_model("vis_mvsnet", seed=0).state_dict().items()}
+        rmvd_state = vis_state_dict_to_rmvd(state)
+        if RMVD_VIS_KEY not in rmvd_state:
+            raise AssertionError("the rmvd-named state dict lacks its key")
+        for naming, named in (("port", state), ("rmvd", rmvd_state)):
+            path = os.path.join(tmp, f"{naming}.pt")
+            torch.save({"model_state_dict": named}, path)
+            model = rmvd.create_model("vis_mvsnet", weights=path)
+            counters.reset()
+            preds[naming], _ = model.run(**sample)
+            launches[naming] = counters.read()
+            del model
+    torch.backends.cudnn.deterministic = False
+    expected = {"conv3d_banded": 30, "sweep_group_cost": 6, "soft_argmin": 6}
+    if {k: launches["rmvd"][k] for k in expected} != expected:
+        raise AssertionError(f"vis_mvsnet from an rmvd checkpoint launched {launches['rmvd']}, expected {expected}")
+    depth = preds["rmvd"]["depth"]
+    if not (np.isfinite(depth).all() and np.array_equal(depth, preds["port"]["depth"])):
+        raise AssertionError("vis_mvsnet from an rmvd checkpoint: depth not finite or not the port-named load's")
+    emit("vis_rmvd_checkpoint", tf32=tf32, shape=[384, 1280], views=3, tensors=len(rmvd_state),
+         renamed=sum(k not in state for k in rmvd_state), depth_bit_equal=True,
+         uncertainty_bit_equal=bool(np.array_equal(preds["rmvd"]["depth_uncertainty"],
+                                                   preds["port"]["depth_uncertainty"])),
+         launches={k: launches["rmvd"][k] for k in expected})
+    torch.cuda.empty_cache()
+    return launches["rmvd"]
 
 
 # --- training: K1b, card-vs-CPU parity of a recipe step, the recipe's main path ---
@@ -2956,7 +3163,10 @@ def main():
     vis = phase_vis_main(counters)
     family_bf16 = phase_family_main_bf16(counters, family, vis)
     k5_frame = phase_kernel_k5_vis_frame(family_bf16["vis_mvsnet", "k5_bf16_calls_per_frame"])
+    vis_rmvd = phase_vis_rmvd_checkpoint(counters)
+    phase_wrapped()
     phase_eval_parity(counters)
+    phase_resize_parity()
     evals = {
         "eval_kitti": phase_eval_run(counters, "eval_kitti", num_views=21, keyview_idx=10, height=375, width=1242,
                                      num_samples=3, cut="samples: 3 (synthetic data); views and size as KITTI's"),
@@ -2984,6 +3194,7 @@ def main():
     k2_main = k2["mvsnet_f32"]
     k2_launches = {path: family[path]["fp32"]["launches"]["sweep_warp"] for path in ("mvsnet_train", "cvp_mvsnet")}
     k5_launches = {"vis_mvsnet": vis["banded"]["fp32"]["launches"]["conv3d_banded"],
+                   "vis_rmvd_checkpoint": vis_rmvd["conv3d_banded"],
                    "mvsnet_train_banded_xla": family["mvsnet_train_banded_xla"]["fp32"]["launches"]["conv3d_banded"],
                    "train_vis": vis_train["launches"]["conv3d_banded"],
                    "train_vis_parity": vis_parity["launches_card"]["conv3d_banded"]}
@@ -3068,6 +3279,8 @@ def main():
         "replaces": "robustmvd_tpu/ops/pallas/sweep_warp.py:287 (_call_sweep, kernel _sweep_kernel :179, "
                     "agg='group'; entry homography_group_cost :579)",
         "launches": vis["banded"]["fp32"]["launches"]["sweep_group_cost"],
+        "launches_by_path": {"vis_mvsnet": vis["banded"]["fp32"]["launches"]["sweep_group_cost"],
+                             "vis_rmvd_checkpoint": vis_rmvd["sweep_group_cost"]},
         "max_abs_err": max(r["max_abs_err"] for r in k2g.values()),
         "ms": k2g["stage3"]["ms"],
         "plain_ms": k2g["stage3"]["plain_ms"],
@@ -3102,6 +3315,7 @@ def main():
         "replaces": "robustmvd_tpu/ops/pallas/softargmin.py:46 (fused_soft_argmin, pallas_call :92)",
         "launches": vis["banded"]["fp32"]["launches"]["soft_argmin"],
         "launches_by_path": {"vis_mvsnet": vis["banded"]["fp32"]["launches"]["soft_argmin"],
+                             "vis_rmvd_checkpoint": vis_rmvd["soft_argmin"],
                              "train_vis": vis_train["launches"]["soft_argmin"],
                              "train_vis_bf16": vis_train_bf16["launches"]["soft_argmin"],
                              "train_vis_parity": vis_parity["launches_card"]["soft_argmin"]},

@@ -18,7 +18,9 @@ item:
 - pandas results with (num_views, metric) MultiIndex columns, resume-skip
   via ``.results_df.pickle`` (:197-200), csv+pickle outputs, qualitatives
   and a re-openable ``dataset.cfg`` (:657-730);
-- runtimes and device memory per run, burn-in samples excluded (:549-572).
+- runtimes and device memory per run, burn-in samples excluded (:549-572);
+- a sample's views uploaded once to the model's device, for a model whose
+  input adapter takes them there (the JAX engine's staging).
 
 The engine is host-side numpy; the model's forward is PyTorch's, on the
 device the model lives on. On the card the forward is timed with CUDA
@@ -48,7 +50,8 @@ def filter_views_in_sample(sample, indices_to_keep):
     """Restrict a batched sample to a subset of views
 
     (reference: multi_view_depth_evaluation.py:868-882). The per-view arrays
-    are selected by reference, not copied: nothing downstream mutates them."""
+    are selected by reference, not copied: nothing downstream mutates them,
+    and staged images stay the tensors that were uploaded once per sample."""
     keyview_idx = int(np.asarray(sample["keyview_idx"]).reshape(-1)[0])
     assert keyview_idx in indices_to_keep, "Keyview must not be filtered out."
     new_key = indices_to_keep.index(keyview_idx)
@@ -218,6 +221,7 @@ class MultiViewDepthEvaluation:
             )
             keyview_idx = int(np.asarray(sample["keyview_idx"]).reshape(-1)[0])
             sample_inputs, sample_gt = self._inputs_and_gt_from_sample(sample)
+            self._stage_images(sample_inputs)
 
             ordered_source_indices = self._get_source_view_ordering(sample_inputs, sample_gt)
             max_source_views = (
@@ -283,6 +287,16 @@ class MultiViewDepthEvaluation:
         sample_inputs = {k: v for k, v in sample.items() if is_input(k)}
         sample_gt = {k: v for k, v in sample.items() if not is_input(k)}
         return sample_inputs, sample_gt
+
+    def _stage_images(self, sample_inputs):
+        """Upload the sample's views to the model's device once, where the
+        model's input adapter takes them there (``supports_device_images``):
+        the view ordering and the sweep run the model 2(V-1) times a sample,
+        each on a subset of the same views. Other models get numpy views."""
+        if getattr(self.model, "supports_device_images", False) and sample_inputs.get("images") is not None:
+            device = self.model.device
+            sample_inputs["images"] = [torch.from_numpy(np.ascontiguousarray(image, np.float32)).to(device)
+                                       for image in sample_inputs["images"]]
 
     def _get_source_view_ordering(self, sample_inputs, sample_gt):
         if self.view_ordering == "quasi-optimal":

@@ -74,6 +74,10 @@ class RobustMVD(ModelBase):
     the compute dtype (``helpers.COMPUTE_DTYPES``); parameters are float32 either
     way, so the state dict and the weight bridge do not depend on it."""
 
+    # the input adapter takes views already on the model's device: the
+    # evaluation uploads each sample's views once for all of its runs
+    supports_device_images = True
+
     def __init__(self, device, weights=None, seed=0, train=False, dtype="float32"):
         super().__init__()
         self.compute_dtype = cdt = compute_dtype_of(dtype, "robust_mvd")
@@ -132,11 +136,15 @@ class RobustMVD(ModelBase):
         """Resize to a multiple of 64, normalise to /255 - 0.4, relative K
 
         (reference: rmvd/models/robust_mvd.py:101-132). Takes a list of
-        (B, 3, H, W) numpy views; the result lies on the model's device.
-        Images are uploaded as they are and normalised there; the division
-        is by a device tensor, a true division like numpy's (a Python-scalar
-        divisor may become a reciprocal-multiply), so the values are the
-        numpy path's bit for bit.
+        (B, 3, H, W) float32 views, numpy arrays or tensors already on the
+        model's device (the evaluation's staged views); the result lies on
+        the model's device. Numpy views are resized on the host and uploaded,
+        staged views are resized where they lie with the same arithmetic
+        (``utils/image.py::resize_bilinear_torch``; JAX's adapter pulls them
+        back to the host for a resize instead). Either way they are
+        normalised on the device; the division is by a device tensor, a true
+        division like numpy's (a Python-scalar divisor may become a
+        reciprocal-multiply), so both paths give the network the same bits.
         """
         if poses is None or intrinsics is None:
             raise ValueError("robust_mvd requires poses and intrinsics inputs")

@@ -52,7 +52,7 @@ from .helpers import ModelBase, compute_dtype_of, resize_to_multiple, to_device
 from .mvsnet import IMAGENET_MEAN, IMAGENET_STD, check_warp_impl
 from .registry import register_model
 from .robust_mvd import split_key_sources
-from .weights import load_checkpoint
+from .weights import load_checkpoint, vis_state_dict_from_rmvd
 
 DEPTH_NUMS = (64, 32, 16)
 INTERVAL_SCALES = (4.0, 2.0, 1.0)
@@ -91,7 +91,7 @@ class VisMVSNet(ModelBase):
                     stage.reg_pair.final_conv.weight.mul_(SCORE_HEAD_GAIN)
                     stage.reg_fuse.final_conv.weight.mul_(SCORE_HEAD_GAIN)
         else:
-            self.load_state_dict(load_checkpoint(weights))
+            self.load_state_dict(vis_state_dict_from_rmvd(load_checkpoint(weights)))
         self.to(device).train(train)
         if bn_mode == "frozen":
             freeze_batchnorm(self)
@@ -164,8 +164,9 @@ class VisMVSNet(ModelBase):
 def vis_mvsnet(pretrained=True, weights=None, train=False, device="cuda", seed=0, num_sampling_steps=192,
                conv3d_impl="banded", warp_impl="fused", dtype="float32", bn_mode="batch"):
     """Vis-MVSNet (reference: vis_mvsnet.py:232-242) with soft fusion,
-    registered without pretrained weights: pass a port ``.pt`` as
-    ``weights``, or get weights from ``seed``. ``conv3d_impl`` picks the
+    registered without pretrained weights: pass a ``.pt`` as ``weights``,
+    in the port's naming or rmvd's (``models/weights.py::RMVD_VIS_KEY``
+    tells them apart), or get weights from ``seed``. ``conv3d_impl`` picks the
     lowering of the 3D U-Nets' stride-1 3x3x3 convolutions
     (``ops/conv3d.py``): "banded", the JAX default, runs K5 (30 launches
     per frame; 24 of them in bf16 at ``dtype="bfloat16"``, the 6 score heads in

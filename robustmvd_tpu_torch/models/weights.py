@@ -36,6 +36,21 @@ path's end, so that a lone block's tree converts too). BatchNorms are the
 modules named ``bn``, ``bnN`` or ``*_bn``; every one gets
 ``num_batches_tracked = 0``. :func:`variables_from_state_dict` is the
 inverse.
+
+Vis-MVSNet checkpoints in rmvd naming (its UNet registry,
+rmvd/models/blocks/vis_mvsnet_unet_modular.py, and Sequential stems) load
+through :func:`vis_state_dict_from_rmvd`, the rename rules of the JAX
+package's ``convert_vis_mvsnet_torch_state_dict``; the weights keep torch's
+layouts, which the port's modules share:
+
+rmvd name                                   -> port name
+unet.enc_blocks.<tag>_<i>.<j>.*             -> unet.enc_<i>.block<j>.*
+unet.dec_blocks.<tag>_<i>.{0,1}.*           -> unet.dec_<i>_{deconv,post}.*
+unet.dec_blocks.<tag>_<i>.2.<j>.*           -> unet.dec_<i>_res.block<j>.*
+downsample.{0,1}.*                          -> downsample_{conv,bn}.*
+init_conv.{0,1}.*                           -> init_{conv,bn}.*
+uncert_net.conv<k>.{0,1}.*                  -> uncert_net.conv<k>_{conv,bn}.*
+uncert_net.head_convs.<i>.*                 -> uncert_net.head_<i>.*
 """
 
 from __future__ import annotations
@@ -54,6 +69,60 @@ _BN_LEAVES = {("params", "scale"): "weight", ("params", "bias"): "bias",
 
 _SEQ_NAMES = {"corr_to_view_weight_conv0": "corr_to_view_weight.0",
               "corr_to_view_weight_conv1": "corr_to_view_weight.2"}
+
+
+# rmvd's Vis-MVSNet names -> the port's, in the JAX converter's order
+_VIS_FROM_RMVD = (
+    (r"unet\.enc_blocks\.[^.]*_(\d+)\.(\d+)\.", r"unet.enc_\1.block\2."),
+    (r"unet\.dec_blocks\.[^.]*_(\d+)\.0\.", r"unet.dec_\1_deconv."),
+    (r"unet\.dec_blocks\.[^.]*_(\d+)\.1\.", r"unet.dec_\1_post."),
+    (r"unet\.dec_blocks\.[^.]*_(\d+)\.2\.(\d+)\.", r"unet.dec_\1_res.block\2."),
+    (r"downsample\.0\.", "downsample_conv."),
+    (r"downsample\.1\.", "downsample_bn."),
+    (r"init_conv\.0\.", "init_conv."),
+    (r"init_conv\.1\.", "init_bn."),
+    (r"uncert_net\.conv(\d)\.0\.", r"uncert_net.conv\1_conv."),
+    (r"uncert_net\.conv(\d)\.1\.", r"uncert_net.conv\1_bn."),
+    (r"uncert_net\.head_convs\.(\d+)\.", r"uncert_net.head_\1."),
+)
+# the port's names -> rmvd's, with the tags "enc" and "dec"
+_VIS_TO_RMVD = (
+    (r"unet\.enc_(\d+)\.block(\d+)\.", r"unet.enc_blocks.enc_\1.\2."),
+    (r"unet\.dec_(\d+)_deconv\.", r"unet.dec_blocks.dec_\1.0."),
+    (r"unet\.dec_(\d+)_post\.", r"unet.dec_blocks.dec_\1.1."),
+    (r"unet\.dec_(\d+)_res\.block(\d+)\.", r"unet.dec_blocks.dec_\1.2.\2."),
+    (r"downsample_conv\.", "downsample.0."),
+    (r"downsample_bn\.", "downsample.1."),
+    (r"init_conv\.", "init_conv.0."),
+    (r"init_bn\.", "init_conv.1."),
+    (r"uncert_net\.conv(\d)_conv\.", r"uncert_net.conv\1.0."),
+    (r"uncert_net\.conv(\d)_bn\.", r"uncert_net.conv\1.1."),
+    (r"uncert_net\.head_(\d+)\.", r"uncert_net.head_convs.\1."),
+)
+# the key that tells the namings apart: rmvd's FeatExt stem is a Sequential
+# (conv, BN); the port's has the modules init_conv and init_bn
+RMVD_VIS_KEY = "feat_ext.init_conv.0.weight"
+
+
+def _renamed(state, rules):
+    out = {}
+    for key, value in state.items():
+        for pattern, repl in rules:
+            key = re.sub(pattern, repl, key)
+        out[key] = value
+    return out
+
+
+def vis_state_dict_from_rmvd(state):
+    """A Vis-MVSNet state_dict in rmvd naming -> the port's names; a
+    port-named one (no ``RMVD_VIS_KEY``) comes back as it is."""
+    return _renamed(state, _VIS_FROM_RMVD) if RMVD_VIS_KEY in state else dict(state)
+
+
+def vis_state_dict_to_rmvd(state):
+    """The port's Vis-MVSNet state_dict in rmvd naming (the inverse of
+    :func:`vis_state_dict_from_rmvd`)."""
+    return _renamed(state, _VIS_TO_RMVD)
 
 
 def load_checkpoint(path):

@@ -1071,7 +1071,7 @@ def test_k4_at_mvsnet_shape_matches_plain_version_bit_for_bit(cuda):
                                homo_warp_volume_reference(src16, proj, inv, depth), atol=1e-5, rtol=0)
 
 
-def test_k4_backward_matches_plain_version(cuda):
+def test_k4_refuses_gradient_and_homo_warp_grad_matches_cpu(cuda):
     """What stands in for K4's backward in training: MVSNet trains through
     the plain version's op, ``ops/homography.py::homo_warp``, whose gradient
     on the card matches the CPU's for the features and the projections (no
@@ -1120,15 +1120,16 @@ def test_family_kernel_paths_on_card_match_cpu(cuda, name, kwargs, launches):
         assert (np.abs(ug - uc) <= 1e-4 * np.abs(uc).mean()).mean() >= 0.99
 
 
-def _evaluate(device, out_dir=None, num_samples=2, burn_in_samples=1):
+def _evaluate(device, out_dir=None, num_samples=2, burn_in_samples=1, size=(64, 128), model=None):
     """The evaluation engine with robust_mvd (seeded weights) on ``device``
     over synthetic samples (3 views, 64x128), nearest ordering."""
     from robustmvd_tpu_torch import create_dataset, create_evaluation
 
     evaluation = create_evaluation("mvd", out_dir=out_dir, inputs=["poses", "intrinsics"], view_ordering="nearest",
                                    verbose=False)
-    dataset = create_dataset("synthetic.train.mvd", num_samples=num_samples, num_views=3, height=64, width=128)
-    return evaluation(dataset=dataset, model=create_model("robust_mvd", device=device), qualitatives=0,
+    dataset = create_dataset("synthetic.train.mvd", num_samples=num_samples, num_views=3, height=size[0],
+                             width=size[1])
+    return evaluation(dataset=dataset, model=model or create_model("robust_mvd", device=device), qualitatives=0,
                       burn_in_samples=burn_in_samples)
 
 
@@ -1137,14 +1138,24 @@ def test_evaluation_on_card_matches_cpu(cuda, tmp_path):
     (the 1.03-inlier ratio, a count over a threshold, within a share of 1e-3
     of the pixels); K1 launched once per source view per run (1 + 2 per
     sample)."""
+    _check_evaluation_on_card(tmp_path, (64, 128))
+
+
+def test_staged_evaluation_with_a_resize_on_card_matches_cpu(cuda, tmp_path):
+    """The same at 60x120: the staged views are resized on the card
+    (``utils/image.py::resize_bilinear_torch``) and on the CPU."""
+    _check_evaluation_on_card(tmp_path, (60, 120))
+
+
+def _check_evaluation_on_card(tmp_path, size):
     import pandas as pd
 
     torch.backends.cudnn.deterministic = True
     try:
         before = planesweep_sample.launches
-        card = _evaluate("cuda", str(tmp_path / "cuda"))
+        card = _evaluate("cuda", str(tmp_path / "cuda"), size=size)
         assert planesweep_sample.launches - before == 2 * 3
-        cpu = _evaluate("cpu", str(tmp_path / "cpu"))
+        cpu = _evaluate("cpu", str(tmp_path / "cpu"), size=size)
     finally:
         torch.backends.cudnn.deterministic = False
     timing = ("runtime_model_in_sec", "runtime_model_in_msec", "runtime_model_and_io_in_sec",
@@ -1585,3 +1596,54 @@ def test_vis_train_step_on_card_matches_cpu(cuda):
     assert all(n.endswith("uncert_net.head_1.weight") for n in zero)
     for k, v in s_c.items():
         torch.testing.assert_close(s_g[k], v, rtol=1e-5, atol=1e-6, msg=k)
+
+
+@pytest.mark.parametrize("shape, size", [((1, 3, 375, 1242), (384, 1280)), ((2, 3, 120, 250), (128, 256)),
+                                         ((1, 3, 100, 90), (50, 45))])
+def test_device_resize_matches_the_host_resize(cuda, shape, size):
+    """``resize_bilinear_torch`` on the card against the numpy resize: the
+    same taps and lerps as separate IEEE float32 kernels, within 2^-16 x 255
+    (the bound of chip_smoke.py's resize_parity; bit for bit unless a
+    multiply and an add were fused)."""
+    from robustmvd_tpu_torch.utils.image import resize_bilinear, resize_bilinear_torch
+
+    img = (np.random.RandomState(0).rand(*shape) * 255).astype(np.float32)
+    ours = resize_bilinear_torch(torch.from_numpy(img).to(cuda), size)
+    assert ours.device.type == "cuda"
+    assert np.abs(ours.cpu().numpy() - resize_bilinear(img, size)).max() <= 2.0**-16 * 255
+
+
+def test_staged_views_stay_on_the_card(cuda):
+    """The engine hands robust_mvd's input adapter the views it uploaded
+    once per sample: the same CUDA tensors on every run."""
+    model = create_model("robust_mvd", device="cuda")
+    seen = []
+    adapter = model.input_adapter
+
+    def noted(images, **kwargs):
+        seen.append(list(images))
+        return adapter(images=images, **kwargs)
+
+    model.input_adapter = noted
+    _evaluate("cuda", num_samples=1, burn_in_samples=0, size=(60, 120), model=model)
+    assert len(seen) == 2 and all(image.device.type == "cuda" for images in seen for image in images)
+    assert len({id(image) for images in seen for image in images}) == 3
+
+
+def test_wrapped_model_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """vis_mvsnet_wrapped on a stub repository (``wrapper_stubs.py``): the
+    network's parameters on the card, the prediction within 1e-5 (relative
+    to the mean) of the same wrapper on the CPU."""
+    import robustmvd_tpu_torch.models.wrappers.wrappers as wrappers
+    from wrapper_stubs import isolated_imports, stub_sample, write_stub_repos
+
+    monkeypatch.setattr(wrappers, "PATHS_FILE", write_stub_repos(str(tmp_path)))
+    with isolated_imports():
+        card = create_model("vis_mvsnet_wrapped", device="cuda")
+        cpu = create_model("vis_mvsnet_wrapped", device="cpu")
+    assert card.device.type == "cuda" and all(p.is_cuda for p in card.model.parameters())
+    ours, _ = card.run(**stub_sample(1, 60, 120))
+    ref, _ = cpu.run(**stub_sample(1, 60, 120))
+    for key in ("depth", "depth_uncertainty"):
+        assert isinstance(ours[key], np.ndarray)
+        assert np.abs(ours[key] - ref[key]).max() / np.abs(ref[key]).mean() <= 1e-5, key

@@ -158,10 +158,15 @@ def test_engine_with_bridged_robust_mvd_agrees_with_jax(tmp_path):
     """robust_mvd at full width, 3 views at 64x128, 2 samples, nearest
     ordering: the JAX model (``corr_impl="matmul"``) and the port with its
     weights, each through its package's engine."""
+    check_bridged_robust_mvd_engine(tmp_path, 64, 128)
+
+
+def check_bridged_robust_mvd_engine(tmp_path, height, width):
+    """Both engines' tables within PERF.md §2's limits, and the curves."""
     jax_model = jax_create_model("robust_mvd", pretrained=False, corr_impl="matmul")
     port_model = load_bridged(create_model("robust_mvd", device="cpu"), jax_model.variables)
-    ours, ref = _run_both(tmp_path, dict(num_samples=2, num_views=3, height=64, width=128), port_model, jax_model,
-                          dict(qualitatives=0, burn_in_samples=3), inputs=["poses", "intrinsics"],
+    ours, ref = _run_both(tmp_path, dict(num_samples=2, num_views=3, height=height, width=width), port_model,
+                          jax_model, dict(qualitatives=0, burn_in_samples=3), inputs=["poses", "intrinsics"],
                           view_ordering="nearest")
     ours, ref = without_timing(ours), without_timing(ref)
     assert list(ours.columns) == list(ref.columns)

@@ -7,7 +7,8 @@
   convolutions, and robust_mvd at bf16; then a benchmark sample list and
   DTU's MVSNet training list (pickled with the JAX package's class paths),
   ``synthetic``, an evaluation of robust_mvd, the augmentation presets and
-  a training run of robust_mvd at bf16 (the train CLI); in a second
+  a training run of robust_mvd at bf16 (the train CLI), and the seven
+  wrapped models on stub repositories (``wrapper_stubs.py``); in a second
   interpreter, a training run of vis_mvsnet (the train CLI) and one step of
   mvsnet_train and cvp_mvsnet with their losses.
 - No source file of the package, nor ``chip_smoke.py``, imports them or
@@ -73,6 +74,14 @@ from robustmvd_tpu_torch.train.cli import main as train_main
 train_main(["--device", "cpu", "--dataset", "synthetic.train.mvd", "--model", "robust_mvd", "--dtype", "bfloat16", "--loss",
             "robust_mvd_loss", "--batch_augmentations", "robust_mvd_batch_augmentations", "--max_iterations", "1",
             "--batch_size", "1", "--num_workers", "0", "--output", sys.argv[1]])
+sys.path.insert(0, "tests")
+import robustmvd_tpu_torch.models.wrappers.wrappers as wrappers
+from wrapper_stubs import WRAPPED, isolated_imports, stub_sample, write_stub_repos
+wrappers.PATHS_FILE = write_stub_repos(sys.argv[1] + "/stubs")
+for name in WRAPPED:
+    with isolated_imports():
+        pred, _ = r.create_model(name, device="cpu").run(**stub_sample(0))
+        assert np.isfinite(pred["depth"]).all(), name
 bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
 print("LOADED", bad)
 """ % (FORBIDDEN,)
@@ -120,7 +129,7 @@ print("LOADED", bad)
 
 def _sources():
     pkg = Path(robustmvd_tpu_torch.__file__).parent
-    return sorted(pkg.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(pkg.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tests" / "wrapper_stubs.py"]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -183,8 +192,11 @@ def test_facade():
                                                                      "eigen_dense_depth_train", "robustmvd"]
     assert len(robustmvd_tpu_torch.list_datasets()) == 13
     assert callable(robustmvd_tpu_torch.create_dataloader) and callable(robustmvd_tpu_torch.create_evaluation)
-    assert robustmvd_tpu_torch.list_models() == ["cvp_mvsnet", "mvsnet_train", "robust_mvd", "robust_mvd_5M",
-                                                 "vis_mvsnet"]
+    assert robustmvd_tpu_torch.list_models() == ["cvp_mvsnet", "cvp_mvsnet_wrapped", "midas_big_v2_1_wrapped",
+                                                 "monodepth2_mono_stereo_1024x320_wrapped",
+                                                 "monodepth2_mono_stereo_640x192_wrapped", "mvsnet_pl_wrapped",
+                                                 "mvsnet_train", "patchmatchnet_wrapped", "robust_mvd",
+                                                 "robust_mvd_5M", "vis_mvsnet", "vis_mvsnet_wrapped"]
     assert robustmvd_tpu_torch.has_model("robust_mvd")
     assert robustmvd_tpu_torch.list_models(trainable_only=True) == ["robust_mvd", "vis_mvsnet"]
     assert robustmvd_tpu_torch.create_model("robust_mvd", device="cpu", train=True).training
