@@ -11,7 +11,9 @@ datasets and ``synthetic`` (``create_dataset``, ``create_dataloader``,
 "robustmvd")``, ``python -m robustmvd_tpu_torch.eval``), and the training of
 ``robust_mvd`` (``create_loss``, ``create_optimizer``, ``create_scheduler``,
 the augmentation presets, ``create_compound_dataset``,
-``create_training("mvd")``, ``python -m robustmvd_tpu_torch.train``).
+``create_training("mvd")``, ``python -m robustmvd_tpu_torch.train``, with
+``--data_parallel`` under ``python -m robustmvd_tpu_torch.launch``), and the
+dataset viewer (``run_viewer``, ``python -m robustmvd_tpu_torch.viewer``).
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; without a card they raise rather than fall back.
@@ -40,3 +42,14 @@ from .loss import create_loss, has_loss, list_losses  # noqa: F401
 from .models import create_model, has_model, list_models, prepare_custom_model  # noqa: F401
 from .optim import create_optimizer, create_scheduler, list_optimizers, list_schedulers  # noqa: F401
 from .train import create_training, list_trainings  # noqa: F401
+
+
+def run_viewer(*args, **kwargs):
+    """Start the dataset viewer (reference: rmvd/__init__.py:24; ``viewer/``).
+
+    Imported when called, so that importing the package does not import the
+    viewer's matplotlib.
+    """
+    from .viewer import run_viewer as _run_viewer
+
+    return _run_viewer(*args, **kwargs)

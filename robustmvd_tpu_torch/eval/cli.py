@@ -9,7 +9,9 @@ on the five-dataset Robust MVD benchmark (``--eval_type robustmvd``):
 
 The model runs on the card unless ``--device cpu`` is given; without a card
 the default raises. Outputs: ``results.csv`` / ``.pickle`` and the rest of
-the evaluation's files, ``log.txt`` and ``cmd.txt``.
+the evaluation's files, ``log.txt`` and ``cmd.txt``; the event writer
+(``utils/writer.py``) is set up in ``--log_dir`` (``--output`` by default),
+as the JAX CLI sets it up.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import numpy as np
 
 from ..data import create_dataset, list_datasets
 from ..models import cli_model_kwargs, create_model, list_models
-from ..utils import logging
+from ..utils import logging, writer
 from . import create_evaluation, list_evaluations
 
 
@@ -45,7 +47,9 @@ def evaluate(args, argv):
 
     model_kwargs = cli_model_kwargs(args.model, args.dtype)
 
+    log_dir = args.log_dir if args.log_dir is not None else args.output
     os.makedirs(args.output, exist_ok=True)
+    writer.setup_writers(log_tensorboard=not args.no_tensorboard, log_wandb=args.wandb, out_dir=log_dir)
     log_file_path = osp.join(args.output, "log.txt")
     logging.add_log_file(log_file_path, flush_line=True)
     with open(osp.join(args.output, "cmd.txt"), "a") as f:
@@ -73,6 +77,7 @@ def evaluate(args, argv):
         )
     finally:
         logging.remove_log_file(log_file_path)
+        writer.setup_writers(out_dir=None)  # closes this run's backends
 
 
 def parse_args(argv=None):
@@ -85,6 +90,7 @@ def parse_args(argv=None):
     parser.add_argument("--eval_type", help="mvd | robustmvd")
     parser.add_argument("--dataset", help="Dataset name (for eval_type=mvd).")
     parser.add_argument("--output", default="./eval_out", help="Output directory.")
+    parser.add_argument("--log_dir", help="Directory of the event writer's files (defaults to --output).")
     parser.add_argument("--inputs", nargs="*", help="Model input modalities.")
     parser.add_argument("--alignment", help="None | median | least_squares_scale_shift")
     parser.add_argument("--view_ordering", default="quasi-optimal")
@@ -106,6 +112,10 @@ def parse_args(argv=None):
     parser.add_argument("--finished_iterations", type=int)
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu.")
+    parser.add_argument("--no_tensorboard", action="store_true", help="Write events.jsonl only.")
+    parser.add_argument("--wandb", action="store_true", help="Also log scalars to wandb where it imports.")
+    parser.add_argument("--exp_id", help="Declared as in the JAX CLI, which never reads it; ignored.")
+    parser.add_argument("--comment", help="Declared as in the JAX CLI, which never reads it; ignored.")
     return parser.parse_args(argv)
 
 

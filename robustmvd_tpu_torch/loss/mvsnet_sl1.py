@@ -12,6 +12,7 @@ import torch.nn.functional as F
 
 from ..ops.interpolate import resize_bilinear, resize_nearest_torch
 from .registry import register_loss
+from .utils import masked_ratio
 
 
 class SL1Loss:
@@ -33,7 +34,7 @@ class SL1Loss:
         gt = resize_bilinear(gt, size)
         masks = resize_nearest_torch(masks, size) > 0.5
         diff = F.smooth_l1_loss(p, gt, reduction="none", beta=1.0) * masks
-        loss = diff.sum() / torch.clamp(masks.sum(), min=1.0)
+        loss = masked_ratio(diff.sum(), masks.sum(), lambda total, count: total / torch.clamp(count, min=1.0))
         return loss, {}, {}
 
 

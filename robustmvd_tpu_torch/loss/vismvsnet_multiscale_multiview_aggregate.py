@@ -21,13 +21,15 @@ import torch
 
 from ..ops.interpolate import resize_bilinear
 from .registry import register_loss
+from .utils import masked_ratio
 
 STAGE_WEIGHTS = (0.5, 1.0, 2.0)
 
 
 def _masked_mean(x, mask, eps=1e-9):
+    """Over the global batch under data-parallel training (``loss/utils.py``)."""
     mask = mask.to(x.dtype)
-    return (x * mask).sum() / (mask.sum() + eps)
+    return masked_ratio((x * mask).sum(), mask.sum(), lambda total, count: total / (count + eps))
 
 
 class VismvnsetMultiscaleMultiviewAggregate:

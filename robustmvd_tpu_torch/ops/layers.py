@@ -18,6 +18,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.context import data_group
+
 
 class ComputeDtype:
     """Mixin for a ``torch.nn`` convolution: float32 parameters, a forward
@@ -78,6 +80,13 @@ class _FlaxBatchNorm:
     unbiased variance, n / (n - 1) of it. The ``state_dict`` keys are
     ``torch.nn``'s, so the weight bridge (``models/weights.py``) is unchanged.
 
+    Under data-parallel training (a data group active, ``parallel.context``)
+    the statistics are the global batch's, as a sharded flax BatchNorm takes
+    them: each rank's per-channel sums of x and x^2 (in float64) and its count
+    are summed over the group by one all-reduce that autograd differentiates
+    (its backward sums the gradients over the group), and every rank moves
+    its running statistics by the same global ones.
+
     ``frozen`` keeps the module in eval mode whatever ``.train()`` asks: the
     JAX package trains its MVSNet, CVP-MVSNet and frozen Vis-MVSNet
     BatchNorms on their running averages (:func:`freeze_batchnorm`).
@@ -94,8 +103,12 @@ class _FlaxBatchNorm:
         dims = (0, *range(2, x.dim()))
         shape = (1, -1) + (1,) * (x.dim() - 2)
         x32 = x.float()
-        mean = x32.mean(dims)
-        var = torch.clamp((x32 * x32).mean(dims) - mean * mean, min=0.0)
+        group = data_group()
+        if group is None:
+            mean = x32.mean(dims)
+            var = torch.clamp((x32 * x32).mean(dims) - mean * mean, min=0.0)
+        else:
+            mean, var = _global_batch_stats(x32, dims, group[0])
         with torch.no_grad():
             keep = 1.0 - self.momentum
             self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)
@@ -103,6 +116,21 @@ class _FlaxBatchNorm:
             self.num_batches_tracked.add_(1)
         y = (x32 - mean.reshape(shape)) * (torch.rsqrt(var + self.eps) * self.weight).reshape(shape)
         return (y + self.bias.reshape(shape)).to(x.dtype)
+
+
+def _global_batch_stats(x32, dims, group):
+    """Mean and biased variance per channel over every rank's batch. The
+    sums are float64: E[x^2] - E[x]^2 cancels, and float32 sums in a rank
+    order would put its rounding into the statistics."""
+    from torch.distributed.nn.functional import all_reduce
+
+    count = x32.new_full((1,), x32.numel() / x32.shape[1], dtype=torch.float64)
+    sums = all_reduce(torch.cat([x32.sum(dims, dtype=torch.float64), (x32 * x32).sum(dims, dtype=torch.float64),
+                                 count]), group=group)
+    channels = x32.shape[1]
+    mean = sums[:channels] / sums[-1]
+    var = torch.clamp(sums[channels:2 * channels] / sums[-1] - mean * mean, min=0.0)
+    return mean.float(), var.float()
 
 
 class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):

@@ -1647,3 +1647,40 @@ def test_wrapped_model_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
     for key in ("depth", "depth_uncertainty"):
         assert isinstance(ours[key], np.ndarray)
         assert np.abs(ours[key] - ref[key]).max() / np.abs(ref[key]).mean() <= 1e-5, key
+
+
+def test_writer_takes_card_tensors(cuda, tmp_path):
+    """The event writer reads scalars, images and histograms that live on the
+    card (``.item()`` and host copies), into events.jsonl and, where
+    ``tensorboard`` imports, its event file."""
+    import json
+
+    from robustmvd_tpu_torch.utils import writer
+
+    writer.setup_writers(out_dir=str(tmp_path))
+    writer.put_scalar("loss", torch.tensor(2.5, device=cuda), step=0)
+    writer.put_tensor("image", torch.zeros(4, 6, 3, dtype=torch.uint8, device=cuda), step=0)
+    writer.put_histogram("params", torch.linspace(-1, 1, 11, device=cuda), step=0)
+    writer.write_out_storage()
+    writer.setup_writers(out_dir=None)
+    lines = [json.loads(line) for line in (tmp_path / "events.jsonl").read_text().splitlines()]
+    assert lines == [{"type": "scalar", "name": "loss", "value": 2.5, "step": 0}]
+
+
+def test_profiler_on_the_card(cuda, tmp_path):
+    """``time_fn`` times with CUDA events, ``trace`` records the card's
+    kernels (50 launches: a process's first profiler session was seen to
+    record none of one), ``device_memory_stats`` reads the allocator."""
+    import json
+
+    from robustmvd_tpu_torch.utils import profiler
+
+    x = torch.randn(1024, 1024, device=cuda)
+    seconds = profiler.time_fn(lambda: x @ x, iters=5, burn_in=2)
+    with profiler.trace(tmp_path, device=cuda):
+        for _ in range(50):  # a process's first session may drop its first records
+            x @ x
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    stats = profiler.device_memory_stats(cuda)
+    assert 0 < seconds < 1 and any(e.get("cat") == "kernel" for e in events)
+    assert stats.keys() == {"mib_in_use", "peak_mib_in_use", "mib_limit"} and stats["mib_limit"] > 1000

@@ -10,7 +10,11 @@
   a training run of robust_mvd at bf16 (the train CLI), and the seven
   wrapped models on stub repositories (``wrapper_stubs.py``); in a second
   interpreter, a training run of vis_mvsnet (the train CLI) and one step of
-  mvsnet_train and cvp_mvsnet with their losses.
+  mvsnet_train and cvp_mvsnet with their losses; in a third, the event
+  writer (events.jsonl and TensorBoard), the profiler, the viewer's PNG
+  export, the launcher's module and ``parallel/``, and a training run of
+  robust_mvd through the train CLI with ``--data_parallel`` (a gloo group of
+  one process, ``DistributedDataParallel``).
 - No source file of the package, nor ``chip_smoke.py``, imports them or
   names them in a string (``importlib`` style).
 - Entry points default to the card and raise, naming ``device='cpu'``,
@@ -125,6 +129,42 @@ print("LOADED", bad)
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_logging_the_viewer_and_data_parallel_load_no_jax(tmp_path):
+    code = """
+import json, sys
+import torch
+torch.set_num_threads(2)
+import robustmvd_tpu_torch as r
+import robustmvd_tpu_torch.launch, robustmvd_tpu_torch.parallel, robustmvd_tpu_torch.viewer
+from robustmvd_tpu_torch.utils import profiler, writer
+from robustmvd_tpu_torch.train.cli import main as train_main
+out = sys.argv[1]
+train_main(["--device", "cpu", "--data_parallel", "--dataset", "synthetic.train.mvd", "--input_size", "64", "64",
+            "--model", "robust_mvd", "--loss", "robust_mvd_loss", "--max_iterations", "1", "--batch_size", "1",
+            "--num_workers", "0", "--output", out + "/train"])
+names = {json.loads(line)["name"] for line in open(out + "/train/events.jsonl")}
+assert "03_params/encoder_norm" in names and "01_loss/total" in names, names
+assert not torch.distributed.is_initialized()
+import shutil
+shutil.rmtree(out + "/train/checkpoints")  # robust_mvd's snapshots, ~650 MB
+pages = r.run_viewer(r.create_dataset("synthetic.train.mvd", num_samples=1, height=32, width=48),
+                     export_dir=out + "/pages")
+x = torch.randn(32, 32)
+with profiler.trace(out + "/trace", device="cpu"):
+    x @ x
+assert profiler.time_fn(lambda: x @ x, iters=2, burn_in=1) > 0 and len(pages) == 1
+bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
+print("LOADED", bad)
+""" % (FORBIDDEN,)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LOADED []" in out.stdout, out.stdout
+    assert list((tmp_path / "train").glob("events.out.tfevents.*"))
+    assert list((tmp_path / "train" / "weights_only_checkpoints_dir").glob("snapshot-iter-*.pt"))
 
 
 def _sources():
