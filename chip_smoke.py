@@ -181,7 +181,19 @@ CUDA toolkit (``nvcc``). Phases, each printing one JSON line:
             frame at 384x1280, 1+2 views: K1's kernel in the Chrome trace;
             ``time_fn``'s ms per frame beside phase main's;
             ``device_memory_stats``).
-15. the kernels line, and last the ``{"ok": true, ...}`` line.
+15. view and hyp: ``mesh_view_hyp`` (robust_mvd sharded over a (1, 2, 2)
+            mesh: 4 processes on the one card in a gloo group with CUDA
+            tensors, the 4 source views over 2 view ranks and the 256
+            hypotheses over 2 hyp ranks; the forward at 384x1280, 1+4 views,
+            fp32 within MODEL_BOUNDS and bf16 within BF16_MODEL_BOUND of this
+            process's unsharded forward; one recipe train step at 384x768,
+            batch 2, through the engine's train_step
+            (DistributedDataParallel over the 4 ranks): the gradients' rel L2
+            to the unsharded step within 10 times that of two unsharded
+            steps; K1, K1 v2 and K1b launched per rank once per view of its
+            share; each rank's peak MiB and ms per frame beside the
+            unsharded run's).
+16. the kernels line, and last the ``{"ok": true, ...}`` line.
 
 Any failed check raises and the script exits non-zero; it does nothing
 without a CUDA device. Weights are random, from a seed.
@@ -3556,6 +3568,263 @@ def phase_train_vis_ddp(counters, size=(256, 320), warmup=2, timed=3, batch=2):
     return result
 
 
+MESH_VIEW_HYP = (1, 2, 2)  # (data, view, hyp) of phase mesh_view_hyp: 4 ranks on the one card
+
+
+def timed_forwards(model, inputs, frames):
+    """``frames`` forwards after one warm-up, under inference mode: the last
+    invdepth, the median host ms per frame (each ending in a synchronize),
+    the peak MiB of the timed frames."""
+    import torch
+
+    with torch.inference_mode():
+        model(**inputs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(frames):
+            t0 = time.perf_counter()
+            _, aux = model(**inputs)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return aux["invdepth"].float().cpu(), statistics.median(times), torch.cuda.max_memory_allocated() / 2**20
+
+
+def mesh_step(model, inputs, gt, mesh, out_dir):
+    """One recipe step of the engine's ``train_step`` (robust_mvd_loss at
+    iteration 0, SGD at learning rate 0: the gradients are the step's)."""
+    import torch
+
+    import robustmvd_tpu_torch as rmvd
+
+    training = rmvd.create_training(
+        "mvd", out_dir=out_dir, model=model,
+        dataset=rmvd.create_dataset("synthetic.train.mvd", num_samples=2, num_views=2, height=64, width=64),
+        optimizer=torch.optim.SGD(model.parameters(), lr=0.0), scheduler=None,
+        loss=rmvd.create_loss("robust_mvd_loss", model=model), batch_size=1, max_iterations=1, num_workers=0,
+        mesh=mesh, verbose=False)
+    loss, _ = training.train_step(inputs, gt)
+    torch.cuda.synchronize()
+    return float(loss), {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+
+
+def mesh_child():
+    """One rank of phase mesh_view_hyp, started by it: ``sys.argv[1]`` is the
+    spec's JSON file and ``RMVD_TPU_PROCESS_ID`` the rank. Joins the gloo
+    group on card 0, builds the (1, 2, 2) mesh and runs robust_mvd under it:
+    timed forwards at fp32 and bf16 and one train step, counting each
+    kernel's launches; writes ``<out>/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    import robustmvd_tpu_torch as rmvd
+    from robustmvd_tpu_torch.parallel import MeshSpec, init_distributed, make_mesh, use_mesh
+
+    with open(sys.argv[1]) as f:
+        spec = json.load(f)
+    rank = int(os.environ["RMVD_TPU_PROCESS_ID"])
+    torch.cuda.set_device(0)
+    init_distributed(spec["coordinator"], spec["world"], rank, backend="gloo")
+    mesh = make_mesh(MeshSpec(*spec["mesh"]))
+    set_tf32(False)
+    data = torch.load(spec["inputs"], weights_only=False)
+    counters = Counters()
+    result = {"rank": rank, "coords": [mesh.get_local_rank(a) for a in mesh.mesh_dim_names]}
+    for dtype in ("float32", "bfloat16"):
+        model = rmvd.create_model("robust_mvd", seed=0, dtype=dtype)
+        inputs = {k: v.cuda() for k, v in data["forward"].items()}
+        counters.reset()
+        with use_mesh(mesh):
+            invdepth, ms, peak = timed_forwards(model, inputs, spec["frames"])
+        result[dtype] = {"invdepth": invdepth if rank == 0 else None, "ms_per_frame": ms, "peak_mib": peak,
+                         "launches": counters.read()}
+        del model
+        torch.cuda.empty_cache()
+    model = rmvd.create_model("robust_mvd", seed=0, train=True)
+    inputs = {k: v.cuda() for k, v in data["train_inputs"].items()}
+    gt = {k: v.cuda() for k, v in data["train_gt"].items()}
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    with tempfile.TemporaryDirectory() as out_dir:
+        loss, grads = mesh_step(model, inputs, gt, mesh, out_dir)
+    result["train"] = {"loss": loss, "grads": grads if rank == 0 else None, "launches": counters.read(),
+                       "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+    torch.save(result, os.path.join(spec["out"], f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def run_ranks(spec_path, world, timeout):
+    """``mesh_child`` in ``world`` processes on this machine (the launcher's
+    contract; its ``--local`` takes one process per card, and these share
+    one); every one is killed if one fails or the time runs out. Returns
+    each rank's output."""
+    from robustmvd_tpu_torch.launch import free_port
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    spec["coordinator"] = f"127.0.0.1:{free_port()}"
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    root = os.path.dirname(os.path.abspath(__file__))
+    logs = [tempfile.TemporaryFile() for _ in range(world)]
+    procs = [subprocess.Popen([sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke.mesh_child())",
+                               spec_path], cwd=root, stdout=logs[r], stderr=subprocess.STDOUT,
+                              env=dict(os.environ, RMVD_TPU_PROCESS_ID=str(r)))
+             for r in range(world)]
+    deadline, failed = time.monotonic() + timeout, None
+    try:
+        while any(p.poll() is None for p in procs) and failed is None:
+            failed = next((r for r, p in enumerate(procs) if p.poll() not in (None, 0)), None)
+            if time.monotonic() > deadline:
+                failed = "timeout"
+            time.sleep(0.1)
+        failed = failed if failed is not None else next((r for r, p in enumerate(procs) if p.returncode), None)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    outputs = []
+    for log in logs:
+        log.seek(0)
+        outputs.append(log.read().decode(errors="replace"))
+        log.close()
+    if failed is not None:
+        raise AssertionError(f"mesh_view_hyp: rank {failed} failed (exit codes {[p.returncode for p in procs]}):\n"
+                             + "\n".join(f"[rank {r}] {out[-3000:]}" for r, out in enumerate(outputs)))
+    return outputs
+
+
+def phase_mesh_view_hyp(counters, frames=5, world=4, size=(384, 1280), train_size=(384, 768)):
+    """robust_mvd sharded over the view and hyp axes: 4 processes on the one
+    card, each in a gloo group (NCCL takes one rank per card) with CUDA
+    tensors, mesh (1, 2, 2): the 4 source views over 2 view ranks, the 256
+    hypotheses over 2 hyp ranks. Against this process's unsharded runs of the
+    same seeded weights and inputs:
+
+    - the forward at 384x1280, 1+4 views, fp32 (TF32 off): invdepth within
+      MODEL_BOUNDS; at bf16 (K1 v2) within BF16_MODEL_BOUND;
+    - one recipe train step (the engine's ``train_step``,
+      ``DistributedDataParallel`` over the 4 ranks) at 384x768, batch 2, 1+4
+      views: the loss within 1e-4, every parameter's gradient at
+      ``tests/test_gradient_parity.py``'s bounds (``grad_errors``), and the
+      gradients' rel L2 within 10 times the larger distance of an unsharded
+      step from a second one (K1b adds with atomics) and from one on cuDNN's
+      deterministic algorithms: sharding changes the order of the sums (the
+      encoder's batch, the hyp axis' partial convolutions), as another
+      algorithm does, and two default steps agree to ~5e-7 where those
+      differ by ~1e-5 (PERF.md §6);
+    - each rank launches K1 (K1 v2 at bf16) once per view of its share per
+      frame, with its slab of 128 hypotheses, and K1b once per view per step.
+
+    Figures: each rank's peak MiB beside the unsharded run's, ms per frame
+    sharded (each rank's) and unsharded."""
+    import torch
+
+    import robustmvd_tpu_torch as rmvd
+    from robustmvd_tpu_torch.parallel import shares
+
+    set_tf32(False)
+    views, (H, W), (train_h, train_w), batch = 5, size, train_size, 2
+    sample = kitti_like_sample(np.random.RandomState(4), H, W, views)
+    single, inputs = {}, None
+    for dtype in ("float32", "bfloat16"):
+        model = rmvd.create_model("robust_mvd", seed=0, dtype=dtype)
+        inputs = model.input_adapter(**sample)
+        counters.reset()
+        invdepth, ms, peak = timed_forwards(model, inputs, frames)
+        single[dtype] = {"invdepth": invdepth, "ms_per_frame": ms, "peak_mib": peak, "launches": counters.read()}
+        del model
+    train_inputs, train_gt = train_batch(np.random.RandomState(5), batch, views, train_h, train_w)
+    train_inputs = {k: torch.from_numpy(v).cuda() for k, v in train_inputs.items()}
+    train_gt = {k: torch.from_numpy(v).cuda() for k, v in train_gt.items()}
+    plain = []  # two unsharded steps, and a third on cuDNN's deterministic algorithms: another summation order
+    for deterministic in (False, False, True):
+        torch.backends.cudnn.deterministic = deterministic
+        model = rmvd.create_model("robust_mvd", seed=0, train=True)
+        torch.cuda.reset_peak_memory_stats()
+        with tempfile.TemporaryDirectory() as out_dir:
+            plain.append(mesh_step(model, train_inputs, train_gt, None, out_dir)
+                         + (torch.cuda.max_memory_allocated() / 2**20,))
+        del model
+    torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"forward": {k: v.cpu() for k, v in inputs.items()},
+                    "train_inputs": {k: v.cpu() for k, v in train_inputs.items()},
+                    "train_gt": {k: v.cpu() for k, v in train_gt.items()}}, os.path.join(tmp, "inputs.pt"))
+        spec_path = os.path.join(tmp, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump({"world": world, "mesh": MESH_VIEW_HYP, "frames": frames, "out": tmp,
+                       "inputs": os.path.join(tmp, "inputs.pt")}, f)
+        t0 = time.perf_counter()
+        run_ranks(spec_path, world, timeout=400)
+        ranks_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(world)]
+
+    _, view, hyp = MESH_VIEW_HYP
+    errors = {"float32": relative_errors(ranks[0]["float32"]["invdepth"], single["float32"]["invdepth"])}
+    if errors["float32"][0] > MODEL_BOUNDS[0] or errors["float32"][1] > MODEL_BOUNDS[1]:
+        raise AssertionError(f"mesh_view_hyp fp32: sharded vs unsharded invdepth {errors['float32']} (mean, max "
+                             f"relative) beyond {MODEL_BOUNDS}")
+    scale = float(single["float32"]["invdepth"].abs().mean())
+    errors["bfloat16"] = float((ranks[0]["bfloat16"]["invdepth"] - single["bfloat16"]["invdepth"]).abs().mean()
+                               ) / scale
+    if not errors["bfloat16"] <= BF16_MODEL_BOUND:
+        raise AssertionError(f"mesh_view_hyp bf16: mean |d invdepth| / mean |invdepth| {errors['bfloat16']} beyond "
+                             f"{BF16_MODEL_BOUND}")
+    grads = ranks[0]["train"]["grads"]
+    yardsticks = {"two_plain_steps": state_diff(plain[1][1], plain[0][1])["rel_l2"],
+                  "plain_deterministic_cudnn": state_diff(plain[2][1], plain[0][1])["rel_l2"]}
+    _, failed = grad_errors(grads, plain[0][1])
+    train = {"rel_l2": state_diff(grads, plain[0][1])["rel_l2"], "yardsticks_rel_l2": yardsticks,
+             "limit": 10 * max(*yardsticks.values(), 1e-6), "params_beyond_grad_parity_bounds": failed,
+             "loss": ranks[0]["train"]["loss"], "plain_loss": plain[0][0],
+             "rel_l2_by_module": {m: [state_diff(*({n: g[n] for n in plain[0][1] if n.startswith(m + ".")}
+                                                   for g in (ours, plain[0][1])))["rel_l2"]
+                                      for ours in (grads, plain[1][1], plain[2][1])]
+                                  for m in sorted({n.split(".")[0] for n in plain[0][1]})}}
+    if not (train["rel_l2"] <= train["limit"] and not failed
+            and abs(train["loss"] - plain[0][0]) <= 1e-4 * abs(plain[0][0])):
+        raise AssertionError(f"mesh_view_hyp train step: {train}")
+    launches = []
+    for r, result in enumerate(ranks):
+        _, v, h = result["coords"]
+        lo, hi = shares(views - 1, view)[v]
+        got = {"planesweep_sample[float32]": result["float32"]["launches"]["planesweep_sample[float32]"],
+               "planesweep_sample[bfloat16]": result["bfloat16"]["launches"]["planesweep_sample[bfloat16]"],
+               "planesweep_sample_backward": result["train"]["launches"]["planesweep_sample_backward"],
+               "planesweep_sample[train]": result["train"]["launches"]["planesweep_sample"]}
+        expected = {"planesweep_sample[float32]": (hi - lo) * (frames + 1),
+                    "planesweep_sample[bfloat16]": (hi - lo) * (frames + 1),
+                    "planesweep_sample_backward": hi - lo, "planesweep_sample[train]": hi - lo}
+        if got != expected or result["rank"] != r:
+            raise AssertionError(f"mesh_view_hyp rank {r} (view {v}, hyp {h}): launches {got}, expected {expected} "
+                                 f"(views {lo}..{hi - 1}, 1 slab each, {frames} + 1 frames)")
+        launches.append({"rank": r, "view": v, "hyp": h, "views": hi - lo, **got})
+    if single["float32"]["launches"]["planesweep_sample[float32]"] != (views - 1) * (frames + 1):
+        raise AssertionError(f"mesh_view_hyp: the unsharded forward launched K1 {single['float32']['launches']}")
+    result = {
+        "errors": {"fp32_mean_max_rel": errors["float32"], "bf16_mean_rel": errors["bfloat16"],
+                   "bounds": {"fp32": MODEL_BOUNDS, "bf16": BF16_MODEL_BOUND}},
+        "train": train,
+        "ms_per_frame": {dtype: [r[dtype]["ms_per_frame"] for r in ranks] for dtype in ("float32", "bfloat16")},
+        "plain_ms_per_frame": {dtype: single[dtype]["ms_per_frame"] for dtype in single},
+        "peak_mib": {dtype: [r[dtype]["peak_mib"] for r in ranks] for dtype in ("float32", "bfloat16")},
+        "plain_peak_mib": {dtype: single[dtype]["peak_mib"] for dtype in single},
+        "train_peak_mib": [r["train"]["peak_mib"] for r in ranks], "plain_train_peak_mib": plain[0][2],
+        "launches_by_rank": launches,
+        "launches": {name: sum(entry[name] for entry in launches) for name in launches[0] if "planesweep" in name},
+        "ranks_s": ranks_s,
+    }
+    emit("mesh_view_hyp", mesh=list(MESH_VIEW_HYP), backend="gloo", processes=world, shape=[H, W], views=views,
+         hypotheses=256, frames=frames, train_shape=[train_h, train_w], train_batch=batch, tf32=False, **result)
+    return result
+
+
 def phase_profile_main(counters, fp32_runs):
     """The port's profiler around robust_mvd's main path: ``utils/profiler.
     trace`` around one ``model.run`` at 384x1280 with 1+2 views (fp32, TF32
@@ -3708,13 +3977,15 @@ def main():
     train_writer = phase_train_writer(counters)
     train_ddp = phase_train_ddp(counters)
     train_vis_ddp = phase_train_vis_ddp(counters)
+    mesh = phase_mesh_view_hyp(counters)
     profile_main = phase_profile_main(counters, runs["fp32"])
 
     f32, bf16 = k1["f32"], k1["bf16"]
     # K1 v2 (the bf16 instantiation) and K1b's bf16 form on the bf16 paths
     v2_launches = {"robust_mvd_bf16": runs_bf16["launches"]["planesweep_sample[bfloat16]"],
                    "eval_kitti_bf16": eval_bf16["k1_launches"],
-                   "train_bf16": train_bf16["launches"]["planesweep_sample[bfloat16]"]}
+                   "train_bf16": train_bf16["launches"]["planesweep_sample[bfloat16]"],
+                   "mesh_view_hyp": mesh["launches"]["planesweep_sample[bfloat16]"]}
     k1b_bf16_launches = {"train_bf16": train_bf16["launches"]["planesweep_sample_backward[bfloat16]"]}
     k2_main = k2["mvsnet_f32"]
     k2_launches = {path: family[path]["fp32"]["launches"]["sweep_warp"] for path in ("mvsnet_train", "cvp_mvsnet")}
@@ -3745,7 +4016,11 @@ def main():
                              "train_main": train["launches"]["planesweep_sample"],
                              "train_writer": train_writer["launches"]["planesweep_sample"],
                              "train_ddp": train_ddp["launches"]["planesweep_sample"],
+                             # the 4 ranks' forwards (view share x 1 slab of 128 each) and train steps
+                             "mesh_view_hyp": mesh["launches"]["planesweep_sample[float32]"],
+                             "mesh_view_hyp_train": mesh["launches"]["planesweep_sample[train]"],
                              "profile_main": profile_main["launches"]["traced_frame"]},
+        "launches_per_rank": {"mesh_view_hyp": mesh["launches_by_rank"]},
         "launches_per_eval_sample": {path: r["k1_launches_per_sample"] for path, r in evals.items()},
         "max_abs_err": f32["max_abs_err"],
         "ms": f32["ms"],
@@ -3771,7 +4046,8 @@ def main():
         "launches": train["launches"]["planesweep_sample_backward"],
         "launches_by_path": {"train_main": train["launches"]["planesweep_sample_backward"],
                              "train_writer": train_writer["launches"]["planesweep_sample_backward"],
-                             "train_ddp": train_ddp["launches"]["planesweep_sample_backward"]},
+                             "train_ddp": train_ddp["launches"]["planesweep_sample_backward"],
+                             "mesh_view_hyp": mesh["launches"]["planesweep_sample_backward"]},
         "launches_per_train_step": train["launches_per_step"]["planesweep_sample_backward"],
         "max_abs_err": k1b["max_abs_err"],
         "ms": k1b["ms"],

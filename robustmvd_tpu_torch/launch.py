@@ -112,7 +112,8 @@ def run_per_host(args, command):
     os.execvpe(sys.executable, [sys.executable, *command], env)
 
 
-def main(argv=None):
+def parse_args(argv=None):
+    """The launcher's arguments; ``command`` is the python arguments after ``--``."""
     parser = argparse.ArgumentParser(prog="python -m robustmvd_tpu_torch.launch", description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     mode = parser.add_mutually_exclusive_group(required=True)
@@ -128,16 +129,21 @@ def main(argv=None):
     parser.add_argument("command", nargs=argparse.REMAINDER, help="-- python arguments (script.py ... or -m ...)")
     args = parser.parse_args(argv)
 
-    command = args.command[1:] if args.command[:1] == ["--"] else args.command
-    if not command:
+    args.command = args.command[1:] if args.command[:1] == ["--"] else args.command
+    if not args.command:
         parser.error("no command given (usage: python -m robustmvd_tpu_torch.launch <mode> -- script.py ...)")
     if args.devices_per_process != 1:
         parser.error("--devices_per_process: a torch process drives one device; start one process per device")
+    if args.local is not None and args.local < 1:
+        parser.error("--local needs N >= 1")
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
     if args.local is not None:
-        if args.local < 1:
-            parser.error("--local needs N >= 1")
-        return run_local(args, command)
-    return run_per_host(args, command)
+        return run_local(args, args.command)
+    return run_per_host(args, args.command)
 
 
 if __name__ == "__main__":

@@ -29,6 +29,8 @@ import torch.nn.functional as F
 
 from ...ops.interpolate import resize_bilinear
 from ...ops.layers import Conv2d, ConvTranspose2d
+from ...parallel.collectives import all_gather, all_reduce_sum
+from ...parallel.context import hyp_group, share, view_group
 
 
 def conv_lrelu(in_ch, out_ch, kernel_size=3, stride=1, dtype=torch.float32):
@@ -128,6 +130,22 @@ class LearnedFusion(nn.Module):
     (reference: rmvd/models/blocks/learned_fusion.py:5-54). corrs and masks
     are (B, V, S, H, W); returns the fused (B, S, H, W) corr and mask. The
     weights, their softmax over views and the sums run at the compute dtype.
+
+    Under a mesh with a view or hyp axis (``parallel.context``) the input is
+    this rank's share: its ``V`` of the ``num_views`` source views, and its
+    slab of the S hypotheses; the result is the whole fused volume, on every
+    rank (JAX: ``robustmvd_tpu/models/robust_mvd.py:163-168``).
+
+    - The first conv of the weight net takes the S hypotheses as input
+      channels: over ``hyp`` it is row-parallel, each rank convolving its slab
+      with its slice of the weight's input channels; the pre-activations are
+      summed over ``hyp`` and the bias is added once, after the sum.
+    - The softmax over views takes every view's weight: the (B, V, 1, H, W)
+      weights are gathered over ``view``.
+    - The weighted sums over views are summed over ``view`` (in float32,
+      rounded once to the compute dtype), and the fused slabs gathered over
+      ``hyp``.
+    - A rank whose view share is empty adds zeros to the sums.
     """
 
     def __init__(self, num_sampling_points=256, dtype=torch.float32):
@@ -138,19 +156,50 @@ class LearnedFusion(nn.Module):
             Conv2d(128, 1, 1, dtype=dtype),
         )
 
-    def forward(self, corrs, masks):
+    def forward(self, corrs, masks, num_views=None):
         B, V, S, H, W = corrs.shape
-        if V == 1:
+        view, hyp = view_group(), hyp_group()
+        num_views = V if num_views is None else num_views
+        if num_views == 1:
             # single source view: pass-through (learned_fusion.py:49-52)
-            return corrs[:, 0], masks[:, 0]
-        w = self.corr_to_view_weight(corrs.reshape(B * V, S, H, W)).reshape(B, V, 1, H, W)
-        w = torch.softmax(w, dim=1) + 1e-9
-        view_weights = w * masks
-        weights_sum = view_weights.sum(1)
-        fused_mask = (weights_sum != 0).to(corrs.dtype)
-        corr_sum = (corrs * view_weights).sum(1)
-        fused_corr = corr_sum / (weights_sum + 1e-9) * fused_mask
+            fused_corr, fused_mask = (corrs[:, 0], masks[:, 0]) if V else (corrs.new_zeros((B, S, H, W)),) * 2
+            if view is not None:
+                fused_corr, fused_mask = all_reduce_sum(torch.stack([fused_corr, fused_mask]), view)
+        else:
+            w = self._view_logits(corrs.reshape(B * V, S, H, W), hyp).reshape(B, V, 1, H, W)
+            if view is not None:
+                w = all_gather(w, 1, num_views, view)
+            w = torch.softmax(w, dim=1) + 1e-9
+            if view is not None:
+                lo, hi = share(num_views, view)
+                w = w[:, lo:hi]
+            view_weights = w * masks
+            if view is None:
+                weights_sum = view_weights.sum(1)
+                corr_sum = (corrs * view_weights).sum(1)
+            else:
+                sums = torch.stack([view_weights.sum(1, dtype=torch.float32),
+                                    (corrs * view_weights).sum(1, dtype=torch.float32)])
+                weights_sum, corr_sum = all_reduce_sum(sums, view).to(corrs.dtype)
+            fused_mask = (weights_sum != 0).to(corrs.dtype)
+            fused_corr = corr_sum / (weights_sum + 1e-9) * fused_mask
+        if hyp is not None:
+            total = self.corr_to_view_weight[0].in_channels
+            fused_corr, fused_mask = all_gather(torch.stack([fused_corr, fused_mask]), 2, total, hyp)
         return fused_corr, fused_mask
+
+    def _view_logits(self, corrs, hyp):
+        """The weight net on (N, S, H, W) corrs: (N, 1, H, W)."""
+        if corrs.shape[0] == 0:  # an empty view share (then no rank of this hyp group has a view)
+            return corrs.new_zeros((0, 1) + corrs.shape[2:])
+        if hyp is None:
+            return self.corr_to_view_weight(corrs)
+        conv0, relu, conv1 = self.corr_to_view_weight
+        x, weight, bias = conv0.cast(corrs)
+        lo, hi = share(conv0.in_channels, hyp)
+        pre = F.conv2d(x, weight[:, lo:hi], None, conv0.stride, conv0.padding)
+        pre = all_reduce_sum(pre, hyp) + bias.reshape(1, -1, 1, 1)
+        return conv1(relu(pre))
 
 
 class DispnetCostvolumeEncoder(nn.Module):

@@ -26,6 +26,8 @@ import numpy as np
 import torch
 
 from ..ops.corr import planesweep_correlation
+from ..ops.epipolar import sampling_invdepths
+from ..parallel.context import hyp_group, share, view_group
 from ..utils import to_relative_intrinsics
 from .blocks.dispnet import (
     DispnetContextEncoder,
@@ -96,33 +98,42 @@ class RobustMVD(ModelBase):
 
     def forward(self, images, poses, intrinsics, keyview_idx):
         B, V, _, H, W = images.shape
+        view, hyp = view_group(), hyp_group()
         images = images.to(self.compute_dtype)
-        all_enc, _ = self.encoder(images.reshape(B * V, *images.shape[2:]))
-        all_enc = {k: v.reshape(B, V, *v.shape[1:]) for k, v in all_enc.items()}
-
-        conv1_key, _ = split_key_sources(all_enc["conv1"], keyview_idx)
-        conv2_key, _ = split_key_sources(all_enc["conv2"], keyview_idx)
-        enc_key, enc_sources = split_key_sources(all_enc["conv3a"], keyview_idx)
+        key_image, source_images = split_key_sources(images, keyview_idx)
         K_key, K_sources = split_key_sources(intrinsics, keyview_idx)
         _, key_to_source = split_key_sources(poses, keyview_idx)
+        # the view axis: this rank's share of the source views, in split_key_sources' order
+        lo, hi = share(V - 1, view)
+        source_images, K_sources, key_to_source = (t[:, lo:hi] for t in (source_images, K_sources, key_to_source))
+        n = hi - lo
+
+        # the key view first, then the rank's sources
+        images = torch.cat([key_image[:, None], source_images], 1)
+        all_enc, _ = self.encoder(images.reshape(B * (1 + n), *images.shape[2:]))
+        all_enc = {k: v.reshape(B, 1 + n, *v.shape[1:]) for k, v in all_enc.items()}
+        enc_key, enc_sources = all_enc["conv3a"][:, 0], all_enc["conv3a"][:, 1:]
 
         ctx = self.context_encoder(enc_key)
 
+        # the hyp axis: this rank's slab of the hypotheses
+        invdepths = sampling_invdepths(MIN_DEPTH, MAX_DEPTH, NUM_SAMPLING_POINTS, device=images.device)
+        s_lo, s_hi = share(NUM_SAMPLING_POINTS, hyp)
         corrs, masks, _ = planesweep_correlation(
             feat_key=enc_key.permute(0, 2, 3, 1),
             feat_sources=enc_sources.permute(0, 1, 3, 4, 2),
             intrinsics_key=K_key,
             intrinsics_sources=K_sources,
             key_to_source_transforms=key_to_source,
-            num_sampling_points=NUM_SAMPLING_POINTS,
-            min_depth=MIN_DEPTH,
-            max_depth=MAX_DEPTH,
+            invdepths=invdepths[:, s_lo:s_hi].expand(B, s_hi - s_lo),
         )
-        # (B, V-1, H, W, S) -> (B, V-1, S, H, W)
-        fused_corr, _ = self.fusion_block(corrs.permute(0, 1, 4, 2, 3), masks.permute(0, 1, 4, 2, 3))
+        # (B, n, H, W, S) -> (B, n, S, H, W); the fused volume is whole on every rank
+        fused_corr, _ = self.fusion_block(corrs.permute(0, 1, 4, 2, 3), masks.permute(0, 1, 4, 2, 3),
+                                          num_views=V - 1)
 
         all_enc_fused, enc_fused = self.fusion_enc_block(corr=fused_corr, ctx=ctx)
-        dec = self.decoder(enc_fused, {"conv1": conv1_key, "conv2": conv2_key, **all_enc_fused})
+        dec = self.decoder(enc_fused, {"conv1": all_enc["conv1"][:, 0], "conv2": all_enc["conv2"][:, 0],
+                                       **all_enc_fused})
 
         pred = {
             "depth": 1.0 / (dec["invdepth"] + 1e-9),

@@ -137,7 +137,9 @@ def planesweep_correlation(feat_key, feat_sources, intrinsics_key, intrinsics_so
             (B, S) (reference: planesweep_corr.py:464-487).
 
     Returns:
-        corrs, masks: (B, V, H, W, S); invdepths: (B, S).
+        corrs, masks: (B, V, H, W, S); invdepths: (B, S). With no source
+        view (V = 0, an empty share of a view axis) they are empty and K1 is
+        not launched.
     """
     B, V = feat_sources.shape[:2]
     if invdepths is None:
@@ -149,6 +151,9 @@ def planesweep_correlation(feat_key, feat_sources, intrinsics_key, intrinsics_so
     if intrinsics_sources is None:
         intrinsics_sources = intrinsics_key[:, None].expand(B, V, 3, 3)
 
+    if V == 0:
+        empty = feat_key.new_zeros((B, 0) + feat_key.shape[1:3] + invdepths.shape[-1:])
+        return empty, empty, invdepths
     corrs, masks = [], []
     for v in range(V):
         corr, mask = planesweep_correlation_single(

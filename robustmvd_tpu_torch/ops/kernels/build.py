@@ -14,6 +14,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -71,7 +72,10 @@ def build(names, force=False):
     nvcc = _nvcc()
     procs = {}
     for name in todo:
-        tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
+        # a name of its own (O_EXCL) for each build: processes that reach a first build at once (the ranks of
+        # a mesh on one machine, or on hosts sharing the checkout) each compile and rename a whole library
+        fd, tmp = tempfile.mkstemp(prefix=f"lib{name}.", suffix=".tmp.so", dir=BUILD_DIR)
+        os.close(fd)
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (tmp, time.perf_counter(), subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -81,6 +85,7 @@ def build(names, force=False):
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
             failed.append(f"{name}:\n{log}")
+            os.remove(tmp)
             continue
         os.replace(tmp, library_path(name))
         results[name] = (seconds, log)

@@ -1,8 +1,10 @@
-"""Data parallelism over ``torch.distributed`` (the JAX package's ``parallel``):
-the ("data", "view", "hyp") mesh, process-group start-up, and the active
-mesh that the training step reduces over."""
+"""Parallelism over ``torch.distributed`` (the JAX package's ``parallel``):
+the ("data", "view", "hyp") mesh, process-group start-up, the active mesh
+and its axes' groups, and the differentiable collectives of the sharded
+``robust_mvd`` (``collectives.py``)."""
 
-from .context import data_group, get_mesh, use_mesh
+from .collectives import all_gather, all_reduce_sum
+from .context import data_group, get_mesh, hyp_group, share, shares, use_mesh, view_group
 from .mesh import (
     AXIS_DATA,
     AXIS_HYP,
@@ -28,4 +30,10 @@ __all__ = [
     "get_mesh",
     "use_mesh",
     "data_group",
+    "view_group",
+    "hyp_group",
+    "share",
+    "shares",
+    "all_reduce_sum",
+    "all_gather",
 ]

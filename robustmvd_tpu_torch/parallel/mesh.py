@@ -9,11 +9,14 @@ parallelism is single-process ``nn.DataParallel``
 and shards the batch over ``data``, the source views over ``view`` and the
 depth hypotheses over ``hyp``. The port builds the same mesh with
 ``torch.distributed.device_mesh.init_device_mesh``, one process per device,
-and trains data-parallel over ``data`` (``DistributedDataParallel`` in the
-training engine, with the losses' masked means and BatchNorm's statistics
-reduced over the data group). ``view`` and ``hyp`` must be 1: the port's
-models carry no sharding annotations, and splitting views or hypotheses
-across processes needs explicit collectives (ROADMAP.md queue 1 item 8).
+rank ``(d * view + v) * hyp + h`` at coordinates (d, v, h). It trains
+data-parallel over ``data`` (``DistributedDataParallel`` in the training
+engine, with the losses' masked means and BatchNorm's statistics reduced over
+the data group); ``robust_mvd`` shards its source views over ``view`` and its
+hypotheses over ``hyp`` with explicit collectives (``collectives.py``) on the
+groups that ``context.py`` reads from the active mesh. The MVSNet family runs
+unsharded on view and hyp (ROADMAP.md queue 1 item 9): under such a mesh its
+ranks each compute the whole forward.
 
 Processes join with :func:`init_distributed` (or
 :func:`init_distributed_from_env`, the launcher's environment contract)
@@ -61,9 +64,6 @@ def make_mesh(spec=None, device_type=None):
 
     spec = spec or MeshSpec()
     shape = spec.resolve(dist.get_world_size())
-    if shape[1] != 1 or shape[2] != 1:
-        raise NotImplementedError(f"mesh {shape}: the port shards only the data axis; view and hyp above 1 "
-                                  "need explicit collectives (ROADMAP.md queue 1 item 8, the view and hyp axes)")
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(device_type, shape, mesh_dim_names=(AXIS_DATA, AXIS_VIEW, AXIS_HYP))

@@ -33,17 +33,22 @@ trains them in place, as JAX's mutable-BN step threads them). The engine
 never switches the model's mode: a model built with ``train=True`` trains in
 the modes it was built with, and frozen BatchNorms stay in eval.
 
-With a ``mesh`` (``parallel.make_mesh``) the engine trains data-parallel
-over its data axis, one process per device, as the JAX engine's sharded step
+With a ``mesh`` (``parallel.make_mesh``) the engine trains on it, one
+process per device, as the JAX engine's sharded step
 (``robustmvd_tpu/train/multi_view_depth_training.py:102-121, 230-262``):
-each rank loads the strided share ``rank::world`` of the dataset, shuffled
-with the seed ``7919 * (rank + 1)``, so the global batch is ``batch_size``
-times the world size; the forward runs through ``DistributedDataParallel``
-under ``parallel.use_mesh``, so that the losses' masked means and the family's
+each rank loads the strided share ``rank::world`` of the dataset by its rank
+on the data axis, shuffled with the seed ``7919 * (rank + 1)``, so the
+global batch is ``batch_size`` times the data axis' size and the ranks of one
+view x hyp group load the same batch; the forward runs under
+``parallel.use_mesh``, so that the losses' masked means and the family's
 BatchNorm statistics are the global batch's (``loss/utils.py``,
-``ops/layers.py``) and the averaged gradient is the global loss's; the
-logged losses are averaged over the ranks; rank 0 alone writes events and
-snapshots, and its restored snapshot is broadcast to the others.
+``ops/layers.py``) and ``robust_mvd`` shards its views and hypotheses over
+the view and hyp axes; it runs through ``DistributedDataParallel`` over every
+rank of the mesh, whose mean of the ranks' gradients is the global loss's
+gradient (``parallel/collectives.py`` says why under view and hyp); the
+logged losses are averaged over the data axis; the global rank 0 alone
+writes the log, events and snapshots, and its restored snapshot is broadcast
+to the others.
 """
 
 from __future__ import annotations
@@ -77,9 +82,11 @@ class MultiViewDepthTraining(Training):
         self.verbose = verbose
         self.out_dir = out_dir
         self.mesh = mesh
+        # the data axis: the loader's share and the logged losses' mean
         self.group = mesh.get_group(AXIS_DATA) if mesh is not None else None
         self.world = dist.get_world_size(self.group) if mesh is not None else 1
         self.rank = dist.get_rank(self.group) if mesh is not None else 0
+        self.writes = mesh is None or dist.get_rank() == 0
         self._init_dirs()
 
         self.dataset = dataset
@@ -122,12 +129,13 @@ class MultiViewDepthTraining(Training):
         self.train_model = self.model
         if mesh is not None:
             device = self.device
-            # vis's occlusion heads get no gradient (its loss reads the first uncertainty head only)
+            # over every rank of the mesh; vis's occlusion heads get no gradient (its loss reads the first
+            # uncertainty head only), nor does robust_mvd's fusion weight net with one source view
             self.train_model = torch.nn.parallel.DistributedDataParallel(
-                self.model, device_ids=[device.index] if device.type == "cuda" else None, process_group=self.group,
+                self.model, device_ids=[device.index] if device.type == "cuda" else None,
                 find_unused_parameters=True)
 
-        if self.verbose and self.rank == 0:
+        if self.verbose and self.writes:
             logging.info(str(self))
 
     @property
@@ -163,7 +171,7 @@ class MultiViewDepthTraining(Training):
         self.weights_only_checkpoints_dir = osp.join(self.out_dir, "weights_only_checkpoints_dir")
         for d in (self.out_dir, self.artifacts_dir, self.checkpoints_dir, self.weights_only_checkpoints_dir):
             os.makedirs(d, exist_ok=True)
-        if self.rank == 0:
+        if self.writes:
             logging.add_log_file(self.log_file_path, flush_line=True)
 
     # ------------------------------------------------------------------
@@ -224,7 +232,7 @@ class MultiViewDepthTraining(Training):
                     it = self.finished_iterations
                     # the host's time: launches return before the card has run them (PERF.md)
                     with writer.TimeWriter(name="00_overview/train_sec_iter", step=it,
-                                           write=self.rank == 0 and it % self.log_loss_interval == 0,
+                                           write=self.writes and it % self.log_loss_interval == 0,
                                            avg_over_steps=True, update_eta=True, max_iterations=self.max_iterations):
                         sample_inputs, sample_gt = self.prepare_batch(sample)
                         loss, sub_losses = self.train_step(sample_inputs, sample_gt)
@@ -235,13 +243,13 @@ class MultiViewDepthTraining(Training):
                         loss, sub_losses = self._global_losses(loss, sub_losses)
                     if it % self.print_interval == 0:
                         dt = (time.time() - start_print) / steps_since_print
-                        if self.rank == 0:
+                        if self.writes:
                             logging.info(f"Iteration {it}/{self.max_iterations} - "
                                          f"{dt:1.4f} sec per iteration - loss: {float(loss):1.5f}")
                         start_print = time.time()
                         steps_since_print = 0
 
-                    if self.rank == 0:
+                    if self.writes:
                         if log_all:
                             self._log_all(sample_inputs, sample_gt, loss, sub_losses)
                         elif log_loss:
@@ -338,22 +346,22 @@ class MultiViewDepthTraining(Training):
                 "iteration": self.finished_iterations}
 
     def _save_all(self):
-        if self.rank != 0:  # the state is replicated: one writer per snapshot path
+        if not self.writes:  # the state is replicated: one writer per snapshot path
             return
         path = self.saver_all.save(self.state(), self.finished_iterations)
         logging.info(f"Saved checkpoint {path}.")
 
     def _write_checkpoints(self):
         self._save_all()
-        if self.rank == 0:
+        if self.writes:
             self.saver_weights_only.save(self.model.state_dict(), self.finished_iterations)
 
     def _restore_state(self):
-        state, iteration = self.saver_all.restore() if self.rank == 0 else (None, None)
-        if self.world > 1:
+        state, iteration = self.saver_all.restore() if self.writes else (None, None)
+        if self.mesh is not None and dist.get_world_size() > 1:
             # rank 0's snapshot for every rank: a rank-local checkpoints directory holds none on the others
             box = [(state, iteration)]
-            dist.broadcast_object_list(box, src=dist.get_global_rank(self.group, 0), group=self.group)
+            dist.broadcast_object_list(box, src=0)
             state, iteration = box[0]
         if state is None:
             return

@@ -106,6 +106,33 @@ def test_correlation_on_card_matches_cpu(cuda):
     torch.testing.assert_close(corr_g.cpu(), corr_c, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_correlation_on_a_view_share_and_a_hypothesis_slab(cuda, dtype):
+    """The shares of a view x hyp mesh on the card: a slab of the hypotheses
+    is that slab of the whole volume, bit for bit, with one K1 launch per
+    source view; an empty view share launches none."""
+    rng = np.random.RandomState(7)
+    B, V, H, W, C, S = 2, 3, 12, 20, 32, 64
+    K = np.tile(np.array([[0.9, 0, 0.5], [0, 1.2, 0.5], [0, 0, 1]], np.float32), (B, 1, 1))
+    T = np.tile(np.eye(4, dtype=np.float32), (B, V, 1, 1))
+    T[:, :, :3, 3] = rng.randn(B, V, 3) * 0.3
+    key, src, K, Ks, T = (torch.from_numpy(a).to(cuda) for a in (
+        rng.randn(B, H, W, C).astype(np.float32), rng.randn(B, V, H, W, C).astype(np.float32), K,
+        np.tile(K[:, None], (1, V, 1, 1)), T))
+    key, src = key.to(dtype), src.to(dtype)
+    invdepths = torch.linspace(1e-3, 2.5, S, device=cuda)[None].expand(B, S)
+    whole, whole_mask, _ = planesweep_correlation(key, src, K, Ks, T, invdepths=invdepths)
+    before = dict(planesweep_sample.launches_by_dtype)
+    corr, mask, _ = planesweep_correlation(key, src[:, 1:], K, Ks[:, 1:], T[:, 1:], invdepths=invdepths[:, 16:48])
+    empty, _, _ = planesweep_correlation(key, src[:, :0], K, Ks[:, :0], T[:, :0], invdepths=invdepths[:, 16:48])
+    torch.cuda.synchronize()
+    launched = {k: planesweep_sample.launches_by_dtype[k] - before[k] for k in before}
+    assert launched == {"float32": 0, "bfloat16": 0, str(dtype).removeprefix("torch."): V - 1}
+    assert empty.shape == (B, 0, H, W, 32)
+    torch.testing.assert_close(corr, whole[:, 1:, ..., 16:48], atol=0, rtol=0)
+    torch.testing.assert_close(mask, whole_mask[:, 1:, ..., 16:48], atol=0, rtol=0)
+
+
 def test_robust_mvd_on_card_matches_cpu(cuda):
     rng = np.random.RandomState(3)
     H, W = 64, 128

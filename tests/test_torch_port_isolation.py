@@ -14,7 +14,9 @@
   writer (events.jsonl and TensorBoard), the profiler, the viewer's PNG
   export, the launcher's module and ``parallel/``, and a training run of
   robust_mvd through the train CLI with ``--data_parallel`` (a gloo group of
-  one process, ``DistributedDataParallel``).
+  one process, ``DistributedDataParallel``), the collectives of the view and
+  hyp axes, the data scripts (``make_sample_data`` run) and ``python -m
+  robustmvd_tpu_torch.run_conf`` on a yaml of one command.
 - No source file of the package, nor ``chip_smoke.py``, imports them or
   names them in a string (``importlib`` style).
 - Entry points default to the card and raise, naming ``device='cpu'``,
@@ -138,6 +140,9 @@ import torch
 torch.set_num_threads(2)
 import robustmvd_tpu_torch as r
 import robustmvd_tpu_torch.launch, robustmvd_tpu_torch.parallel, robustmvd_tpu_torch.viewer
+import robustmvd_tpu_torch.parallel.collectives
+from robustmvd_tpu_torch.data.scripts import (convert_dtu, convert_dtu_mvsnet, convert_flyingthings3d,
+                                              convert_scannet, convert_staticthings3d, make_sample_data)
 from robustmvd_tpu_torch.utils import profiler, writer
 from robustmvd_tpu_torch.train.cli import main as train_main
 out = sys.argv[1]
@@ -155,6 +160,12 @@ x = torch.randn(32, 32)
 with profiler.trace(out + "/trace", device="cpu"):
     x @ x
 assert profiler.time_fn(lambda: x @ x, iters=2, burn_in=1) > 0 and len(pages) == 1
+make_sample_data.main(out + "/sample_data", height=32, width=48)
+import runpy
+with open(out + "/conf.yaml", "w") as f:
+    f.write("runs:\\n  - run_commands: ['echo ran %%COMMENT%%']\\n")
+sys.argv = ["run_conf", out + "/conf.yaml", "--output_base", out + "/runs"]
+runpy.run_module("robustmvd_tpu_torch.run_conf", run_name="__main__")  # python -m robustmvd_tpu_torch.run_conf
 bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
 print("LOADED", bad)
 """ % (FORBIDDEN,)
@@ -165,6 +176,7 @@ print("LOADED", bad)
     assert "LOADED []" in out.stdout, out.stdout
     assert list((tmp_path / "train").glob("events.out.tfevents.*"))
     assert list((tmp_path / "train" / "weights_only_checkpoints_dir").glob("snapshot-iter-*.pt"))
+    assert "ran" in out.stdout and (tmp_path / "sample_data" / "gt_depth_key.npy").exists()
 
 
 def _sources():

@@ -197,5 +197,6 @@ def test_mesh_is_data_only_and_data_group_is_none_for_one_rank(monkeypatch):
     with use_mesh(FakeMesh()):
         assert data_group() is None
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a: 4)
-    with pytest.raises(NotImplementedError, match="view and hyp"):
-        make_mesh(MeshSpec(data=2, view=2))
+    monkeypatch.setattr(torch.distributed, "get_backend", lambda *a: "gloo")
+    monkeypatch.setattr(torch.distributed.device_mesh, "init_device_mesh", lambda *a, **kw: (a, kw))
+    assert make_mesh(MeshSpec(data=2, view=2)) == (("cpu", (2, 2, 1)), {"mesh_dim_names": ("data", "view", "hyp")})
