@@ -193,7 +193,20 @@ CUDA toolkit (``nvcc``). Phases, each printing one JSON line:
             steps; K1, K1 v2 and K1b launched per rank once per view of its
             share; each rank's peak MiB and ms per frame beside the
             unsharded run's).
-16. the kernels line, and last the ``{"ok": true, ...}`` line.
+16. the MVSNet family on view and hyp: ``mesh_family`` (4 processes on
+            the one card in a gloo group, as phase 15: mvsnet_train with
+            ``view_parallel`` and K5 under (1, 2, 2), 1+4 views, 256
+            hypotheses; cvp_mvsnet and vis_mvsnet at fp32 and bf16 under
+            (1, 1, 4), 1+2 views; all at 384x1280 against this process's
+            unsharded runs (fp32 within MODEL_BOUNDS, cvp's within
+            CVP_FINE_BOUNDS, bf16 vis within the family's bf16 bounds); one
+            vis train step under (1, 1, 4) through the engine, its
+            gradients within 10 times a reordered-sum yardstick; every rank
+            launching each kernel as the unsharded run does, K4 once per view
+            of its share, on the D extents of its slab, K5's with the halo;
+            per rank the launches, D extents, ms per frame, peak MiB and the
+            collectives' bytes).
+17. the kernels line, and last the ``{"ok": true, ...}`` line.
 
 Any failed check raises and the script exits non-zero; it does nothing
 without a CUDA device. Weights are random, from a seed.
@@ -3655,11 +3668,11 @@ def mesh_child():
     return 0
 
 
-def run_ranks(spec_path, world, timeout):
-    """``mesh_child`` in ``world`` processes on this machine (the launcher's
-    contract; its ``--local`` takes one process per card, and these share
-    one); every one is killed if one fails or the time runs out. Returns
-    each rank's output."""
+def run_ranks(spec_path, world, timeout, child="mesh_child"):
+    """``child`` (``mesh_child`` or ``mesh_family_child``) in ``world``
+    processes on this machine (the launcher's contract; its ``--local`` takes
+    one process per card, and these share one); every one is killed if one
+    fails or the time runs out. Returns each rank's output."""
     from robustmvd_tpu_torch.launch import free_port
 
     with open(spec_path) as f:
@@ -3669,7 +3682,7 @@ def run_ranks(spec_path, world, timeout):
         json.dump(spec, f)
     root = os.path.dirname(os.path.abspath(__file__))
     logs = [tempfile.TemporaryFile() for _ in range(world)]
-    procs = [subprocess.Popen([sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke.mesh_child())",
+    procs = [subprocess.Popen([sys.executable, "-c", f"import sys, chip_smoke; sys.exit(chip_smoke.{child}())",
                                spec_path], cwd=root, stdout=logs[r], stderr=subprocess.STDOUT,
                               env=dict(os.environ, RMVD_TPU_PROCESS_ID=str(r)))
              for r in range(world)]
@@ -3692,7 +3705,7 @@ def run_ranks(spec_path, world, timeout):
         outputs.append(log.read().decode(errors="replace"))
         log.close()
     if failed is not None:
-        raise AssertionError(f"mesh_view_hyp: rank {failed} failed (exit codes {[p.returncode for p in procs]}):\n"
+        raise AssertionError(f"{child}: rank {failed} failed (exit codes {[p.returncode for p in procs]}):\n"
                              + "\n".join(f"[rank {r}] {out[-3000:]}" for r, out in enumerate(outputs)))
     return outputs
 
@@ -3823,6 +3836,370 @@ def phase_mesh_view_hyp(counters, frames=5, world=4, size=(384, 1280), train_siz
     emit("mesh_view_hyp", mesh=list(MESH_VIEW_HYP), backend="gloo", processes=world, shape=[H, W], views=views,
          hypotheses=256, frames=frames, train_shape=[train_h, train_w], train_batch=batch, tf32=False, **result)
     return result
+
+
+# The MVSNet family on the view and hyp axes (phase mesh_family): label ->
+# (model, create_model arguments, mesh (data, view, hyp), views, score heads
+# conditioned by FAMILY_HEAD_GAINS); 384x1280, 4 ranks on the one card
+MESH_FAMILY = {
+    "mvsnet_train": ("mvsnet_train", {"view_parallel": True, "conv3d_impl": "banded"}, (1, 2, 2), 5, False),
+    "cvp_mvsnet": ("cvp_mvsnet", {}, (1, 1, 4), 3, False),
+    "vis_mvsnet": ("vis_mvsnet", {}, (1, 1, 4), 3, False),
+    "vis_mvsnet_bf16": ("vis_mvsnet", {"dtype": "bfloat16"}, (1, 1, 4), 3, True),
+}
+MESH_FAMILY_TRAIN = (1, 1, 4)  # vis_mvsnet's training step: train_vis's batch 2, 1+2 views, 256x320
+# the kernel wrappers as the family's models call them: (module, name, the D extent of the call's volume)
+FAMILY_WRAPPERS = {
+    "sweep_warp": [("models.mvsnet", "warp_variance", lambda a: a[4].shape[1]),
+                   ("models.cvp_mvsnet", "warp_variance_rt", lambda a: a[4].shape[1]),
+                   ("models.blocks.cvp_mvsnet", "warp_variance_dense", lambda a: a[4].shape[1])],
+    "sweep_group_cost": [("models.blocks.vis_mvsnet", "homography_group_cost", lambda a: a[4].shape[1])],
+    "soft_argmin": [("models.blocks.vis_mvsnet", "fused_soft_argmin", lambda a: a[0].shape[1])],
+    "conv3d_banded": [("ops.conv3d", "conv3d_banded", lambda a: a[0].shape[2])],
+}
+
+
+@contextlib.contextmanager
+def kernel_extents(model):
+    """The D extent of the volume each kernel wrapper call of the block saw,
+    by source name; K4 (``warp_volume``) through the model's ``warp``, which
+    mvsnet binds when it is built. Also every all-reduce of the port's
+    collectives: calls and bytes (``allreduce``)."""
+    import importlib
+
+    import robustmvd_tpu_torch.parallel.collectives as collectives
+
+    calls = {name: [] for name in (*FAMILY_WRAPPERS, "warp_volume")}
+    reduced = {"calls": 0, "bytes": 0}
+    saved = []
+
+    def recording(name, fn, extent):
+        def call(*args, **kwargs):
+            calls[name].append(int(extent(args)))
+            return fn(*args, **kwargs)
+        return call
+
+    def summed(x, group):
+        reduced["calls"] += 1
+        reduced["bytes"] += x.numel() * x.element_size()
+        return saved_summed(x, group)
+
+    for name, sites in FAMILY_WRAPPERS.items():
+        for module_name, attr, extent in sites:
+            module = importlib.import_module(f"robustmvd_tpu_torch.{module_name}")
+            saved.append((module, attr, getattr(module, attr)))
+            setattr(module, attr, recording(name, getattr(module, attr), extent))
+    saved_summed = collectives._summed
+    collectives._summed = summed
+    if hasattr(model, "warp"):
+        model.warp = recording("warp_volume", model.warp, lambda a: a[3].shape[1])
+    try:
+        yield calls, reduced
+    finally:
+        collectives._summed = saved_summed
+        for module, attr, fn in saved:
+            setattr(module, attr, fn)
+
+
+def on_card(tensors):
+    """A dict of host tensors (and tuples of them) on the card."""
+    return {k: tuple(t.cuda() for t in v) if isinstance(v, tuple) else v.cuda() for k, v in tensors.items()}
+
+
+def on_host(tensors):
+    return {k: tuple(t.cpu() for t in v) if isinstance(v, tuple) else v.cpu() for k, v in tensors.items()}
+
+
+def family_mesh_model(label, train=False):
+    """The phase's model of ``label`` (seed 0) on the card."""
+    import robustmvd_tpu_torch as rmvd
+
+    name, kwargs, _, _, conditioned = MESH_FAMILY[label] if not train else ("vis_mvsnet", {}, None, None, True)
+    model = rmvd.create_model(name, seed=0, train=train, **kwargs)
+    return conditioned_heads(model, name) if conditioned else model
+
+
+def family_forwards(model, inputs, frames, counters):
+    """One warm-up and ``frames`` forwards under inference mode: the last
+    pred (on the host), the median host ms per frame (each ending in a
+    synchronize), the peak MiB of the timed frames, the launches of every
+    frame (counts reset before the first, read after the last), the D
+    extents each wrapper saw, per frame, and the all-reduces per frame."""
+    import torch
+
+    counters.reset()
+    with torch.inference_mode(), kernel_extents(model) as (extents, reduced):
+        model(**inputs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(frames):
+            t0 = time.perf_counter()
+            pred, aux = model(**inputs)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    runs = frames + 1
+    per_frame = {name: calls[:len(calls) // runs] for name, calls in extents.items()}
+    if "outputs" in aux:  # vis_mvsnet's stages
+        pred = {**pred, **{f"stage{k + 1}": out[0] for k, out in enumerate(aux["outputs"])}}
+    return {"pred": {k: v.float().cpu() for k, v in pred.items()}, "ms_per_frame": statistics.median(times),
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20, "launches": counters.read(), "frames": runs,
+            "extents_per_frame": per_frame, "allreduce_per_frame": {k: v / runs for k, v in reduced.items()}}
+
+
+def family_mesh_step(model, inputs, gt, counters, mesh=None):
+    """One engine train_step of vis_mvsnet (vismvsnet_loss, the engine's adam;
+    with ``mesh``, DistributedDataParallel over it): loss, gradients, running
+    statistics, launches, peak MiB."""
+    import torch
+
+    import robustmvd_tpu_torch as rmvd
+
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:  # train_step writes nothing there
+        training = family_engine(tmp, model, rmvd.create_dataset("synthetic.train.mvd", num_samples=1),
+                                 "vismvsnet_loss", 3, 1, mesh=mesh)
+        counters.reset()
+        total, _ = training.train_step(inputs, gt)
+        torch.cuda.synchronize()
+    return {"loss": float(total), "grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+                                            if p.grad is not None},
+            "stats": {k: v.cpu() for k, v in running_stats(model).items()}, "launches": counters.read(),
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+
+
+def mesh_family_child():
+    """One rank of phase mesh_family, started by it (``sys.argv[1]`` the
+    spec's JSON file, ``RMVD_TPU_PROCESS_ID`` the rank): joins the gloo group
+    on card 0 and runs each case of MESH_FAMILY under its mesh, then vis's
+    train step under MESH_FAMILY_TRAIN; writes ``<out>/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from robustmvd_tpu_torch.parallel import MeshSpec, init_distributed, make_mesh, use_mesh
+
+    with open(sys.argv[1]) as f:
+        spec = json.load(f)
+    rank = int(os.environ["RMVD_TPU_PROCESS_ID"])
+    torch.cuda.set_device(0)
+    init_distributed(spec["coordinator"], spec["world"], rank, backend="gloo")
+    set_tf32(False)
+    data = torch.load(spec["inputs"], weights_only=False)
+    counters, meshes = Counters(), {}
+    result = {"rank": rank}
+    for label in MESH_FAMILY:
+        shape = MESH_FAMILY[label][2]
+        mesh = meshes.setdefault(shape, make_mesh(MeshSpec(*shape)))
+        model = family_mesh_model(label)
+        inputs = on_card(data[label])
+        with use_mesh(mesh):
+            run = family_forwards(model, inputs, spec["frames"], counters)
+        run["coords"] = [mesh.get_local_rank(a) for a in mesh.mesh_dim_names]
+        if rank:
+            run["pred"] = {k: v for k, v in run["pred"].items() if k != "depth_uncertainty"}
+        result[label] = run
+        del model, inputs
+        torch.cuda.empty_cache()
+    mesh = meshes.setdefault(MESH_FAMILY_TRAIN, make_mesh(MeshSpec(*MESH_FAMILY_TRAIN)))
+    step = family_mesh_step(family_mesh_model(None, train=True), on_card(data["train_inputs"]),
+                            on_card(data["train_gt"]), counters, mesh)
+    if rank:
+        del step["grads"]
+    result["train"] = step
+    torch.save(result, os.path.join(spec["out"], f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def expected_extents(plain, kernel, hyp, h, views=None):
+    """A rank's D extents of ``kernel``'s calls from the unsharded run's:
+    the slab (share(D, hyp)) for the cost-volume kernels, once per source
+    view of the rank's view share ``views`` for K4; the slab and one halo
+    plane on each side, clipped, for K5; the whole D for K3 (its scores are
+    gathered)."""
+    from robustmvd_tpu_torch.parallel import shares
+
+    def slab(D):
+        lo, hi = shares(D, hyp)[h]
+        return hi - lo
+
+    def window(D):
+        lo, hi = shares(D, hyp)[h]
+        return min(hi + 1, D) - max(lo - 1, 0)
+
+    if kernel == "warp_volume":
+        return [slab(D) for D in plain[:views]]
+    if kernel == "conv3d_banded":
+        return [window(D) for D in plain]
+    if kernel == "soft_argmin":
+        return list(plain)
+    return [slab(D) for D in plain]
+
+
+def phase_mesh_family(counters, frames=1, world=4, size=(384, 1280), train_size=(256, 320)):
+    """The MVSNet family sharded over the view and hyp axes: 4 processes on
+    the one card in a gloo group with CUDA tensors (as phase mesh_view_hyp),
+    against this process's unsharded runs of the same seeded weights and
+    inputs (TF32 off):
+
+    - mvsnet_train (``view_parallel``, K5's path) under (1, 2, 2), 1+4 views,
+      256 hypotheses: K4 warps each rank's 2 source views on its slab of 128,
+      K5 runs on slabs and halos; cvp_mvsnet (5 scales) and vis_mvsnet at
+      fp32 and bf16 under (1, 1, 4), 1+2 views: K2 (R,t and dense modes) and
+      K2 group on slabs, K5 on slabs and halos, K3 on the gathered scores;
+      all at 384x1280. fp32 depth within MODEL_BOUNDS of the unsharded
+      run's (cvp's within CVP_FINE_BOUNDS), bf16 vis scored against it
+      within the family's bf16 card-vs-CPU bounds (absrel < 0.5 points,
+      1.03-inliers > 99%, score heads conditioned);
+    - one vis_mvsnet train step (train_vis's batch 2, 1+2 views, 256x320)
+      through the engine's train_step under (1, 1, 4), DDP over the ranks:
+      the loss within 1e-4, every gradient within grad_errors' bounds and
+      the gradients' and running statistics' rel L2 within 10 times the
+      larger distance of an unsharded step from a second one and from one on
+      cuDNN's deterministic algorithms (phase mesh_view_hyp's rule);
+    - every rank launches each kernel as often as the unsharded run (K4: its
+      view share's times) on the D extents its slab gives (FAMILY_WRAPPERS,
+      ``expected_extents``).
+
+    Figures per rank: launches, the D extents, ms per frame and peak MiB
+    beside the unsharded run's, the collectives' all-reduces per frame and
+    their bytes."""
+    import torch
+
+    import robustmvd_tpu_torch as rmvd
+    from robustmvd_tpu_torch.parallel import shares
+
+    set_tf32(False)
+    single, data, again = {}, {}, {}
+    for label, (name, _, _, views, _) in MESH_FAMILY.items():
+        model = family_mesh_model(label)
+        inputs = model.input_adapter(**sideways_sample(np.random.RandomState(5), *size, views))
+        data[label] = on_host(inputs)
+        single[label] = family_forwards(model, inputs, frames, counters)
+        torch.backends.cudnn.deterministic = True  # the yardstick: the same frame on other algorithms
+        again[label] = family_forwards(model, inputs, 1, counters)["pred"]
+        torch.backends.cudnn.deterministic = False
+        del model, inputs
+        torch.cuda.empty_cache()
+    batch = family_train_batch(0, 2, *train_size)
+    plain = []  # two unsharded steps, and a third on cuDNN's deterministic algorithms: another summation order
+    for deterministic in (False, False, True):
+        torch.backends.cudnn.deterministic = deterministic
+        model = family_mesh_model(None, train=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            inputs, gt = family_engine(tmp, model, rmvd.create_dataset("synthetic.train.mvd", num_samples=1),
+                                       "vismvsnet_loss", 3, 1).prepare_batch(batch)
+        plain.append(family_mesh_step(model, inputs, gt, counters))
+        del model
+    torch.backends.cudnn.deterministic = False
+    data["train_inputs"], data["train_gt"] = on_host(inputs), on_host(gt)
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(data, os.path.join(tmp, "inputs.pt"))
+        spec_path = os.path.join(tmp, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump({"world": world, "frames": frames, "out": tmp, "inputs": os.path.join(tmp, "inputs.pt")}, f)
+        t0 = time.perf_counter()
+        run_ranks(spec_path, world, timeout=400, child="mesh_family_child")
+        ranks_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(world)]
+
+    report, launches_by_rank, failures = {}, [], []
+    for label, (name, _, (_, view, hyp), views, _) in MESH_FAMILY.items():
+        ref = single[label]["pred"]["depth"].numpy()
+        ours = [r[label]["pred"]["depth"].numpy() for r in ranks]
+        diagnostics = {key: {"sharded_rank0": relative_errors(ranks[0][label]["pred"][key].numpy(),
+                                                              single[label]["pred"][key].numpy()),
+                             "unsharded_deterministic": relative_errors(again[label][key].numpy(),
+                                                                        single[label]["pred"][key].numpy())}
+                       for key in single[label]["pred"] if key == "depth" or key.startswith("stage")}
+        diagnostics["share_over_1e-3"] = {
+            "sharded_rank0": float((np.abs(ours[0] - ref) > 1e-3 * np.abs(ref).mean()).mean()),
+            "unsharded_deterministic": float((np.abs(again[label]["depth"].numpy() - ref) > 1e-3 * np.abs(ref).mean()
+                                              ).mean())}
+        print(json.dumps({"mesh_family_diagnostics": label, **diagnostics}), flush=True)
+        if name == "vis_mvsnet" and "bf16" in label:
+            scores = [depth_scores(d[0, 0], ref[0, 0]) for d in ours]
+            if not all(a < 0.5 and i > 99.0 for a, i in scores):
+                failures.append(f"{label}: (absrel points, inliers %) per rank {scores} against the unsharded run, "
+                                "beyond (0.5, 99)")
+            errors = {"absrel_inliers_by_rank": scores}
+        else:
+            bounds = CVP_FINE_BOUNDS if name == "cvp_mvsnet" else MODEL_BOUNDS
+            rel = [relative_errors(d, ref) for d in ours]
+            if not (np.isfinite(ref).all() and all(m <= bounds[0] and x <= bounds[1] for m, x in rel)):
+                failures.append(f"{label}: depth (mean, max relative) per rank {rel} beyond {bounds}")
+            errors = {"depth_mean_max_rel_by_rank": rel, "bounds": bounds}
+        for r, result in enumerate(ranks):
+            run = result[label]
+            _, v, h = run["coords"]
+            view_lo, view_hi = shares(views - 1, view)[v]
+            got, expected = {}, {}
+            for kernel, plain_extents in single[label]["extents_per_frame"].items():
+                got[kernel] = run["extents_per_frame"][kernel]
+                expected[kernel] = expected_extents(plain_extents, kernel, hyp, h,
+                                                    views=view_hi - view_lo if kernel == "warp_volume" else None)
+            sharded_launches = {k: n for k, n in run["launches"].items() if n}
+            plain_launches = {k: n * (view_hi - view_lo) // (views - 1) if k == "warp_volume" else n
+                              for k, n in single[label]["launches"].items() if n}
+            if got != expected or sharded_launches != plain_launches or result["rank"] != r:
+                failures.append(f"{label} rank {r} (view {v}, hyp {h}): D extents per frame {got}, expected "
+                                f"{expected}; launches {sharded_launches}, expected {plain_launches}")
+            launches_by_rank.append({"case": label, "rank": r, "view": v, "hyp": h, "launches": sharded_launches,
+                                     "extents_per_frame": got, "ms_per_frame": run["ms_per_frame"],
+                                     "peak_mib": run["peak_mib"], "allreduce_per_frame": run["allreduce_per_frame"]})
+        report[label] = {"mesh": list(MESH_FAMILY[label][2]), "views": views, **errors, "diagnostics": diagnostics,
+                         "ms_per_frame": [r[label]["ms_per_frame"] for r in ranks],
+                         "plain_ms_per_frame": single[label]["ms_per_frame"],
+                         "peak_mib": [r[label]["peak_mib"] for r in ranks], "plain_peak_mib": single[label]["peak_mib"],
+                         "plain_launches": {k: n for k, n in single[label]["launches"].items() if n},
+                         "plain_extents_per_frame": single[label]["extents_per_frame"],
+                         "allreduce_per_frame": [r[label]["allreduce_per_frame"] for r in ranks]}
+
+    grads, stats = ranks[0]["train"]["grads"], ranks[0]["train"]["stats"]
+    yardsticks = {key: {"two_plain_steps": state_diff(plain[1][key], plain[0][key])["rel_l2"],
+                        "plain_deterministic_cudnn": state_diff(plain[2][key], plain[0][key])["rel_l2"]}
+                  for key in ("grads", "stats")}
+    _, failed = grad_errors(grads, plain[0]["grads"])
+    train = {"loss": [r["train"]["loss"] for r in ranks], "plain_loss": plain[0]["loss"],
+             "params_beyond_grad_parity_bounds": failed, "yardsticks_rel_l2": yardsticks,
+             "rel_l2": {"grads": state_diff(grads, plain[0]["grads"])["rel_l2"],
+                        "stats": state_diff(stats, plain[0]["stats"])["rel_l2"]},
+             "limit": {key: 10 * max(*yardsticks[key].values(), 1e-6) for key in yardsticks},
+             "launches_by_rank": [{k: n for k, n in r["train"]["launches"].items() if n} for r in ranks],
+             "plain_launches": {k: n for k, n in plain[0]["launches"].items() if n},
+             "peak_mib": [r["train"]["peak_mib"] for r in ranks], "plain_peak_mib": plain[0]["peak_mib"]}
+    if not (all(abs(loss - plain[0]["loss"]) <= 1e-4 * abs(plain[0]["loss"]) for loss in train["loss"])
+            and not failed and all(train["rel_l2"][k] <= train["limit"][k] for k in train["limit"])
+            and all(n == train["plain_launches"] for n in train["launches_by_rank"])):
+        failures.append(f"train step: {train}")
+    launches = {}
+    for entry in launches_by_rank:
+        for k, n in entry["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    for entry in train["launches_by_rank"]:
+        for k, n in entry.items():
+            launches[k] = launches.get(k, 0) + n
+    emit("mesh_family", backend="gloo", processes=world, shape=list(size), frames=frames, tf32=False,
+         train_shape=list(train_size), train_batch=2, train_mesh=list(MESH_FAMILY_TRAIN), ranks_s=ranks_s,
+         cases=report, train=train, launches_by_rank=launches_by_rank, launches=launches, failures=failures)
+    if failures:
+        raise AssertionError("mesh_family: " + "; ".join(failures))
+    return {"launches": launches, "launches_by_rank": launches_by_rank, "train": train}
+
+
+def family_launches_by_rank(mesh_family, kernel):
+    """Phase mesh_family's launches of ``kernel`` (all its forms) per case
+    and rank, and the train step's per rank."""
+    out = {}
+    for entry in mesh_family["launches_by_rank"]:
+        n = sum(v for k, v in entry["launches"].items() if k.split("[")[0] == kernel and "[" not in k)
+        if n:
+            out.setdefault(entry["case"], []).append(n)
+    out["train"] = [entry.get(kernel, 0) for entry in mesh_family["train"]["launches_by_rank"]]
+    return out
 
 
 def phase_profile_main(counters, fp32_runs):
@@ -3978,6 +4355,7 @@ def main():
     train_ddp = phase_train_ddp(counters)
     train_vis_ddp = phase_train_vis_ddp(counters)
     mesh = phase_mesh_view_hyp(counters)
+    mesh_family = phase_mesh_family(counters)
     profile_main = phase_profile_main(counters, runs["fp32"])
 
     f32, bf16 = k1["f32"], k1["bf16"]
@@ -3989,17 +4367,22 @@ def main():
     k1b_bf16_launches = {"train_bf16": train_bf16["launches"]["planesweep_sample_backward[bfloat16]"]}
     k2_main = k2["mvsnet_f32"]
     k2_launches = {path: family[path]["fp32"]["launches"]["sweep_warp"] for path in ("mvsnet_train", "cvp_mvsnet")}
+    # the 4 ranks' frames and vis train step of phase mesh_family, on their slabs
+    family_mesh = mesh_family["launches"]
+    k2_launches["mesh_family"] = family_mesh.get("sweep_warp", 0)
     k5_launches = {"vis_mvsnet": vis["banded"]["fp32"]["launches"]["conv3d_banded"],
                    "vis_rmvd_checkpoint": vis_rmvd["conv3d_banded"],
                    "mvsnet_train_banded_xla": family["mvsnet_train_banded_xla"]["fp32"]["launches"]["conv3d_banded"],
                    "train_vis": vis_train["launches"]["conv3d_banded"],
                    "train_vis_parity": vis_parity["launches_card"]["conv3d_banded"],
-                   "train_vis_ddp": train_vis_ddp["launches"]["conv3d_banded"]}
+                   "train_vis_ddp": train_vis_ddp["launches"]["conv3d_banded"],
+                   "mesh_family": family_mesh.get("conv3d_banded[float32]", 0)}
     k5_main = k5["vis_stage3_reg"]
     k5_bf16 = {case: r["bf16"] for case, r in k5.items() if "bf16" in r}
     k5_bf16_runs = {path: family_bf16[path, "bfloat16"] for path in ("vis_mvsnet", "mvsnet_train_banded_xla")}
     k5_bf16_launches = {f"{path}_bf16": r["launches"]["conv3d_banded[bfloat16]"] for path, r in k5_bf16_runs.items()}
     k5_bf16_launches["train_vis_bf16"] = vis_train_bf16["launches"]["conv3d_banded[bfloat16]"]
+    k5_bf16_launches["mesh_family"] = family_mesh.get("conv3d_banded[bfloat16]", 0)
     k4_main = k4["f32"]
     k2g_bf16 = {case: r["bf16"] for case, r in k2g.items()}
     k2g_bf16_run = family_bf16["vis_mvsnet", "bfloat16"]
@@ -4069,6 +4452,7 @@ def main():
                     "entries warp_variance :373, warp_variance_rt :446, warp_variance_dense :465)",
         "launches": sum(k2_launches.values()),
         "launches_by_path": k2_launches,
+        "launches_per_rank": {"mesh_family": family_launches_by_rank(mesh_family, "sweep_warp")},
         "max_abs_err": k2_main["max_abs_err"],
         "ms": k2_main["ms"],
         "plain_ms": k2_main["plain_ms"],
@@ -4085,9 +4469,11 @@ def main():
         "source": "robustmvd_tpu_torch/csrc/sweep_group_cost.cu",
         "replaces": "robustmvd_tpu/ops/pallas/sweep_warp.py:287 (_call_sweep, kernel _sweep_kernel :179, "
                     "agg='group'; entry homography_group_cost :579)",
-        "launches": vis["banded"]["fp32"]["launches"]["sweep_group_cost"],
+        "launches": vis["banded"]["fp32"]["launches"]["sweep_group_cost"] + family_mesh.get("sweep_group_cost", 0),
         "launches_by_path": {"vis_mvsnet": vis["banded"]["fp32"]["launches"]["sweep_group_cost"],
-                             "vis_rmvd_checkpoint": vis_rmvd["sweep_group_cost"]},
+                             "vis_rmvd_checkpoint": vis_rmvd["sweep_group_cost"],
+                             "mesh_family": family_mesh.get("sweep_group_cost", 0)},
+        "launches_per_rank": {"mesh_family": family_launches_by_rank(mesh_family, "sweep_group_cost")},
         "max_abs_err": max(r["max_abs_err"] for r in k2g.values()),
         "ms": k2g["stage3"]["ms"],
         "plain_ms": k2g["stage3"]["plain_ms"],
@@ -4120,8 +4506,10 @@ def main():
         "status": "redesigned",
         "source": "robustmvd_tpu_torch/csrc/soft_argmin.cu",
         "replaces": "robustmvd_tpu/ops/pallas/softargmin.py:46 (fused_soft_argmin, pallas_call :92)",
-        "launches": vis["banded"]["fp32"]["launches"]["soft_argmin"],
+        "launches": vis["banded"]["fp32"]["launches"]["soft_argmin"] + family_mesh.get("soft_argmin", 0),
+        "launches_per_rank": {"mesh_family": family_launches_by_rank(mesh_family, "soft_argmin")},
         "launches_by_path": {"vis_mvsnet": vis["banded"]["fp32"]["launches"]["soft_argmin"],
+                             "mesh_family": family_mesh.get("soft_argmin", 0),
                              "vis_rmvd_checkpoint": vis_rmvd["soft_argmin"],
                              "train_vis": vis_train["launches"]["soft_argmin"],
                              "train_vis_bf16": vis_train_bf16["launches"]["soft_argmin"],
@@ -4151,6 +4539,7 @@ def main():
                     "pallas_call :101)",
         "launches": sum(k5_launches.values()),
         "launches_by_path": k5_launches,
+        "launches_per_rank": {"mesh_family": family_launches_by_rank(mesh_family, "conv3d_banded")},
         "launches_per_train_step": {"train_vis": vis_train["launches_per_step"]["conv3d_banded"],
                                     "train_vis_bf16": vis_train_bf16["launches_per_step"]["conv3d_banded[float32]"]},
         "max_abs_err": max(r["max_abs_err"] for r in k5.values()),
@@ -4190,9 +4579,12 @@ def main():
         "source": "robustmvd_tpu_torch/csrc/warp_volume.cu",
         "replaces": "robustmvd_tpu/ops/pallas/warp_volume.py:216 (homo_warp_pallas; _homo_warp_pallas :169, "
                     "pallas_call :197)",
-        "launches": family["mvsnet_train_banded_xla"]["fp32"]["launches"]["warp_volume"],
+        "launches": family["mvsnet_train_banded_xla"]["fp32"]["launches"]["warp_volume"]
+        + family_mesh.get("warp_volume", 0),
         "launches_by_path": {"mvsnet_train_banded_xla":
-                             family["mvsnet_train_banded_xla"]["fp32"]["launches"]["warp_volume"]},
+                             family["mvsnet_train_banded_xla"]["fp32"]["launches"]["warp_volume"],
+                             "mesh_family": family_mesh.get("warp_volume", 0)},
+        "launches_per_rank": {"mesh_family": family_launches_by_rank(mesh_family, "warp_volume")},
         "max_abs_err": k4_main["max_abs_err"],
         "ms": k4_main["ms"],
         "plain_ms": k4_main["plain_ms"],

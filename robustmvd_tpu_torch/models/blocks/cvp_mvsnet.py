@@ -16,7 +16,9 @@ so that none becomes a reciprocal multiply on the card.
 blocks do (``blocks/mvsnet.py``); ``prob0`` is float32.
 ``proj_cost_volume`` takes the model's ``warp_impl``: "fused" (K2's dense
 mode) or "xla" (``rt_planesweep_warp`` per source view and float32 running
-sums, JAX's ``impl="xla"``).
+sums, JAX's ``impl="xla"``). Under a mesh with a hyp axis it is given the
+rank's slab of the hypotheses, and ``CostRegNet`` runs on the rank's slab
+of the volume (``blocks/mvsnet.py``, ``ops/sharded3d.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from ...ops.interpolate import resize_bilinear
 from ...ops.kernels.sweep_warp import warp_variance_dense
 from ...ops.reductions import variance_over_views
 from ...ops import layers
+from ...ops.sharded3d import global_depth
 from .mvsnet import ConvBnReLU3D
 
 _PYRAMID = (("conv0aa", 64), ("conv0ba", 64), ("conv0bb", 64), ("conv0bc", 32), ("conv0bd", 32),
@@ -85,13 +88,17 @@ class CostRegNet(nn.Module):
         self.conv6_bn = layers.BatchNorm3d(16, eps=1e-5)
         self.prob0 = Conv3d(16, 1, bias=True, impl=impl)  # float32 (JAX :156)
 
-    def forward(self, x):
-        conv0 = self.conv0a(self.conv0(x))
-        conv2 = self.conv2a(self.conv2(self.conv1(conv0)))
-        conv4 = self.conv4a(self.conv4(self.conv3(conv2)))
-        conv5 = conv2 + F.relu(self.conv5_bn(self.conv5_deconv(conv4)))
-        conv6 = conv0 + F.relu(self.conv6_bn(self.conv6_deconv(conv5)))
-        return self.prob0(conv6)[:, 0]
+    def forward(self, x, total=None):
+        """x (B, 16, D, h, w), or the rank's slab of a volume of ``total``
+        planes under a hyp axis: logits (B, D or the slab's, h, w)."""
+        d0 = global_depth(x, total)
+        d1 = self.conv1.d_out(d0)
+        conv0 = self.conv0a(self.conv0(x, d0), d0)
+        conv2 = self.conv2a(self.conv2(self.conv1(conv0, d0), d1), d1)
+        conv4 = self.conv4a(self.conv4(self.conv3(conv2, d1), d1), d1)
+        conv5 = conv2 + F.relu(self.conv5_bn(self.conv5_deconv(conv4, d1)))
+        conv6 = conv0 + F.relu(self.conv6_bn(self.conv6_deconv(conv5, d1)))
+        return self.prob0(conv6, d0)[:, 0]
 
 
 def condition_intrinsics(intrinsics, img_hw, fp_shapes_hw):

@@ -21,6 +21,12 @@ run at it (``layers.py``, ``ops/conv3d.py``), the parameters stay float32,
 and BatchNorm takes the convolution's bf16 output with its float32 running
 statistics, computes in float32 and gives bf16, as flax's
 ``BatchNorm(dtype=...)`` does. ``CostRegNet``'s ``prob`` head is float32.
+
+Under a mesh with a hyp axis the 3D blocks take the rank's slab of a
+D-sharded volume and its global D (``total``) and give their slab of the
+output (``ops/sharded3d.py``): each layer's halo comes from its neighbours,
+the skip additions are local, and the levels' shares follow from each
+level's own D.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import torch.nn.functional as F
 
 from ...ops.conv3d import Conv3d
 from ...ops import layers
+from ...ops.sharded3d import global_depth
 
 
 class ConvBnReLU(nn.Module):
@@ -61,8 +68,11 @@ class ConvBnReLU3D(nn.Module):
             self.conv = layers.Conv3d(in_ch, out_ch, 3, stride=stride, padding=1, bias=False, dtype=dtype)
         self.bn = layers.BatchNorm3d(out_ch, eps=1e-5)
 
-    def forward(self, x):
-        return F.relu(self.bn(self.conv(x)))
+    def forward(self, x, total=None):
+        return F.relu(self.bn(self.conv(x, total)))
+
+    def d_out(self, total):
+        return self.conv.d_out(total)
 
 
 class DeconvBnReLU3D(nn.Module):
@@ -76,8 +86,11 @@ class DeconvBnReLU3D(nn.Module):
                                            dtype=dtype)
         self.bn = layers.BatchNorm3d(out_ch, eps=1e-5)
 
-    def forward(self, x):
-        return F.relu(self.bn(self.conv(x)))
+    def forward(self, x, total=None):
+        return F.relu(self.bn(self.conv(x, total)))
+
+    def d_out(self, total):
+        return self.conv.d_out(total)
 
 
 class FeatureNet(nn.Module):
@@ -119,15 +132,21 @@ class CostRegNet(nn.Module):
         self.conv11 = DeconvBnReLU3D(16, 8, dt)
         self.prob = Conv3d(8, 1, bias=True, impl=impl)  # float32 (JAX :218)
 
-    def forward(self, x):
-        conv0 = self.conv0(x)
-        conv2 = self.conv2(self.conv1(conv0))
-        conv4 = self.conv4(self.conv3(conv2))
-        x = self.conv6(self.conv5(conv4))
-        x = conv4 + self.conv7(x)
-        x = conv2 + self.conv9(x)
-        x = conv0 + self.conv11(x)
-        return self.prob(x)
+    def forward(self, x, total=None):
+        """x (B, C, D, h, w), or the rank's slab of a volume of ``total``
+        planes under a hyp axis."""
+        d0 = global_depth(x, total)
+        d1 = self.conv1.d_out(d0)
+        d2 = self.conv3.d_out(d1)
+        d3 = self.conv5.d_out(d2)
+        conv0 = self.conv0(x, d0)
+        conv2 = self.conv2(self.conv1(conv0, d0), d1)
+        conv4 = self.conv4(self.conv3(conv2, d1), d2)
+        x = self.conv6(self.conv5(conv4, d2), d3)
+        x = conv4 + self.conv7(x, d3)
+        x = conv2 + self.conv9(x, d2)
+        x = conv0 + self.conv11(x, d1)
+        return self.prob(x, d0)
 
 
 def init_weights(module, generator):

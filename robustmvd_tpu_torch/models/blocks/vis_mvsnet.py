@@ -30,6 +30,14 @@ uncertainty net, the readouts and the fusion's accumulators stay float32.
 taps read the bf16 features widened, which is exact) or "xla"
 (``get_homographies`` + ``homography_sweep`` + ``groupwise_correlation``, the
 JAX route off the TPU, :430-452).
+
+Under a mesh with a hyp axis (JAX :453-456, :543) ``SingleStage`` builds
+each pair volume on the rank's slab of the hypotheses, the 3D U-Nets and
+score heads run on slabs (their layers fetch their halos,
+``ops/sharded3d.py``; ``BatchNorm3d`` sums its statistics over hyp too),
+the score volumes are gathered over hyp before each readout (K3 sees the
+whole D on every rank, and so do the uncertainty net and the window-2
+mass), and the fusion, weighted per pixel, stays on the slab.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from ...ops.kernels.soft_argmin import fused_soft_argmin
 from ...ops.kernels.sweep_group_cost import homography_group_cost
 from ...ops.reductions import groupwise_correlation
 from ...ops import layers
+from ...ops.sharded3d import gather_scores, global_depth, hypothesis_slab
 
 GROUPS = 8  # correlation groups of the pair cost volumes
 FUSION_MODES = ("soft", "hard", "average", "uwta", "maxpool")
@@ -69,6 +78,12 @@ def _bn(ch, dim):
     return (layers.BatchNorm2d if dim == 2 else layers.BatchNorm3d)(ch, eps=1e-5)
 
 
+def _run(layer, x, total):
+    """A 2D layer on ``x`` (``total`` None), or a 3D one on the rank's slab
+    of a volume of ``total`` planes."""
+    return layer(x) if total is None else layer(x, total)
+
+
 def torch_deconv(in_ch, out_ch, dim, dtype=torch.float32):
     """flax ``TorchDeconv``: ConvTranspose(k3, s2, p1, output_padding=1,
     bias=False), twice the input on each spatial axis."""
@@ -90,10 +105,16 @@ class BasicBlock(nn.Module):
             self.downsample_conv = _conv(in_ch, planes, 1, stride, dim, dtype=dtype)
             self.downsample_bn = _bn(planes, dim)
 
-    def forward(self, x):
-        out = self.bn2(self.conv2(F.relu(self.bn1(self.conv1(x)))))
-        residual = self.downsample_bn(self.downsample_conv(x)) if hasattr(self, "downsample_conv") else x
+    def forward(self, x, total=None):
+        """``total``: a 3D block's input D (``_run``); None for 2D."""
+        mid = self.d_out(total)
+        out = self.bn2(_run(self.conv2, F.relu(self.bn1(_run(self.conv1, x, total))), mid))
+        residual = (self.downsample_bn(_run(self.downsample_conv, x, total)) if hasattr(self, "downsample_conv")
+                    else x)
         return F.relu(out + residual.to(out.dtype))
+
+    def d_out(self, total):
+        return None if total is None else self.conv1.d_out(total)
 
 
 class ResLayer(nn.Sequential):
@@ -105,6 +126,14 @@ class ResLayer(nn.Sequential):
         for i in range(1, blocks):
             self.add_module(f"block{i}", BasicBlock(planes, planes, 1, dim, conv3d_impl, dtype))
 
+    def forward(self, x, total=None):
+        for block in self:
+            x, total = block(x, total), block.d_out(total)
+        return x
+
+    def d_out(self, total):
+        return self.block0.d_out(total)
+
 
 class UNet(nn.Module):
     """Residual U-Net, 2D or 3D (reference: vis_mvsnet_unet_modular.py:115-242):
@@ -114,6 +143,7 @@ class UNet(nn.Module):
 
     def __init__(self, in_ch, enc, dec, filters, dim=2, conv3d_impl="xla", dtype=torch.float32):
         super().__init__()
+        self.dim = dim
         self.n_enc = len(filters)
         self.has_res = dec > 0
         ch = in_ch
@@ -130,17 +160,23 @@ class UNet(nn.Module):
             self.dec_names.append(f"dec_{idx}")
             ch = f
 
-    def forward(self, x, multi_scale=1):
-        enc_out = []
+    def forward(self, x, multi_scale=1, total=None):
+        """A 3D U-Net takes the rank's slab of a volume of ``total`` planes
+        under a hyp axis."""
+        total = global_depth(x, total) if self.dim == 3 else None
+        enc_out, totals = [], []
         for idx in range(self.n_enc):
-            x = getattr(self, f"enc_{idx}")(x)
+            layer = getattr(self, f"enc_{idx}")
+            x, total = layer(x, total), layer.d_out(total)
             enc_out.append(x)
+            totals.append(total)
         dec_out = [x]
         for i, name in enumerate(self.dec_names):
-            x = getattr(self, f"{name}_deconv")(x)
-            x = getattr(self, f"{name}_post")(torch.cat([x, enc_out[-2 - i].to(x.dtype)], dim=1))
+            x = _run(getattr(self, f"{name}_deconv"), x, total)
+            total = totals[-2 - i]
+            x = _run(getattr(self, f"{name}_post"), torch.cat([x, enc_out[-2 - i].to(x.dtype)], dim=1), total)
             if self.has_res:
-                x = getattr(self, f"{name}_res")(x)
+                x = getattr(self, f"{name}_res")(x, total)
             dec_out.append(x)
         return x if multi_scale == 1 else dec_out[-multi_scale:]
 
@@ -170,8 +206,8 @@ class Reg(nn.Module):
         super().__init__()
         self.unet = UNet(GROUPS, enc=1, dec=0, filters=(8, 16), dim=3, conv3d_impl=conv3d_impl, dtype=dtype)
 
-    def forward(self, x):
-        return self.unet(x)
+    def forward(self, x, total=None):
+        return self.unet(x, total=total)
 
 
 class RegPair(nn.Module):
@@ -181,8 +217,8 @@ class RegPair(nn.Module):
         super().__init__()
         self.final_conv = Conv3d(8, 1, impl=conv3d_impl)
 
-    def forward(self, x):
-        return self.final_conv(x)
+    def forward(self, x, total=None):
+        return self.final_conv(x, total)
 
 
 class RegFuse(nn.Module):
@@ -194,8 +230,8 @@ class RegFuse(nn.Module):
         self.unet = UNet(8, enc=1, dec=0, filters=(8, 16), dim=3, conv3d_impl=conv3d_impl, dtype=dtype)
         self.final_conv = Conv3d(8, 1, impl=conv3d_impl)
 
-    def forward(self, x):
-        return self.final_conv(self.unet(x))
+    def forward(self, x, total=None):
+        return self.final_conv(self.unet(x, total=total), global_depth(x, total))
 
 
 class UncertNet(nn.Module):
@@ -220,6 +256,7 @@ class UncertNet(nn.Module):
 PIXEL_CENTRES = ((1.0, 0.0, 0.5), (0.0, 1.0, 0.5), (0.0, 0.0, 1.0))
 
 
+
 class SingleStage(nn.Module):
     """One cascade stage (reference: vis_mvsnet_singlestage.py:79-348)."""
 
@@ -231,11 +268,12 @@ class SingleStage(nn.Module):
         self.reg_fuse = RegFuse(conv3d_impl, dtype)
         self.uncert_net = UncertNet()
 
-    def _regularise(self, cost):
-        """A (N, D, h, w, 8) pair volume -> (regularised (N, 8, D, h, w),
+    def _regularise(self, cost, depth_num):
+        """A (N, D, h, w, 8) pair volume (under a hyp axis the rank's slab of
+        ``depth_num`` planes) -> (regularised (N, 8, D or the slab's, h, w),
         expected index (N, 1, h, w), uncertainty heads [(N, 1, h, w)])."""
-        interm = self.reg(cost.permute(0, 4, 1, 2, 3).contiguous())
-        _, index, ent, _ = fused_soft_argmin(self.reg_pair(interm)[:, 0])
+        interm = self.reg(cost.permute(0, 4, 1, 2, 3).contiguous(), depth_num)
+        _, index, ent, _ = fused_soft_argmin(gather_scores(self.reg_pair(interm, depth_num)[:, 0], depth_num))
         return interm, index, self.uncert_net(ent)
 
     def forward(self, ref_feat, ref_cam, srcs_feat, srcs_cam, depth_num, mode="soft", depth_start=None,
@@ -261,17 +299,18 @@ class SingleStage(nn.Module):
         if src_valid is None:
             src_valid = [torch.ones(B, device=ref_feat.device)] * P
 
-        # phase 1: per-pair cost volumes
+        # phase 1: per-pair cost volumes, on the rank's slab of the hypotheses under a hyp axis
+        lo, hi = hypothesis_slab(depth_num)
         ref_cam_s = scale_camera(ref_cam, 1 / s_scale)
         costs = []
         if self.warp_impl == "xla":  # the homographies H(d) per hypothesis, a warp and the group sums
             for src_feat, src_cam in zip(srcs_feat, srcs_cam):
                 Hs = get_homographies(ref_cam_s, scale_camera(src_cam, 1 / s_scale), depth_num, depth_start,
-                                      depth_interval)
+                                      depth_interval)[:, lo:hi]
                 costs.append(groupwise_correlation(ref_feat[:, None], homography_sweep(src_feat, Hs), GROUPS, -1))
         else:  # K2 group mode, H = A + B / (d + 1e-9)
-            d_idx = torch.arange(depth_num, dtype=torch.float32, device=ref_feat.device).reshape(1, depth_num, 1, 1)
-            w_dense = (1.0 / (depth_start + depth_interval * d_idx + 1e-9)).expand(B, depth_num, h, w).contiguous()
+            d_idx = torch.arange(lo, hi, dtype=torch.float32, device=ref_feat.device).reshape(1, hi - lo, 1, 1)
+            w_dense = (1.0 / (depth_start + depth_interval * d_idx + 1e-9)).expand(B, hi - lo, h, w).contiguous()
             centres = torch.tensor(PIXEL_CENTRES, device=ref_feat.device)
             for src_feat, src_cam in zip(srcs_feat, srcs_cam):
                 A, Bm = get_homography_coeffs(ref_cam_s, scale_camera(src_cam, 1 / s_scale))
@@ -284,13 +323,13 @@ class SingleStage(nn.Module):
         # running statistics once per pair (JAX :483-497); else the P pairs
         # through the shared regularisers in one batch
         if train:
-            pairs = [self._regularise(cost) for cost in costs]
+            pairs = [self._regularise(cost, depth_num) for cost in costs]
         else:
-            interm, index, heads = self._regularise(torch.cat(costs, dim=0))
+            interm, index, heads = self._regularise(torch.cat(costs, dim=0), depth_num)
             pairs = [(interm[p * B:(p + 1) * B], index[p * B:(p + 1) * B], [hd[p * B:(p + 1) * B] for hd in heads])
                      for p in range(P)]
 
-        # phase 3: visibility-aware fusion, float32 accumulators (JAX :389-390)
+        # phase 3: visibility-aware fusion, float32 accumulators (JAX :389-390), on the slab: per-pixel weights
         fused = torch.zeros(pairs[0][0].shape, device=ref_feat.device)
         weight_sum = torch.zeros((B, 1, 1, h, w), device=ref_feat.device)
         min_weight = None
@@ -323,5 +362,6 @@ class SingleStage(nn.Module):
         elif mode == "average":
             fused = fused / sum(v.float().reshape(B, 1, 1, 1, 1) for v in src_valid)
 
-        _, index, _, prob_map = fused_soft_argmin(self.reg_fuse(fused)[:, 0], window=2)
+        _, index, _, prob_map = fused_soft_argmin(gather_scores(self.reg_fuse(fused, depth_num)[:, 0], depth_num),
+                                                  window=2)
         return index * depth_interval + depth_start, prob_map, pair_results

@@ -28,6 +28,14 @@ interval 6.8085 (``cal_depth_hypos(mode="train")``) instead of the epipolar
 one, and CostRegNet's BatchNorm frozen on its running statistics while the
 model trains (JAX applies it with ``train=False``, :184, :214).
 
+Under a mesh with a hyp axis (``parallel.use_mesh``; JAX :179-215) each
+level's hypotheses are sharded: each rank builds its slab of the variance
+volume (the coarse level's 48, each refinement level's 8, by
+``share(D, hyp)``), ``CostRegNet`` runs on slabs (``ops/sharded3d.py``), and
+the logits are gathered over hyp before the softmax, so the depth
+regression, the next level's hypotheses and the confidence are computed
+whole on every rank, as the bicubic upsampling is.
+
 The JAX input adapter pads the view list to a bucket; the port does not, so
 every source view counts.
 """
@@ -42,6 +50,7 @@ from ..ops.interpolate import resize_bicubic_x2
 from ..ops.kernels.sweep_warp import warp_variance_rt
 from ..ops.layers import freeze_batchnorm
 from ..ops.reductions import variance_over_views
+from ..ops.sharded3d import gather_scores, hypothesis_slab
 from .blocks.cvp_mvsnet import (
     CostRegNet,
     FeaturePyramid,
@@ -91,8 +100,11 @@ class CVPMVSNet(ModelBase):
         freeze_batchnorm(self.to(device).train(train))
 
     def _regress(self, volume, hypos):
-        """Variance volume (B, D, h, w, C) -> (depth (B, h, w), prob)."""
-        logits = self.cost_reg_refine(volume.permute(0, 4, 1, 2, 3).contiguous())
+        """Variance volume (B, D, h, w, C), or the rank's slab of it under a
+        hyp axis, and every hypothesis ``hypos`` -> (depth (B, h, w), prob
+        (B, D, h, w))."""
+        D = hypos.shape[1]
+        logits = gather_scores(self.cost_reg_refine(volume.permute(0, 4, 1, 2, 3).contiguous(), D), D)
         prob = torch.softmax(logits, dim=1)
         if hypos.dim() == 2:
             hypos = hypos[:, :, None, None]
@@ -117,14 +129,16 @@ class CVPMVSNet(ModelBase):
         # coarsest level: uniform sweep (K2, R,t mode)
         cdt = self.compute_dtype
         hypos = cal_sweeping_depth_hypos(min_depth, max_depth, NUM_COARSE_HYPOTHESES)
+        lo, hi = hypothesis_slab(NUM_COARSE_HYPOTHESES)
+        slab = hypos[:, lo:hi]
         ref_proj_inv = inverse(proj_mat(ref_K_ms[:, -1], pose_key))
         rts = [src_from_ref(src_K_ms[:, i, -1], poses_src[:, i], ref_proj_inv) for i in range(V - 1)]
         if self.warp_impl == "xla":
-            warped = (rt_planesweep_warp(fp[-1][:, 1 + i], r, t, hypos) for i, (r, t) in enumerate(rts))
-            volume = variance_over_views(fp[-1][:, 0], warped, NUM_COARSE_HYPOTHESES)
+            warped = (rt_planesweep_warp(fp[-1][:, 1 + i], r, t, slab) for i, (r, t) in enumerate(rts))
+            volume = variance_over_views(fp[-1][:, 0], warped, hi - lo)
         else:
             volume = warp_variance_rt(fp[-1][:, 0], fp[-1][:, 1:], torch.stack([r for r, _ in rts], dim=1),
-                                      torch.stack([t for _, t in rts], dim=1), hypos, out_dtype=cdt)
+                                      torch.stack([t for _, t in rts], dim=1), slab, out_dtype=cdt)
         depth, prob = self._regress(volume, hypos)
         depths = [depth]
 
@@ -133,8 +147,10 @@ class CVPMVSNet(ModelBase):
             depth_up = resize_bicubic_x2(depth)
             hypos = cal_depth_hypos(depth_up, ref_K_ms[:, level], src_K_ms[:, 0, level], pose_key,
                                     poses_src[:, 0], mode=self.mode)
+            lo, hi = hypothesis_slab(hypos.shape[1])
             volume = proj_cost_volume(fp[level][:, 0], fp[level][:, 1:], ref_K_ms[:, level],
-                                      src_K_ms[:, :, level], pose_key, poses_src, hypos, self.warp_impl, cdt)
+                                      src_K_ms[:, :, level], pose_key, poses_src, hypos[:, lo:hi], self.warp_impl,
+                                      cdt)
             depth, prob = self._regress(volume, hypos)
             depths.append(depth)
 

@@ -21,8 +21,7 @@ built with ``train=True``, through ``ops/homography.py::homo_warp`` (the
 torch op of JAX's XLA ``homo_warp``, which JAX trains through: K2 and K4
 are forward-only). The "xla" route is
 slower and holds twice the memory at inference; it exists for what the JAX
-package sends through it, training and view-parallel runs (the latter not
-ported, ROADMAP). ``train=True`` takes the "xla" route and keeps BatchNorm
+package sends through it, training. ``train=True`` takes the "xla" route and keeps BatchNorm
 frozen on its running statistics while the model trains (JAX trains MVSNet
 with ``train_bn=False``, :257-261). ``conv3d_impl`` picks the
 lowering of CostRegNet's stride-1 3x3x3 convolutions (``ops/conv3d.py``):
@@ -35,6 +34,26 @@ CostRegNet compute in bf16 with float32 parameters and BatchNorm statistics;
 K2 sums in float32 and writes the variance in bf16, the "xla" route keeps
 float32 running sums and casts the variance once; the ``prob`` head, the
 softmax, the depth regression and the confidence are float32.
+
+``view_parallel=True`` (JAX :41-45, :152-166) builds the variance from
+the sums of the source views' warped volumes, which can be summed over a
+mesh's view axis: each source view warped into a float32 volume (K4,
+``homo_warp_volume``, in inference; ``homo_warp`` in training, as JAX warps
+there with its XLA ``homo_warp`` in every mode), the views' sum and sum of
+squares accumulated, the key view's added once, the count the global
+``1 + V-1``. Off a mesh it equals the default route up to the order of the
+sums.
+
+Under a mesh (``parallel.use_mesh``) the model shards over the hyp axis
+(JAX :163, :186, :219, :225): each rank builds its slab of the variance
+volume, ``share(D, hyp)`` of the hypotheses (K2 with every view, or with
+``view_parallel`` the view sums), ``CostRegNet`` runs on slabs
+(``ops/sharded3d.py``), and the single-channel logits are gathered over
+hyp, so that the softmax, the depth regression and ``confidence_4tap``
+(whose window crosses slab edges) run on the whole D on every rank. With
+``view_parallel`` it shards the source views over the view axis too: each
+view rank warps its share of the views on its slab, and the float32 sums
+are all-reduced over the view axis (JAX's psum over "view").
 
 The JAX input adapter pads the view list to a bucket (that bounds XLA
 compiles); the port does not, so every source view counts (JAX's
@@ -52,6 +71,9 @@ from ..ops.kernels.sweep_warp import warp_variance
 from ..ops.kernels.warp_volume import homo_warp_volume
 from ..ops.layers import freeze_batchnorm
 from ..ops.reductions import variance_over_views
+from ..ops.sharded3d import gather_scores, hypothesis_slab
+from ..parallel.collectives import all_reduce_sum
+from ..parallel.context import share, view_group
 from .blocks.mvsnet import CostRegNet, FeatureNet, init_weights
 from .helpers import ModelBase, compute_dtype_of, resize_to_multiple, to_device
 from .registry import register_model
@@ -122,10 +144,11 @@ class MVSNet(ModelBase):
     depth_range = (min (B,), max (B,))."""
 
     def __init__(self, device, num_sampling_steps=192, sample_in_inv_depth_space=False, weights=None, seed=0,
-                 conv3d_impl="xla", warp_impl="fused", dtype="float32", train=False):
+                 conv3d_impl="xla", warp_impl="fused", dtype="float32", train=False, view_parallel=False):
         super().__init__()
         self.num_sampling_steps = num_sampling_steps
         self.sample_in_inv_depth_space = sample_in_inv_depth_space
+        self.view_parallel = view_parallel
         # training differentiates through the warp: the "xla" route (JAX :254-256)
         # with homo_warp, since K4 is forward-only
         self.warp_impl = "xla" if train else check_warp_impl(warp_impl)
@@ -168,12 +191,18 @@ class MVSNet(ModelBase):
         feats = feats.reshape(B, V, *feats.shape[1:]).permute(0, 1, 3, 4, 2)  # (B, V, h, w, C)
         ref_feats, src_feats = split_key_sources(feats, keyview_idx)
 
-        if self.warp_impl == "xla":
-            volume = self.warped_variance(ref_feats, src_feats, proj_src, proj_key, depth_samples,
-                                          self.warp).to(cdt)
+        # the hyp axis: this rank's slab of the hypotheses
+        D = self.num_sampling_steps
+        lo, hi = hypothesis_slab(D)
+        slab = depth_samples[:, lo:hi]
+        if self.view_parallel:
+            volume = self.view_sums_variance(ref_feats, src_feats, proj_src, proj_key, slab, self.warp).to(cdt)
+        elif self.warp_impl == "xla":
+            volume = self.warped_variance(ref_feats, src_feats, proj_src, proj_key, slab, self.warp).to(cdt)
         else:
-            volume = warp_variance(ref_feats, src_feats, proj_src, proj_key, depth_samples, out_dtype=cdt)
-        cost_reg = self.cost_regularization(volume.permute(0, 4, 1, 2, 3).contiguous())[:, 0]
+            volume = warp_variance(ref_feats, src_feats, proj_src, proj_key, slab, out_dtype=cdt)
+        cost_reg = self.cost_regularization(volume.permute(0, 4, 1, 2, 3).contiguous(), D)[:, 0]
+        cost_reg = gather_scores(cost_reg, D)
         prob = torch.softmax(cost_reg, dim=1)  # (B, D, h, w), float32 (the prob head)
         depth = torch.sum(prob * depth_samples[:, :, None, None], dim=1)
         uncertainty = 1.0 - confidence_4tap(prob)
@@ -190,6 +219,29 @@ class MVSNet(ModelBase):
         warped = (warp(src_feats[:, v], proj_src[:, v], proj_key, depth_samples)
                   for v in range(src_feats.shape[1]))
         return variance_over_views(ref_feats, warped, depth_samples.shape[1])
+
+    @staticmethod
+    def view_sums_variance(ref_feats, src_feats, proj_src, proj_key, depth_samples, warp=homo_warp_volume):
+        """The float32 variance volume from the sums of the warped source
+        views (``view_parallel``, JAX :152-166): under a view axis this rank
+        warps its share of the views, and the sum and the sum of squares are
+        all-reduced over the axis; the key view is added once, and the count
+        is every view's."""
+        V = 1 + src_feats.shape[1]
+        view = view_group()
+        lo, hi = share(V - 1, view)
+        B, h, w, C = ref_feats.shape
+        vsum = ref_feats.new_zeros((B, depth_samples.shape[1], h, w, C), dtype=torch.float32)
+        vsq = torch.zeros_like(vsum)
+        for v in range(lo, hi):
+            warped = warp(src_feats[:, v], proj_src[:, v], proj_key, depth_samples).float()
+            vsum = vsum + warped
+            vsq = vsq + warped * warped
+        if view is not None:
+            vsum, vsq = all_reduce_sum(torch.stack([vsum, vsq]), view).unbind(0)
+        ref = ref_feats.float()[:, None]
+        count = torch.tensor(float(V), device=ref_feats.device)  # a true division on the card
+        return (ref * ref + vsq) / count - ((ref + vsum) / count) ** 2
 
     def input_adapter(self, images, keyview_idx, poses=None, intrinsics=None, depth_range=None):
         """Multiple-of-32 resize, ImageNet normalisation on the card
@@ -217,13 +269,16 @@ class MVSNet(ModelBase):
 
 @register_model(trainable=False)
 def mvsnet_train(pretrained=True, weights=None, train=False, device="cuda", seed=0, num_sampling_steps=256,
-                 sample_in_inv_depth_space=False, conv3d_impl="xla", warp_impl="fused", dtype="float32"):
+                 sample_in_inv_depth_space=False, conv3d_impl="xla", warp_impl="fused", dtype="float32",
+                 view_parallel=False):
     """MVSNet as trained in the reference (mvsnet.py:206-217), 256 hypotheses;
     registered without pretrained weights: pass a port ``.pt`` as ``weights``,
     or get weights from ``seed``. Not in ``list_models(trainable_only=True)``,
     as in JAX, but ``train=True`` trains it (the "xla" route, BatchNorm
-    frozen). ``conv3d_impl``, ``warp_impl`` (training takes "xla") and
-    ``dtype`` ("float32" or "bfloat16") as in :class:`MVSNet`."""
+    frozen). ``conv3d_impl``, ``warp_impl`` (training takes "xla"),
+    ``dtype`` ("float32" or "bfloat16") and ``view_parallel`` (the view sums,
+    which shard over a mesh's view axis) as in :class:`MVSNet`."""
     return MVSNet(device=device, num_sampling_steps=num_sampling_steps,
                   sample_in_inv_depth_space=sample_in_inv_depth_space, weights=weights, seed=seed,
-                  conv3d_impl=conv3d_impl, warp_impl=warp_impl, dtype=dtype, train=train)
+                  conv3d_impl=conv3d_impl, warp_impl=warp_impl, dtype=dtype, train=train,
+                  view_parallel=view_parallel)

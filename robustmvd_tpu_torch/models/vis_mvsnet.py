@@ -35,6 +35,12 @@ statistics whoever calls ``.train()``. The next stage's depth start takes no
 gradient (JAX's ``stop_gradient``). K3's backward is its closed form in torch
 ops, K5's cuDNN's.
 
+Under a mesh with a hyp axis (``parallel.use_mesh``) each stage's cost
+volumes (D = 64/32/16) shard over hyp, as JAX's annotations shard them
+(``tests/test_parallel.py:112-137``): ``SingleStage`` takes each rank's
+slab of the hypotheses and gathers the scores before each readout
+(``blocks/vis_mvsnet.py``); the model adds nothing of its own.
+
 The JAX input adapter pads the view list to a bucket (that bounds XLA
 compiles); the port does not, so every source view counts.
 """

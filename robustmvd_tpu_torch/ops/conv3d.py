@@ -23,6 +23,11 @@ bias after rounding, in the output's dtype; here the bias is added to the
 float32 sum (by K5, or by cuDNN with the bias cast to ``dtype``) before the
 one rounding. The family's biased convolutions are its float32 score heads,
 where the two are the same.
+
+Under a mesh with a hyp axis the forward takes the rank's share of a
+D-sharded volume and its global D (``total``) and gives its share of the
+output: the layer's own forward (:meth:`Conv3d.dense`) runs on the share
+and a halo plane on each side (``ops/sharded3d.py::conv3d_same``).
 """
 
 from __future__ import annotations
@@ -30,8 +35,10 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from ..parallel.context import hyp_group
 from .kernels.conv3d import conv3d_banded
 from .layers import ComputeDtype
+from .sharded3d import conv3d_same
 
 CONV3D_IMPLS = ("banded", "xla")
 CONV3D_ALIASES = {"packed": "banded", "dz2d": "xla"}
@@ -55,7 +62,20 @@ class Conv3d(ComputeDtype, nn.Conv3d):
         super().__init__(in_ch, out_ch, 3, padding=1, bias=bias, dtype=dtype)
         self.impl = impl
 
-    def forward(self, x):
+    def forward(self, x, total=None):
+        """x (B, Cin, D, h, w); under a hyp axis the rank's share of a
+        volume of ``total`` planes, its share of the output returned."""
+        axis = hyp_group()
+        if axis is None:
+            return self.dense(x)
+        return conv3d_same(self, x, total, axis)
+
+    def d_out(self, total):
+        """The output's D for an input of ``total`` planes."""
+        return total
+
+    def dense(self, x):
+        """The convolution of the whole of ``x``'s D."""
         if self.impl == "banded":  # K5 takes the float32 kernel and bias
             return conv3d_banded(x.to(self.compute_dtype), self.weight.permute(2, 3, 4, 1, 0), self.bias,
                                  channels_first=True)

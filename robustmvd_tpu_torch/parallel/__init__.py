@@ -1,10 +1,19 @@
 """Parallelism over ``torch.distributed`` (the JAX package's ``parallel``):
 the ("data", "view", "hyp") mesh, process-group start-up, the active mesh
 and its axes' groups, and the differentiable collectives of the sharded
-``robust_mvd`` (``collectives.py``)."""
+models (``collectives.py``)."""
 
-from .collectives import all_gather, all_reduce_sum
-from .context import data_group, get_mesh, hyp_group, share, shares, use_mesh, view_group
+from .collectives import all_gather, all_reduce_sum, fetch_window
+from .context import (
+    batch_stats_axes,
+    data_group,
+    get_mesh,
+    hyp_group,
+    share,
+    shares,
+    use_mesh,
+    view_group,
+)
 from .mesh import (
     AXIS_DATA,
     AXIS_HYP,
@@ -36,4 +45,6 @@ __all__ = [
     "shares",
     "all_reduce_sum",
     "all_gather",
+    "fetch_window",
+    "batch_stats_axes",
 ]

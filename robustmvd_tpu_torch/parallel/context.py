@@ -15,9 +15,14 @@ itself (``parallel/collectives.py``) on the groups read here.
   global batch, as JAX's sharded step does.
 - :func:`view_group` and :func:`hyp_group`: the view and hyp axes, over which
   ``robust_mvd`` shards its source views and its depth hypotheses
-  (``models/robust_mvd.py``, ``models/blocks/dispnet.py::LearnedFusion``).
-  Every rank of a view x hyp group is given the same inputs; each takes its
-  :func:`share` of the views or hypotheses.
+  (``models/robust_mvd.py``, ``models/blocks/dispnet.py::LearnedFusion``),
+  and the MVSNet family its hypotheses (``mvsnet_train`` with
+  ``view_parallel`` its source views too): the cost volumes and the 3D
+  layers over them hold a slab of D (``ops/sharded3d.py``). Every rank of a
+  view x hyp group is given the same inputs; each takes its :func:`share`
+  of the views or hypotheses.
+- :func:`batch_stats_axes`: the axes over which BatchNorm sums its training
+  statistics: the data axis, and the hyp axis too for a D-sharded volume.
 """
 
 from __future__ import annotations
@@ -81,6 +86,16 @@ def hyp_group():
     """(process group, size, rank) of the active mesh's hyp axis, over which
     depth hypotheses are sharded; None when it is 1 or no mesh is active."""
     return _axis("hyp")
+
+
+def batch_stats_axes(hyp_sharded=False):
+    """The axes (:class:`AxisGroup`) over which a BatchNorm in training sums
+    its per-channel statistics: the data axis, and for a volume whose D is
+    sharded over the hyp axis the hyp axis too (the sum over data x hyp is
+    the sum over one of the sums over the other); those of more than one
+    process, outermost first. Empty: the statistics are local."""
+    axes = (data_group(), hyp_group() if hyp_sharded else None)
+    return [axis for axis in axes if axis is not None]
 
 
 def shares(n, size):

@@ -14,9 +14,9 @@ data-parallel over ``data`` (``DistributedDataParallel`` in the training
 engine, with the losses' masked means and BatchNorm's statistics reduced over
 the data group); ``robust_mvd`` shards its source views over ``view`` and its
 hypotheses over ``hyp`` with explicit collectives (``collectives.py``) on the
-groups that ``context.py`` reads from the active mesh. The MVSNet family runs
-unsharded on view and hyp (ROADMAP.md queue 1 item 9): under such a mesh its
-ranks each compute the whole forward.
+groups that ``context.py`` reads from the active mesh, and the MVSNet family
+shards its cost volumes' hypotheses over ``hyp`` (``mvsnet_train`` with
+``view_parallel`` its source views over ``view`` too; ``ops/sharded3d.py``).
 
 Processes join with :func:`init_distributed` (or
 :func:`init_distributed_from_env`, the launcher's environment contract)

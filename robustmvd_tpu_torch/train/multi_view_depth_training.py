@@ -42,10 +42,13 @@ global batch is ``batch_size`` times the data axis' size and the ranks of one
 view x hyp group load the same batch; the forward runs under
 ``parallel.use_mesh``, so that the losses' masked means and the family's
 BatchNorm statistics are the global batch's (``loss/utils.py``,
-``ops/layers.py``) and ``robust_mvd`` shards its views and hypotheses over
-the view and hyp axes; it runs through ``DistributedDataParallel`` over every
-rank of the mesh, whose mean of the ranks' gradients is the global loss's
-gradient (``parallel/collectives.py`` says why under view and hyp); the
+``ops/layers.py``; a D-sharded ``BatchNorm3d``'s are summed over hyp too)
+and ``robust_mvd`` shards its views and hypotheses over the view and hyp
+axes, the MVSNet family its hypotheses over hyp; it runs through
+``DistributedDataParallel`` over every rank of the mesh (with
+``find_unused_parameters``), whose mean of the ranks' gradients is the
+global loss's gradient (``parallel/collectives.py`` says why under view and
+hyp, for the halo fetches too); the
 logged losses are averaged over the data axis; the global rank 0 alone
 writes the log, events and snapshots, and its restored snapshot is broadcast
 to the others.

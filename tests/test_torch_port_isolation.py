@@ -10,7 +10,9 @@
   a training run of robust_mvd at bf16 (the train CLI), and the seven
   wrapped models on stub repositories (``wrapper_stubs.py``); in a second
   interpreter, a training run of vis_mvsnet (the train CLI) and one step of
-  mvsnet_train and cvp_mvsnet with their losses; in a third, the event
+  mvsnet_train (also with ``view_parallel``, beside the D-sharded layers'
+  module ``ops/sharded3d.py``) and cvp_mvsnet with their losses; in a
+  third, the event
   writer (events.jsonl and TensorBoard), the profiler, the viewer's PNG
   export, the launcher's module and ``parallel/``, and a training run of
   robust_mvd through the train CLI with ``--data_parallel`` (a gloo group of
@@ -48,9 +50,14 @@ def _forbidden(name):
 
 
 def test_running_the_port_loads_no_jax(tmp_path):
+    """torch runs on 2 threads in the fresh interpreter, as in the two below:
+    on all cores, beside the suite's other workers, one training step here
+    outlasted the 300 s limit."""
     code = """
 import sys
 import numpy as np
+import torch
+torch.set_num_threads(2)
 import robustmvd_tpu_torch as r
 rng = np.random.RandomState(0)
 images = [rng.rand(3, 64, 64).astype(np.float32) * 255 for _ in range(2)]
@@ -113,7 +120,9 @@ train_main(["--device", "cpu", "--dataset", "synthetic.train.mvd", "--model", "v
             "--input_size", "64", "64", "--max_iterations", "1", "--batch_size", "1", "--num_workers", "0",
             "--output", sys.argv[1]])
 sample = r.utils.numpy_collate([r.create_dataset("synthetic.train.mvd", num_views=3, height=64, width=64)[0]])
+import robustmvd_tpu_torch.ops.sharded3d
 for name, loss, kwargs in (("mvsnet_train", "mvsnet_loss", {"num_sampling_steps": 8}),
+                           ("mvsnet_train", "mvsnet_loss", {"num_sampling_steps": 8, "view_parallel": True}),
                            ("cvp_mvsnet", "SL1Loss", {"nscale": 3})):
     model = r.create_model(name, device="cpu", train=True, **kwargs)
     inputs = {"images": torch.from_numpy(np.stack(sample["images"], 1)), "poses": torch.from_numpy(np.stack(sample["poses"], 1)),
