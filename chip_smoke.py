@@ -170,7 +170,7 @@ CUDA toolkit (``nvcc``). Phases, each printing one JSON line:
             unlogged, bit-equal, with two unlogged runs as the yardstick);
             ``train_ddp`` (the recipe's train CLI on the StaticThings3D tree,
             without and with ``--data_parallel`` through ``python -m
-            robustmvd_tpu_torch.launch --local 1``: NCCL, world size 1, 3 + 5
+            robustmvd_tpu_torch.launch --local 1``: NCCL, world size 1, 1 + 2
             steps, ms per step side by side, K1 and K1b 4 per step on each
             side, the parameters after 3 steps within rtol 1e-6);
             ``train_vis_ddp`` (vis at train_vis's configuration through
@@ -206,7 +206,17 @@ CUDA toolkit (``nvcc``). Phases, each printing one JSON line:
             of its share, on the D extents of its slab, K5's with the halo;
             per rank the launches, D extents, ms per frame, peak MiB and the
             collectives' bytes).
-17. the kernels line, and last the ``{"ok": true, ...}`` line.
+17. remat (after phase 11's train_bf16): ``train_remat`` (robust_mvd's
+            rematerialised training, ``remat=True``, against its plain
+            training on one fixed recipe batch, batch 4, 1+4 views, 384x768,
+            at fp32 and bf16: the loss equal, the gradients within 10 times
+            a reordered-sum yardstick and at grad_errors' bounds, K1 (K1 v2)
+            and K1b 4 times a step either way; ms per step and peak MiB each
+            way, also at batch 16 fp32; where the memory of a batch-4 fp32
+            step goes and what sits at its peak; what the correlation saves
+            for the backward; a forward at 128 hypotheses over 0.5..50 at
+            384x1280, 1+2 views, card vs CPU within MODEL_BOUNDS).
+18. the kernels line, and last the ``{"ok": true, ...}`` line.
 
 Any failed check raises and the script exits non-zero; it does nothing
 without a CUDA device. Weights are random, from a seed.
@@ -262,8 +272,12 @@ EVAL_TIMING = ("runtime_model_in_sec", "runtime_model_in_msec", "runtime_model_a
                "runtime_model_and_io_in_msec", "device_mem_peak_in_mib")
 
 
+_START = time.perf_counter()
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line for a phase, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields, "at_s": round(time.perf_counter() - _START, 1)}), flush=True)
 
 
 def time_ms(fn, runs=30, warmup=5):
@@ -2762,6 +2776,383 @@ def phase_train_bf16(counters, fp32):
     return result
 
 
+# --- robust_mvd's rematerialised training and its hypothesis options ---
+
+REMAT_TIMED = ((4, "float32"), (4, "bfloat16"), (16, "float32"))  # (batch, dtype): the recipe's, JAX's note's 16
+K1_PER_STEP = 4  # the recipe's 4 source views: K1 and K1b once each per view and step
+
+
+# allocator-trace markers: blocks of MARKER_BYTES + 512 k bytes (k = 0: the
+# backward begins; k > 0: layer k - 1's backward begins), told apart by size
+# where the trace has no Python frames
+MARKER_BYTES = 5861 * 512
+MARKER_SLOTS = 256
+
+
+def trace_marker(k):
+    """Allocate (and drop) marker ``k`` on the card."""
+    import torch
+
+    torch.empty(MARKER_BYTES + 512 * k, dtype=torch.uint8, device="cuda")
+
+
+def layer_markers(model):
+    """A backward pre-hook on each convolution block of robust_mvd (its
+    ``nn.Sequential`` conv + activation blocks) that drops the block's
+    marker as its backward begins, and a forward hook that notes the shape
+    and dtype of its input. Returns the blocks by name, the inputs noted and
+    the hooks."""
+    import torch
+
+    layers, inputs, handles = {}, {}, []
+    for name, module in model.named_modules():
+        if isinstance(module, torch.nn.Sequential) and name.count(".") == 1 and len(layers) < MARKER_SLOTS - 1:
+            layers[name] = module
+            handles.append(module.register_full_backward_pre_hook(
+                lambda *_, k=len(layers): trace_marker(k)))
+            handles.append(module.register_forward_hook(
+                lambda _, args, __, name=name: inputs.__setitem__(name, (tuple(args[0].shape), args[0].dtype))))
+    return layers, inputs, handles
+
+
+def layer_alone(module, shape, dtype, top=4):
+    """One block's forward and backward alone on a random input of ``shape``:
+    MiB allocated beyond its input and output in each (cuDNN's workspace and
+    the transients), and the backward's largest CUDA kernels by device time
+    (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(shape, device="cuda", dtype=dtype, requires_grad=True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y = module(x)
+    torch.cuda.synchronize()
+    forward_extra = torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()
+    grad = torch.randn_like(y)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        y.backward(grad)
+        torch.cuda.synchronize()
+    backward_extra = torch.cuda.max_memory_allocated() - held
+    kernels = sorted(((e.key, getattr(e, "self_device_time_total", None) or e.self_cuda_time_total)
+                      for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda kv: -kv[1])[:top]
+    module.zero_grad(set_to_none=True)
+    return {"input_shape": list(shape), "dtype": str(dtype).removeprefix("torch."),
+            "input_output_mib": (held - base) / 2**20, "forward_extra_mib": forward_extra / 2**20,
+            "backward_extra_mib": backward_extra / 2**20,
+            "backward_kernels_us": [{"name": name[:120], "us": us} for name, us in kernels]}
+
+
+def step_memory(model, inputs, gt, before_backward=None):
+    """One robust_mvd_loss step split where its memory goes: MiB allocated
+    before it (parameters, batch), after the forward and the loss (what the
+    backward keeps), the forward's and the backward's peaks.
+    ``before_backward`` is called between the two."""
+    import torch
+
+    import robustmvd_tpu_torch as rmvd
+
+    loss = rmvd.create_loss("robust_mvd_loss", model=model)
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pred, aux = model(**inputs)
+    total = loss(inputs, gt, pred, aux, iteration=0)[0]
+    del pred, aux
+    torch.cuda.synchronize()
+    kept, forward_peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+    if before_backward is not None:
+        before_backward()
+    torch.cuda.reset_peak_memory_stats()
+    total.backward()
+    torch.cuda.synchronize()
+    mib = 2.0**20
+    return {"before_mib": before / mib, "kept_for_backward_mib": (kept - before) / mib,
+            "forward_peak_mib": forward_peak / mib, "backward_peak_mib": torch.cuda.max_memory_allocated() / mib}
+
+
+def allocation_site(frames):
+    """Where an allocation was made: up to three innermost frames of the port
+    (else of torch), "recompute" where torch.utils.checkpoint re-ran the
+    forward in the backward; the backward's C++ ops have no Python frame."""
+    if frames and "chip_smoke" in frames[0].get("filename", ""):
+        frames = frames[::-1]  # innermost first
+    names = [f.get("filename", "") for f in frames]
+    ours = [f"{n.split('robustmvd_tpu_torch/')[-1]}:{f.get('line')} {f.get('name')}"
+            for n, f in zip(names, frames) if "robustmvd_tpu_torch/" in n][:3]
+    if not ours:
+        ours = [f"torch/{n.split('torch/')[-1]}:{f.get('line')} {f.get('name')}"
+                for n, f in zip(names, frames) if "/torch/" in n][:1]
+    if not ours and frames:
+        ours = [f"{names[0].rsplit('/', 1)[-1]} {frames[0].get('name')}"]
+    site = " < ".join(ours) or "no Python frame (a C++ op of the backward, or none recorded)"
+    return ("recompute: " + site) if any("utils/checkpoint.py" in n for n in names) else site
+
+
+def peak_blocks(trace, start_bytes, layers=(), top=8):
+    """Replays one device's allocator trace (``torch.cuda.memory._snapshot``)
+    from ``start_bytes`` allocated: the peak, whether it came in the forward
+    or the backward and in which layer's backward (the last marker before
+    it, ``trace_marker``), and the largest blocks alive then, by allocation
+    site."""
+    live, current, peak, at_peak, where, peak_where = {}, start_bytes, start_bytes, {}, "forward", "forward"
+    peaks = {"forward": start_bytes, "backward": start_bytes}
+    for event in trace:
+        action, addr, size = event.get("action"), event.get("addr"), event.get("size", 0)
+        k, rest = divmod(size - MARKER_BYTES, 512)
+        if action == "alloc" and rest == 0 and 0 <= k < MARKER_SLOTS:
+            where = "backward" if k == 0 else f"backward of {layers[k - 1]}"
+            continue
+        if action == "alloc":
+            live[addr] = (size, allocation_site(event.get("frames") or []))
+            current += size
+            phase = "forward" if where == "forward" else "backward"
+            peaks[phase] = max(peaks[phase], current)
+            if current > peak:
+                peak, at_peak, peak_where = current, dict(live), where
+        elif action in ("free_requested", "free_completed") and addr in live:
+            current -= live.pop(addr)[0]
+    by_site = {}
+    for size, site in at_peak.values():
+        by_site.setdefault(site, [0, 0])
+        by_site[site][0] += size
+        by_site[site][1] += 1
+    largest = sorted(by_site.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"replayed_peak_mib": peak / 2**20, "peak_in": peak_where,
+            "replayed_peak_mib_by_phase": {k: v / 2**20 for k, v in peaks.items()},
+            "blocks_alive_at_peak": len(at_peak), "trace_events": len(trace),
+            "largest_at_peak": [{"site": site, "mib": size / 2**20, "blocks": n} for site, (size, n) in largest]}
+
+
+def where_the_peak_sits(model, inputs, gt):
+    """One step recorded by the allocator (``torch.cuda.memory.
+    _record_memory_history``) with ``layer_markers`` on, its trace replayed
+    to the peak (``peak_blocks``). Python stacks where the recording takes
+    them (it failed inside torch.utils.checkpoint's recompute on torch
+    2.11), else none; an error is reported, not raised (a private API)."""
+    import torch
+
+    layers, layer_inputs, handles = layer_markers(model)
+    errors, found = [], None
+    try:
+        for context in ("all", None):
+            try:
+                torch.cuda.synchronize()
+                start = torch.cuda.memory_allocated()
+                torch.cuda.memory._record_memory_history(context=context, stacks="python", max_entries=1_000_000)
+                try:
+                    step_memory(model, inputs, gt, before_backward=lambda: trace_marker(0))
+                    snapshot = torch.cuda.memory._snapshot()
+                finally:
+                    torch.cuda.memory._record_memory_history(enabled=None)
+                found = {"stacks": context is not None, "errors": errors,
+                         **peak_blocks(snapshot["device_traces"][torch.cuda.current_device()], start, list(layers))}
+                break
+            except Exception as error:  # noqa: BLE001
+                errors.append(f"context={context}: {type(error).__name__}: {error}")
+    finally:
+        for handle in handles:
+            handle.remove()
+    if found is None:
+        return {"errors": errors}
+    layer = found["peak_in"].removeprefix("backward of ")
+    if layer in layers:
+        try:
+            found["layer_at_peak_alone"] = layer_alone(layers[layer], *layer_inputs[layer])
+        except Exception as error:  # noqa: BLE001
+            found["layer_at_peak_alone"] = {"error": f"{type(error).__name__}: {error}"}
+    return found
+
+
+def correlation_saves(model, inputs):
+    """MiB that the correlation saves for the backward in one forward
+    (``saved_tensors_hooks``), split into views of its input features and
+    its own tensors, and the largest own tensor's shape: no (B, HW, HsWs)
+    score matrix is kept."""
+    import importlib
+
+    import torch
+
+    module = importlib.import_module("robustmvd_tpu_torch.models.robust_mvd")
+    correlation, saved, features = module.planesweep_correlation, [], set()
+
+    def pack(tensor):
+        saved.append((tensor.untyped_storage().data_ptr(), tensor.untyped_storage().nbytes(), tuple(tensor.shape)))
+        return tensor
+
+    def noted(feat_key, feat_sources, *args, **kwargs):
+        features.update(f.untyped_storage().data_ptr() for f in (feat_key, feat_sources))
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda tensor: tensor):
+            return correlation(feat_key, feat_sources, *args, **kwargs)
+
+    module.planesweep_correlation = noted
+    try:
+        model(**inputs)
+    finally:
+        module.planesweep_correlation = correlation
+    own = {ptr: (nbytes, shape) for ptr, nbytes, shape in saved if ptr not in features}
+    feature_bytes = {ptr: nbytes for ptr, nbytes, _ in saved if ptr in features}
+    return {"own_mib": sum(n for n, _ in own.values()) / 2**20, "own_tensors": len(own),
+            "own_shapes": sorted({shape for _, shape in own.values()}),
+            "feature_storages_mib": sum(feature_bytes.values()) / 2**20}
+
+
+def remat_parity(model, inputs, gt, counters, out_dir):
+    """The engine's ``train_step`` (SGD at learning rate 0) of one model, with
+    remat off twice, off on cuDNN's deterministic algorithms, and on: losses,
+    gradients and K1 / K1b launches of each."""
+    import torch
+
+    steps = {}
+    for label, remat, deterministic in (("plain", False, False), ("plain2", False, False),
+                                        ("plain_deterministic", False, True), ("remat", True, False)):
+        torch.backends.cudnn.deterministic = deterministic
+        model.remat = remat
+        counters.reset()
+        try:
+            loss, grads = mesh_step(model, inputs, gt, None, os.path.join(out_dir, label))
+        finally:
+            torch.backends.cudnn.deterministic = False
+        launches = counters.read()
+        steps[label] = {"loss": loss, "grads": grads,
+                        "launches": {k: v for k, v in launches.items() if "planesweep" in k and v}}
+    return steps
+
+
+def phase_train_remat(counters, size=(384, 768), views=5, timed=3, s_size=(384, 1280)):
+    """robust_mvd's rematerialised training against its plain training on
+    the card, TF32 off: the recipe's batch (batch 4, 1+4 views, 384x768), one
+    fixed batch and seeded weights, the engine's ``train_step``:
+
+    - at fp32 and bf16, remat on against off: the loss equal; the gradients'
+      rel L2 within 10 times the larger of two reordered-sum yardsticks (a
+      second plain step, and a plain step on cuDNN's deterministic
+      algorithms), and every parameter at ``grad_errors``' bounds; K1 (K1 v2
+      at bf16) and K1b 4 times a step either way;
+    - ms per step (sleep-backlogged CUDA events, ``timed`` steps after one)
+      and peak MiB, remat on and off, at batch 4 fp32 and bf16 and at batch
+      16 fp32; for each where the memory goes (``step_memory``), in which
+      layer's backward the peak comes and the largest blocks alive then by
+      allocation site, and that layer's forward and backward alone
+      (``where_the_peak_sits``); at batch 4 fp32 what the correlation saves
+      for the backward (``correlation_saves``);
+    - a forward at ``num_sampling_points=128``, depth 0.5..50, 384x1280, 1+2
+      views, card against CPU within MODEL_BOUNDS (cuDNN deterministic),
+      with 2 K1 launches."""
+    import torch
+
+    import robustmvd_tpu_torch as rmvd
+
+    tf32 = set_tf32(False)
+    H, W = size
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    rng = np.random.RandomState(12)
+    result = {"parity": {}, "timed": {}, "memory": {}}
+    launches = dict.fromkeys(("planesweep_sample[float32]", "planesweep_sample[bfloat16]",
+                              "planesweep_sample_backward[float32]", "planesweep_sample_backward[bfloat16]"), 0)
+
+    def add_launches():
+        for k, v in counters.read().items():
+            if k in launches:
+                launches[k] += v
+
+    batches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for batch, dtype in REMAT_TIMED:
+            if batch not in batches:
+                inputs, gt = train_batch(rng, batch, views, H, W)
+                batches[batch] = ({k: torch.from_numpy(v).cuda() for k, v in inputs.items()},
+                                  {k: torch.from_numpy(v).cuda() for k, v in gt.items()})
+            inputs, gt = batches[batch]
+            model = rmvd.create_model("robust_mvd", seed=0, train=True, dtype=dtype)
+            label = f"b{batch}_{dtype}"
+            if batch == 4:
+                steps = remat_parity(model, inputs, gt, counters, os.path.join(tmp, label))
+                for step in steps.values():
+                    for k in launches:
+                        launches[k] += step["launches"].get(k, 0)
+                short = dtype
+                want = {f"planesweep_sample[{short}]": K1_PER_STEP, f"planesweep_sample_backward[{short}]": K1_PER_STEP,
+                        "planesweep_sample": K1_PER_STEP, "planesweep_sample_backward": K1_PER_STEP}
+                wrong = {k: s["launches"] for k, s in steps.items() if s["launches"] != want}
+                if wrong:
+                    raise AssertionError(f"train_remat {label}: launches {wrong}, expected {want} a step")
+                ref = steps["plain"]["grads"]
+                yardsticks = {"two_plain_steps": state_diff(steps["plain2"]["grads"], ref)["rel_l2"],
+                              "plain_deterministic_cudnn": state_diff(steps["plain_deterministic"]["grads"],
+                                                                      ref)["rel_l2"]}
+                _, failed = grad_errors(steps["remat"]["grads"], ref)
+                parity = {"loss": steps["remat"]["loss"], "plain_loss": steps["plain"]["loss"],
+                          "rel_l2": state_diff(steps["remat"]["grads"], ref)["rel_l2"],
+                          "yardsticks_rel_l2": yardsticks, "limit": 10 * max(*yardsticks.values(), 1e-6),
+                          "params_beyond_grad_parity_bounds": failed,
+                          "launches_per_step": {k: s["launches"] for k, s in steps.items()}}
+                if not (parity["loss"] == parity["plain_loss"] and parity["rel_l2"] <= parity["limit"]
+                        and not failed):
+                    raise AssertionError(f"train_remat {label}: {parity}")
+                result["parity"][label] = parity
+                del steps
+            timed_label = {}
+            for remat in (False, True):
+                model.remat = remat
+                torch.cuda.empty_cache()
+                training = rmvd.create_training(
+                    "mvd", out_dir=os.path.join(tmp, f"{label}_{remat}"), model=model,
+                    dataset=rmvd.create_dataset("synthetic.train.mvd", num_samples=2, num_views=2, height=64,
+                                                width=64),
+                    optimizer=torch.optim.SGD(model.parameters(), lr=0.0), scheduler=None,
+                    loss=rmvd.create_loss("robust_mvd_loss", model=model), batch_size=1, max_iterations=1,
+                    num_workers=0, verbose=False)
+                training.train_step(inputs, gt)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                counters.reset()
+                ms = time_ms(lambda: training.train_step(inputs, gt), runs=timed, warmup=0)
+                add_launches()
+                timed_label["remat" if remat else "plain"] = {
+                    "ms_per_step": ms, "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+                counters.reset()
+                memory = {**step_memory(model, inputs, gt), "peak": where_the_peak_sits(model, inputs, gt)}
+                if (batch, dtype) == (4, "float32"):
+                    memory["correlation_saves"] = correlation_saves(model, inputs)
+                add_launches()
+                result["memory"].setdefault(label, {})["remat" if remat else "plain"] = memory
+                del training
+            result["timed"][label] = timed_label
+            del model
+            torch.cuda.empty_cache()
+
+    # the hypothesis options at full width: S 128 over 0.5..50, card vs CPU
+    options = {"num_sampling_points": 128, "min_depth": 0.5, "max_depth": 50.0}
+    sample = kitti_like_sample(np.random.RandomState(13), *s_size, 3)
+    torch.backends.cudnn.deterministic = True
+    try:
+        counters.reset()
+        _, aux_card = rmvd.create_model("robust_mvd", seed=0, **options).run(**sample)
+        s_launches = counters.read()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    launches["planesweep_sample[float32]"] += s_launches["planesweep_sample[float32]"]
+    _, aux_cpu = rmvd.create_model("robust_mvd", seed=0, device="cpu", **options).run(**sample)
+    errors = relative_errors(aux_card["invdepth"], aux_cpu["invdepth"])
+    if errors[0] > MODEL_BOUNDS[0] or errors[1] > MODEL_BOUNDS[1] or s_launches["planesweep_sample"] != 2:
+        raise AssertionError(f"train_remat S 128: card vs CPU invdepth {errors} (bounds {MODEL_BOUNDS}), "
+                             f"K1 launches {s_launches['planesweep_sample']} (expected 2)")
+    result["s_option_forward"] = {**options, "shape": list(s_size), "views": 3, "mean_max_rel": errors,
+                                  "bounds": MODEL_BOUNDS, "k1_launches": s_launches["planesweep_sample"]}
+    result["launches"] = launches
+    emit("train_remat", card=card, tf32=tf32, shape=[H, W], views=views, hypotheses=256, timed_steps=timed,
+         **result)
+    return result
+
+
 # --- the MVSNet family's training: K3's gradient, vis_mvsnet's steps, mvsnet_train and cvp_mvsnet ---
 
 K3_GRAD_SHAPES = ((2, 64, 32, 40), (2, 32, 64, 80), (2, 16, 128, 160))  # vis's readouts at 256x320, batch 2
@@ -3518,12 +3909,13 @@ def phase_data_parallel(label, spec, expected_per_step):
                         "two_plain_runs": yardstick, "launcher_s": launcher_s}
 
 
-def phase_train_ddp(counters, warmup=3, timed=5, batch=4):
+def phase_train_ddp(counters, warmup=1, timed=2, batch=4):
     """The recipe (the train CLI's arguments of ``train_all.sh:8-18`` on the
     StaticThings3D reader over a raw-size tree, its augmentations' 384x768
     crops, batch 4, fp32) without and with ``--data_parallel`` through the
-    launcher (world size 1, NCCL): 3 + 5 steps each, K1 and K1b 4 times per
-    step on both sides, the parameters after 3 steps within rtol 1e-6
+    launcher (world size 1, NCCL): 1 + 2 steps each (each waits ~7 s for
+    its batch on the host, which bounds the script's time), K1 and K1b 4
+    times per step on both sides, the parameters after 3 steps within rtol 1e-6
     (bit-equal expected) where the card's steps are deterministic, else held
     to two plain runs' distance (phase_data_parallel). No loader workers:
     8 spawned workers took the first batch 60 s on the card's host, twice a
@@ -4346,6 +4738,7 @@ def main():
     phase_train_parity(counters)
     train = phase_train_main(counters)
     train_bf16 = phase_train_bf16(counters, train)
+    train_remat = phase_train_remat(counters)
     k3_grad = phase_kernel_k3_grad()
     vis_parity = phase_train_vis_parity(counters)
     vis_train = phase_train_vis(counters)
@@ -4363,8 +4756,10 @@ def main():
     v2_launches = {"robust_mvd_bf16": runs_bf16["launches"]["planesweep_sample[bfloat16]"],
                    "eval_kitti_bf16": eval_bf16["k1_launches"],
                    "train_bf16": train_bf16["launches"]["planesweep_sample[bfloat16]"],
-                   "mesh_view_hyp": mesh["launches"]["planesweep_sample[bfloat16]"]}
-    k1b_bf16_launches = {"train_bf16": train_bf16["launches"]["planesweep_sample_backward[bfloat16]"]}
+                   "mesh_view_hyp": mesh["launches"]["planesweep_sample[bfloat16]"],
+                   "train_remat": train_remat["launches"]["planesweep_sample[bfloat16]"]}
+    k1b_bf16_launches = {"train_bf16": train_bf16["launches"]["planesweep_sample_backward[bfloat16]"],
+                         "train_remat": train_remat["launches"]["planesweep_sample_backward[bfloat16]"]}
     k2_main = k2["mvsnet_f32"]
     k2_launches = {path: family[path]["fp32"]["launches"]["sweep_warp"] for path in ("mvsnet_train", "cvp_mvsnet")}
     # the 4 ranks' frames and vis train step of phase mesh_family, on their slabs
@@ -4402,7 +4797,9 @@ def main():
                              # the 4 ranks' forwards (view share x 1 slab of 128 each) and train steps
                              "mesh_view_hyp": mesh["launches"]["planesweep_sample[float32]"],
                              "mesh_view_hyp_train": mesh["launches"]["planesweep_sample[train]"],
-                             "profile_main": profile_main["launches"]["traced_frame"]},
+                             "profile_main": profile_main["launches"]["traced_frame"],
+                             # remat on and off: the steps, and the S 128 forward
+                             "train_remat": train_remat["launches"]["planesweep_sample[float32]"]},
         "launches_per_rank": {"mesh_view_hyp": mesh["launches_by_rank"]},
         "launches_per_eval_sample": {path: r["k1_launches_per_sample"] for path, r in evals.items()},
         "max_abs_err": f32["max_abs_err"],
@@ -4430,7 +4827,8 @@ def main():
         "launches_by_path": {"train_main": train["launches"]["planesweep_sample_backward"],
                              "train_writer": train_writer["launches"]["planesweep_sample_backward"],
                              "train_ddp": train_ddp["launches"]["planesweep_sample_backward"],
-                             "mesh_view_hyp": mesh["launches"]["planesweep_sample_backward"]},
+                             "mesh_view_hyp": mesh["launches"]["planesweep_sample_backward"],
+                             "train_remat": train_remat["launches"]["planesweep_sample_backward[float32]"]},
         "launches_per_train_step": train["launches_per_step"]["planesweep_sample_backward"],
         "max_abs_err": k1b["max_abs_err"],
         "ms": k1b["ms"],

@@ -111,6 +111,8 @@ def parse_args(argv=None):
     parser.add_argument("--eval_name")
     parser.add_argument("--finished_iterations", type=int)
     parser.add_argument("--seed", type=int, default=42)
+    parser.add_argument("--num_gpus", type=int, default=1,
+                        help="Declared as in the JAX CLI, which never reads it; the card is --device.")
     parser.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu.")
     parser.add_argument("--no_tensorboard", action="store_true", help="Write events.jsonl only.")
     parser.add_argument("--wandb", action="store_true", help="Also log scalars to wandb where it imports.")

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from ...ops.interpolate import resize_bilinear
 from ...ops.layers import Conv2d, ConvTranspose2d
-from ...parallel.collectives import all_gather, all_reduce_sum
+from ...parallel.collectives import all_gather, all_reduce_sum, tie
 from ...parallel.context import hyp_group, share, view_group
 
 
@@ -145,7 +145,10 @@ class LearnedFusion(nn.Module):
     - The weighted sums over views are summed over ``view`` (in float32,
       rounded once to the compute dtype), and the fused slabs gathered over
       ``hyp``.
-    - A rank whose view share is empty adds zeros to the sums.
+    - A rank whose view share is empty adds zeros to the sums. Its empty
+      volumes are tied to the weight net's parameters, so that its backward
+      joins the view axis' all-reduces as the other ranks' backwards do
+      (gloo would pair mismatched collectives otherwise).
     """
 
     def __init__(self, num_sampling_points=256, dtype=torch.float32):
@@ -160,9 +163,11 @@ class LearnedFusion(nn.Module):
         B, V, S, H, W = corrs.shape
         view, hyp = view_group(), hyp_group()
         num_views = V if num_views is None else num_views
+        if V == 0 and view is not None:
+            corrs = tie(corrs, *self.corr_to_view_weight.parameters())
         if num_views == 1:
-            # single source view: pass-through (learned_fusion.py:49-52)
-            fused_corr, fused_mask = (corrs[:, 0], masks[:, 0]) if V else (corrs.new_zeros((B, S, H, W)),) * 2
+            # single source view: pass-through (learned_fusion.py:49-52); an empty share's zeros
+            fused_corr, fused_mask = (corrs[:, 0], masks[:, 0]) if V else (corrs.sum(1), masks.sum(1))
             if view is not None:
                 fused_corr, fused_mask = all_reduce_sum(torch.stack([fused_corr, fused_mask]), view)
         else:
@@ -191,7 +196,7 @@ class LearnedFusion(nn.Module):
     def _view_logits(self, corrs, hyp):
         """The weight net on (N, S, H, W) corrs: (N, 1, H, W)."""
         if corrs.shape[0] == 0:  # an empty view share (then no rank of this hyp group has a view)
-            return corrs.new_zeros((0, 1) + corrs.shape[2:])
+            return corrs.sum(1, keepdim=True)  # (0, 1, H, W), in the graph of the tied volumes
         if hyp is None:
             return self.corr_to_view_weight(corrs)
         conv0, relu, conv1 = self.corr_to_view_weight

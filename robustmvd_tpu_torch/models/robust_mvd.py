@@ -18,14 +18,23 @@ pipeline, the epipolar coordinate math and the prediction heads stay
 float32; images are cast to bf16 at the top of the forward, and the
 convolutions, the correlation (bf16 scores sampled by K1 v2) and the fusion
 run in bf16. ``depth`` and ``depth_uncertainty`` are float32.
+
+The JAX options: ``num_sampling_points`` (S), ``min_depth`` and
+``max_depth`` set the hypotheses; ``corr_impl`` takes JAX's names of the
+correlation route (``ops/corr.py::corr_impl_of``); ``remat`` (default: the
+``train`` flag, as in JAX) recomputes the encoder, the cost-volume encoder
+and the decoder in the backward (JAX's ``nn.remat`` scope,
+``torch.utils.checkpoint``'s non-reentrant form) instead of keeping their
+activations.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from ..ops.corr import planesweep_correlation
+from ..ops.corr import corr_impl_of, planesweep_correlation
 from ..ops.epipolar import sampling_invdepths
 from ..parallel.context import hyp_group, share, view_group
 from ..utils import to_relative_intrinsics
@@ -62,8 +71,8 @@ def split_key_sources(stacked, keyview_idx):
     return key, take(order[:, : V - 1])
 
 
-# plane-sweep hypotheses: linear in inverse depth over [1/MAX_DEPTH, 1/MIN_DEPTH]
-# (rmvd/models/robust_mvd.py:71-80)
+# plane-sweep hypotheses, by default: linear in inverse depth over
+# [1/MAX_DEPTH, 1/MIN_DEPTH] (rmvd/models/robust_mvd.py:71-80)
 NUM_SAMPLING_POINTS = 256
 MIN_DEPTH = 0.4
 MAX_DEPTH = 1000.0
@@ -74,19 +83,27 @@ class RobustMVD(ModelBase):
 
     intrinsics (B, V, 3, 3) relative and keyview_idx (B,). ``dtype`` names
     the compute dtype (``helpers.COMPUTE_DTYPES``); parameters are float32 either
-    way, so the state dict and the weight bridge do not depend on it."""
+    way, so the state dict and the weight bridge do not depend on it. The
+    weights depend on ``num_sampling_points``: the first fusion conv and the
+    cost-volume encoder take S channels."""
 
     # the input adapter takes views already on the model's device: the
     # evaluation uploads each sample's views once for all of its runs
     supports_device_images = True
 
-    def __init__(self, device, weights=None, seed=0, train=False, dtype="float32"):
+    def __init__(self, device, weights=None, seed=0, train=False, dtype="float32",
+                 num_sampling_points=NUM_SAMPLING_POINTS, min_depth=MIN_DEPTH, max_depth=MAX_DEPTH, remat=None,
+                 corr_impl="pixelscan"):
         super().__init__()
         self.compute_dtype = cdt = compute_dtype_of(dtype, "robust_mvd")
+        self.corr_impl = corr_impl_of(corr_impl, cdt)
+        self.num_sampling_points, self.min_depth, self.max_depth = num_sampling_points, min_depth, max_depth
+        # recompute only where a backward needs it: by default in a model built for training
+        self.remat = train if remat is None else remat
         self.encoder = DispnetEncoder(cdt)
         self.context_encoder = DispnetContextEncoder(cdt)
-        self.fusion_block = LearnedFusion(NUM_SAMPLING_POINTS, cdt)
-        self.fusion_enc_block = DispnetCostvolumeEncoder(NUM_SAMPLING_POINTS, cdt)
+        self.fusion_block = LearnedFusion(num_sampling_points, cdt)
+        self.fusion_enc_block = DispnetCostvolumeEncoder(num_sampling_points, cdt)
         self.decoder = DispnetDecoder(cdt)
         if weights is None:
             init_weights(self, torch.Generator().manual_seed(seed))
@@ -95,6 +112,25 @@ class RobustMVD(ModelBase):
         # the path has no BatchNorm and no dropout: the mode only tells the
         # caller whether the model was built for training
         self.to(device).train(train)
+
+    def load_state_dict(self, state_dict, strict=True, assign=False):
+        """As ``nn.Module``'s, refusing weights made for another S first."""
+        weight = state_dict.get("fusion_block.corr_to_view_weight.0.weight")
+        if weight is not None and weight.shape[1] != self.num_sampling_points:
+            raise ValueError(f"the weights were made for num_sampling_points={weight.shape[1]} "
+                             f"(their first fusion conv's input channels); this model has "
+                             f"num_sampling_points={self.num_sampling_points}")
+        return super().load_state_dict(state_dict, strict=strict, assign=assign)
+
+    def _block(self, block, *args, **kwargs):
+        """``block(*args, **kwargs)``, recomputed in the backward where remat
+        is on and autograd records. The non-reentrant form: the engine's DDP
+        finds unused parameters, which the reentrant form marks ready twice.
+        None of the three blocks runs a collective, which the recompute would
+        run again."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False, **kwargs)
+        return block(*args, **kwargs)
 
     def forward(self, images, poses, intrinsics, keyview_idx):
         B, V, _, H, W = images.shape
@@ -110,15 +146,16 @@ class RobustMVD(ModelBase):
 
         # the key view first, then the rank's sources
         images = torch.cat([key_image[:, None], source_images], 1)
-        all_enc, _ = self.encoder(images.reshape(B * (1 + n), *images.shape[2:]))
+        all_enc, _ = self._block(self.encoder, images.reshape(B * (1 + n), *images.shape[2:]))
         all_enc = {k: v.reshape(B, 1 + n, *v.shape[1:]) for k, v in all_enc.items()}
         enc_key, enc_sources = all_enc["conv3a"][:, 0], all_enc["conv3a"][:, 1:]
 
         ctx = self.context_encoder(enc_key)
 
         # the hyp axis: this rank's slab of the hypotheses
-        invdepths = sampling_invdepths(MIN_DEPTH, MAX_DEPTH, NUM_SAMPLING_POINTS, device=images.device)
-        s_lo, s_hi = share(NUM_SAMPLING_POINTS, hyp)
+        S = self.num_sampling_points
+        invdepths = sampling_invdepths(self.min_depth, self.max_depth, S, device=images.device)
+        s_lo, s_hi = share(S, hyp)
         corrs, masks, _ = planesweep_correlation(
             feat_key=enc_key.permute(0, 2, 3, 1),
             feat_sources=enc_sources.permute(0, 1, 3, 4, 2),
@@ -131,9 +168,11 @@ class RobustMVD(ModelBase):
         fused_corr, _ = self.fusion_block(corrs.permute(0, 1, 4, 2, 3), masks.permute(0, 1, 4, 2, 3),
                                           num_views=V - 1)
 
-        all_enc_fused, enc_fused = self.fusion_enc_block(corr=fused_corr, ctx=ctx)
-        dec = self.decoder(enc_fused, {"conv1": all_enc["conv1"][:, 0], "conv2": all_enc["conv2"][:, 0],
-                                       **all_enc_fused})
+        all_enc_fused, enc_fused = self._block(self.fusion_enc_block, corr=fused_corr, ctx=ctx)
+        # the key view's skips copied out of the views' features: a recomputed
+        # decoder keeps its inputs, and a view would keep every view's alive
+        skips = {name: all_enc[name][:, 0].clone() for name in ("conv1", "conv2")}
+        dec = self._block(self.decoder, enc_fused, {**skips, **all_enc_fused})
 
         pred = {
             "depth": 1.0 / (dec["invdepth"] + 1e-9),
@@ -172,19 +211,24 @@ class RobustMVD(ModelBase):
         }
 
 
-def _entry(weights, train, device, seed, dtype):
-    return RobustMVD(device=device, weights=weights, seed=seed, train=train, dtype=dtype)
-
-
 @register_model
-def robust_mvd(pretrained=True, weights=None, train=False, device="cuda", seed=0, dtype="float32"):
+def robust_mvd(pretrained=True, weights=None, train=False, device="cuda", seed=0, dtype="float32",
+               num_sampling_points=NUM_SAMPLING_POINTS, min_depth=MIN_DEPTH, max_depth=MAX_DEPTH, remat=None,
+               corr_impl="pixelscan"):
     """The paper's baseline (rmvd/models/robust_mvd.py:151-158). There is no
     download: pass a rmvd ``.pt`` as ``weights``, or get weights from ``seed``.
-    ``dtype``: "float32" or "bfloat16" ("bf16"), the compute dtype."""
-    return _entry(weights, train, device, seed, dtype)
+    ``dtype``: "float32" or "bfloat16" ("bf16"), the compute dtype; the
+    other options are :class:`RobustMVD`'s."""
+    return RobustMVD(device=device, weights=weights, seed=seed, train=train, dtype=dtype,
+                     num_sampling_points=num_sampling_points, min_depth=min_depth, max_depth=max_depth,
+                     remat=remat, corr_impl=corr_impl)
 
 
 @register_model(trainable=False)
-def robust_mvd_5M(pretrained=True, weights=None, train=False, device="cuda", seed=0, dtype="float32"):
+def robust_mvd_5M(pretrained=True, weights=None, train=False, device="cuda", seed=0, dtype="float32",
+                  num_sampling_points=NUM_SAMPLING_POINTS, min_depth=MIN_DEPTH, max_depth=MAX_DEPTH, remat=None,
+                  corr_impl="pixelscan"):
     """The 5M-iteration variant (rmvd/models/robust_mvd.py:139-148)."""
-    return _entry(weights, train, device, seed, dtype)
+    return RobustMVD(device=device, weights=weights, seed=seed, train=train, dtype=dtype,
+                     num_sampling_points=num_sampling_points, min_depth=min_depth, max_depth=max_depth,
+                     remat=remat, corr_impl=corr_impl)

@@ -23,7 +23,9 @@ the same order:
 Source views run one after another, so only one (HW, HsWs) score matrix is
 alive at a time (about 1.2 GB at DTU's 896x1216). Under autograd no score
 matrix is kept for the backward: the product saves its two inputs and K1
-only its taps.
+only its taps. So the port keeps what the JAX package's ``jax.checkpoint``
+of the per-view correlation buys without recomputing it, and robust_mvd's
+``remat`` leaves the correlation out.
 
 Features may be float32 or bfloat16 (robust_mvd's ``dtype="bfloat16"``).
 With bf16 features the score product runs on bf16 operands (cuBLAS sums in
@@ -49,6 +51,46 @@ import torch
 
 from .epipolar import make_epipolar_coeffs, planesweep_points, sampling_invdepths
 from .kernels.planesweep_sample import planesweep_sample_with_grad
+
+# The port computes one correlation function at each compute dtype, the route
+# above; it goes by the name of the JAX route that computes it at both.
+CORR_IMPL = "matmul"
+# JAX's corr_impl names (robustmvd_tpu/ops/corr.py::planesweep_correlation_single)
+# that compute the port's function, by compute dtype: at float32 every route
+# that samples float32 scores ("pixelscan" within its epipole tolerance); at
+# bf16 the routes that sample bf16 scores (bf16 features imply bf16 sampling
+# in "pixelscan" and "matmul", so their "_bf16" forms are the same routes).
+CORR_TAKEN = {
+    "float32": ("pixelscan", "matmul", "pallas", "gather"),
+    "bfloat16": ("pixelscan", "matmul", "pixelscan_bf16", "matmul_bf16"),
+}
+# what each of the others computes instead
+CORR_REFUSED = {
+    ("float32", "pixelscan_bf16"): "samples the float32 features' scores at bf16",
+    ("float32", "matmul_bf16"): "samples the float32 features' scores at bf16",
+    ("bfloat16", "pallas"): "samples float32 scores of bf16 features (its v1 kernel)",
+    ("bfloat16", "gather"): "weights the taps of bf16-rounded feature products at float32",
+}
+_PORT_FUNCTION = {"float32": "float32 scores sampled at float32 (K1)",
+                  "bfloat16": "the score product rounded to bf16 and sampled at bf16 (K1 v2)"}
+
+
+def corr_impl_of(name, dtype="float32"):
+    """The port's correlation route (``CORR_IMPL``) for a JAX ``corr_impl``
+    name at the compute ``dtype`` ("float32", "bfloat16" or "bf16", or a
+    torch dtype); a name whose JAX route computes another function there is
+    refused, with what the port computes instead."""
+    dtype = str(dtype).removeprefix("torch.")
+    dtype = {"bf16": "bfloat16"}.get(dtype, dtype)
+    if dtype not in CORR_TAKEN:
+        raise ValueError(f"the correlation computes in float32 or bfloat16, not {dtype!r}")
+    if name in CORR_TAKEN[dtype]:
+        return CORR_IMPL
+    if (dtype, name) in CORR_REFUSED:
+        raise ValueError(f"corr_impl={name!r} at {dtype} {CORR_REFUSED[dtype, name]}; the port computes "
+                         f"{_PORT_FUNCTION[dtype]}, JAX's {', '.join(map(repr, CORR_TAKEN[dtype]))} at {dtype}")
+    raise ValueError(f"unknown corr_impl {name!r}: expected one of "
+                     f"{sorted(set(CORR_TAKEN['float32'] + CORR_TAKEN['bfloat16']))}")
 
 
 def tap_coordinates(us, vs):

@@ -88,7 +88,7 @@ def train(args, argv):
         logging.info(f"No loss specified. Available: {', '.join(list_losses())}")
         return
 
-    model_kwargs = cli_model_kwargs(args.model, args.dtype)
+    model_kwargs = cli_model_kwargs(args.model, args.dtype, args.no_remat)
     device = resolve_device(args.device)
     mesh = data_parallel_mesh(device) if args.data_parallel else None
     if mesh is not None and device.type == "cuda":
@@ -162,10 +162,15 @@ def parse_args(argv=None):
     parser.add_argument("--log_full_batch", action="store_true",
                         help="Declared as in the JAX CLI, which never reads it; ignored.")
     parser.add_argument("--seed", type=int, default=42)
+    parser.add_argument("--num_gpus", type=int, default=1,
+                        help="Declared as in the JAX CLI, which never reads it; the card is --device.")
     parser.add_argument("--data_parallel", action="store_true",
                         help="Data parallelism over the launcher's processes (python -m robustmvd_tpu_torch.launch), "
                              "one card each; the global batch is --batch_size times the processes.")
     parser.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu.")
+    parser.add_argument("--no_remat", action="store_true",
+                        help="Disable activation rematerialization (faster, more memory; fits the paper recipe on "
+                             "one chip).")
     parser.add_argument("--no_tensorboard", action="store_true", help="Write events.jsonl only.")
     parser.add_argument("--wandb", action="store_true", help="Also log scalars to wandb where it imports.")
     parser.add_argument("--exp_id", help="Declared as in the JAX CLI, which never reads it; ignored.")

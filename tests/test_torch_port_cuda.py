@@ -1462,6 +1462,78 @@ def test_training_engine_on_card(cuda, tmp_path):
         assert torch.equal(loaded.state_dict()[k], v), k
 
 
+def _recipe_grads(model, inputs, gt):
+    """One robust_mvd_loss step at iteration 0: the loss and every gradient."""
+    import robustmvd_tpu_torch as rmvd
+
+    pred, aux = model(**inputs)
+    total = rmvd.create_loss("robust_mvd_loss", model=model)(inputs, gt, pred, aux, iteration=0)[0]
+    total.backward()
+    return float(total), torch.cat([p.grad.flatten().double() for p in model.parameters()])
+
+
+def test_remat_train_step_on_card_matches_the_plain_step(cuda):
+    """A rematerialised recipe step (``remat=True``: the encoder, the
+    cost-volume encoder and the decoder recomputed in the backward) against
+    the step without, same weights and batch, B = 1, 1+2 views, 64x128: the
+    loss equal, the gradients' rel L2 within 10 times the larger of two
+    reordered-sum yardsticks (a second plain step: K1b adds with atomics; a
+    plain step on cuDNN's deterministic algorithms); K1 and K1b twice each
+    way."""
+    import robustmvd_tpu_torch as rmvd
+
+    rng = np.random.RandomState(5)
+    B, V, H, W = 1, 3, 64, 128
+    images = rng.rand(B, V, 3, H, W).astype(np.float32) - 0.4
+    K = np.tile(np.array([[0.9, 0, 0.5], [0, 1.2, 0.5], [0, 0, 1]], np.float32), (B, V, 1, 1))
+    poses = np.tile(np.eye(4, dtype=np.float32), (B, V, 1, 1))
+    poses[:, 1:, 0, 3] = [0.1, -0.1]
+    inputs = {k: torch.from_numpy(v).to(cuda) for k, v in
+              {"images": images, "poses": poses, "intrinsics": K, "keyview_idx": np.zeros(B, np.int64)}.items()}
+    gt = {"invdepth": torch.from_numpy((1.0 / (rng.rand(B, 1, H, W) * 8.0 + 2.0)).astype(np.float32)).to(cuda)}
+    steps = {}
+    for label, remat, deterministic in (("plain", False, False), ("plain2", False, False),
+                                        ("plain_deterministic", False, True), ("remat", True, False)):
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            model = rmvd.create_model("robust_mvd", device="cuda", train=True, seed=0, remat=remat)
+            before = (planesweep_sample.launches, planesweep_sample_backward.launches)
+            steps[label] = _recipe_grads(model, inputs, gt) + (
+                (planesweep_sample.launches - before[0], planesweep_sample_backward.launches - before[1]),)
+        finally:
+            torch.backends.cudnn.deterministic = False
+    assert all(s[2] == (2, 2) for s in steps.values()), steps
+    assert steps["remat"][0] == steps["plain"][0]
+    ref = steps["plain"][1]
+
+    def rel_l2(label):
+        return float((steps[label][1] - ref).norm() / ref.norm())
+
+    limit = 10 * max(rel_l2("plain2"), rel_l2("plain_deterministic"), 1e-6)
+    assert rel_l2("remat") <= limit, (rel_l2("remat"), limit)
+
+
+def test_robust_mvd_with_32_hypotheses_on_card_matches_cpu(cuda):
+    """``num_sampling_points=32, min_depth=0.5, max_depth=50.0``: the forward
+    on the card against the CPU at MODEL_BOUNDS, K1 on 32 taps per pixel."""
+    rng = np.random.RandomState(3)
+    H, W = 64, 128
+    images = [rng.rand(1, 3, H, W).astype(np.float32) * 255 for _ in range(3)]
+    K = np.array([[[0.8 * W, 0, W / 2], [0, 0.8 * W, H / 2], [0, 0, 1]]], np.float32)
+    poses = [np.eye(4, dtype=np.float32)[None] for _ in range(3)]
+    poses[1][0, 0, 3], poses[2][0, 0, 3] = 0.1, -0.1
+    sample = dict(images=images, poses=poses, intrinsics=[K] * 3, keyview_idx=np.zeros(1, np.int64))
+    options = dict(num_sampling_points=32, min_depth=0.5, max_depth=50.0)
+    before = planesweep_sample.launches
+    _, aux_g = create_model("robust_mvd", device="cuda", **options).run(**sample)
+    assert planesweep_sample.launches - before == 2
+    _, aux_c = create_model("robust_mvd", device="cpu", **options).run(**sample)
+    for g, c in zip(aux_g["invdepths_all"], aux_c["invdepths_all"]):
+        scale = np.abs(c).mean() + 1e-12
+        assert np.abs(g - c).mean() / scale <= 1e-4
+        assert np.abs(g - c).max() / scale <= 1e-3
+
+
 # --- bf16: K1b's bf16 form, K1 v2 through the correlation, a bf16 train step ---
 
 # K1b's bf16 form vs its plain version (float32 sums, one rounding): the sums

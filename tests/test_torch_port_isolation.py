@@ -7,8 +7,10 @@
   convolutions, and robust_mvd at bf16; then a benchmark sample list and
   DTU's MVSNet training list (pickled with the JAX package's class paths),
   ``synthetic``, an evaluation of robust_mvd, the augmentation presets and
-  a training run of robust_mvd at bf16 (the train CLI), and the seven
-  wrapped models on stub repositories (``wrapper_stubs.py``); in a second
+  a training run of robust_mvd at bf16 (the train CLI, rematerialised by
+  default), a robust_mvd at 32 hypotheses over 0.5..50 with one
+  rematerialised training step, and the seven wrapped models on stub
+  repositories (``wrapper_stubs.py``); in a second
   interpreter, a training run of vis_mvsnet (the train CLI) and one step of
   mvsnet_train (also with ``view_parallel``, beside the D-sharded layers'
   module ``ops/sharded3d.py``) and cvp_mvsnet with their losses; in a
@@ -87,6 +89,16 @@ from robustmvd_tpu_torch.train.cli import main as train_main
 train_main(["--device", "cpu", "--dataset", "synthetic.train.mvd", "--model", "robust_mvd", "--dtype", "bfloat16", "--loss",
             "robust_mvd_loss", "--batch_augmentations", "robust_mvd_batch_augmentations", "--max_iterations", "1",
             "--batch_size", "1", "--num_workers", "0", "--output", sys.argv[1]])
+model = r.create_model("robust_mvd", device="cpu", train=True, num_sampling_points=32, min_depth=0.5, max_depth=50.0)
+assert model.remat
+batch = r.utils.numpy_collate([r.create_dataset("synthetic.train.mvd", num_views=2, height=64, width=64)[0]])
+inputs = {"images": torch.from_numpy(np.stack(batch["images"], 1)), "poses": torch.from_numpy(np.stack(batch["poses"], 1)),
+          "intrinsics": torch.from_numpy(np.stack(batch["intrinsics"], 1)),
+          "keyview_idx": torch.from_numpy(np.asarray(batch["keyview_idx"]).reshape(-1))}
+pred, aux = model(**inputs)
+gt = {"invdepth": torch.from_numpy(batch["invdepth"])}
+r.create_loss("robust_mvd_loss", model=model)(inputs, gt, pred, aux, iteration=0)[0].backward()
+assert model.encoder.conv1[0].weight.grad is not None
 sys.path.insert(0, "tests")
 import robustmvd_tpu_torch.models.wrappers.wrappers as wrappers
 from wrapper_stubs import WRAPPED, isolated_imports, stub_sample, write_stub_repos

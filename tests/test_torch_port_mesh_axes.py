@@ -25,7 +25,8 @@ key view 0 in sample 0 and 2 in sample 1.
   ``train_step`` (``DistributedDataParallel`` over the mesh): the loss within
   1e-3 relative and every gradient within ``tests/test_parallel.py:
   190-196``'s bounds of JAX's unsharded ``value_and_grad``; the port's
-  unsharded step within rtol 1e-5.
+  unsharded step within rtol 1e-5. The same step under (1, 4, 1) with
+  ``remat=True`` within rtol 1e-5 of the port's unsharded step without.
 - The engine under (2, 2, 1) for one iteration: the parameters after it
   equal the unsharded port step's on the global batch, the ranks of one
   view group trained on the same batch, and only the global rank 0 wrote
@@ -205,7 +206,7 @@ def test_k1_calls_are_the_view_share_times_one_slab(mesh_runs, mesh):
 
 def test_every_rank_holds_the_same_gradients_and_parameters(mesh_runs):
     _, _, results = mesh_runs
-    for key, values in (("step", "grads"), ("engine", "params")):
+    for key, values in (("step", "grads"), ("step_remat", "grads"), ("engine", "params")):
         ref = results[0][key]
         flat = torch.cat([t.reshape(-1).double() for _, t in sorted(ref[values].items())])
         np.testing.assert_allclose(ref["digest"], (float(flat.sum()), float(flat.square().sum())), rtol=1e-12)
@@ -251,6 +252,19 @@ def test_sharded_train_step_matches_the_port_unsharded(mesh_runs):
         np.testing.assert_allclose(results[r]["step"]["loss"], single["loss"], rtol=1e-5)
     scale = max(float(g.abs().max()) for g in single["grads"].values())
     assert_close(results[0]["step"]["grads"], single["grads"], rtol=1e-5, atol=1e-6 * scale)
+
+
+def test_remat_sharded_train_step_matches_the_port_unsharded(mesh_runs):
+    """The engine's step under (1, 4, 1) with remat: the encoder recomputed
+    on each rank's share of the 3 source views (the last share empty: the
+    key view alone), the replicated cost-volume encoder and decoder
+    recomputed on every rank, no collective run twice."""
+    _, _, results = mesh_runs
+    single = results[2]["single"]
+    for r in range(WORLD):
+        np.testing.assert_allclose(results[r]["step_remat"]["loss"], single["loss"], rtol=1e-5)
+    scale = max(float(g.abs().max()) for g in single["grads"].values())
+    assert_close(results[0]["step_remat"]["grads"], single["grads"], rtol=1e-5, atol=1e-6 * scale)
 
 
 def test_engine_under_data_and_view_axes_is_the_unsharded_step(mesh_runs):

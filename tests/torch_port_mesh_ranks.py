@@ -17,6 +17,9 @@ learning rate). Every rank writes ``OUT_DIR/rank<r>.pt``:
 - ``step``: the engine's ``train_step`` under mesh (1, 2, 2) with an SGD of
   learning rate 0, the loss and the gradients after
   ``DistributedDataParallel``'s mean over the mesh;
+- ``step_remat``: the same under mesh (1, 4, 1) with ``remat=True`` (the
+  encoder on the rank's source views, one rank's share empty, the
+  cost-volume encoder and the decoder recomputed in the backward);
 - ``engine``: a run of the engine (``create_training``, one iteration, batch
   1 per data rank, SGD at ``lr``) on ``synthetic`` under mesh (2, 2, 1): the
   batches every rank trained on, the parameters after the step and the
@@ -52,8 +55,8 @@ def as_torch(batch):
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
 
 
-def model_from(state):
-    model = rmvd.create_model("robust_mvd", device="cpu", train=True)
+def model_from(state, remat=False):
+    model = rmvd.create_model("robust_mvd", device="cpu", train=True, remat=remat)
     model.load_state_dict(state, strict=True)
     return model
 
@@ -166,6 +169,8 @@ def main(payload_path, out_dir):
             result["forward"][shape] = counted_forward(model, inputs)
 
     result["step"] = train_step(model, inputs, gt, f"{out_dir}/step{rank}", make_mesh(MeshSpec(1, 2, 2)))
+    result["step_remat"] = train_step(model_from(payload["state"], remat=True), inputs, gt, f"{out_dir}/remat{rank}",
+                                      make_mesh(MeshSpec(1, 4, 1)))
     engine = engine_run(payload["state"], payload["lr"], f"{out_dir}/engine{rank}", make_mesh(MeshSpec(2, 2, 1)))
     batches = [None] * dist.get_world_size()
     dist.all_gather_object(batches, engine.pop("batch"))
@@ -183,10 +188,11 @@ def main(payload_path, out_dir):
                                        {k: torch.cat([gt0[k], gt1[k]]) for k in gt0}, payload["lr"])
         del result["single"]["grads"]
     # every rank holds the same gradients and parameters (DDP's mean): rank 0 keeps them, the others a digest
-    result["step"]["digest"] = digest(result["step"]["grads"])
+    for key in ("step", "step_remat"):
+        result[key]["digest"] = digest(result[key]["grads"])
     result["engine"]["digest"] = digest(result["engine"]["params"])
     if rank != 0:
-        del result["step"]["grads"], result["engine"]["params"]
+        del result["step"]["grads"], result["step_remat"]["grads"], result["engine"]["params"]
     torch.save(result, f"{out_dir}/rank{rank}.pt")
     dist.barrier()
     dist.destroy_process_group()
