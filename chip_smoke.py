@@ -216,7 +216,16 @@ CUDA toolkit (``nvcc``). Phases, each printing one JSON line:
             step goes and what sits at its peak; what the correlation saves
             for the backward; a forward at 128 hypotheses over 0.5..50 at
             384x1280, 1+2 views, card vs CPU within MODEL_BOUNDS).
-18. the kernels line, and last the ``{"ok": true, ...}`` line.
+18. weights: ``weights_msgpack`` (after phase main: the seeded
+            robust_mvd's parameters written as a flax msgpack file of the
+            JAX package's tree, the format of its trainer's weights-only
+            snapshots, encoded here (``flax_msgpack_bytes``: flax is not on
+            the card); ``create_model("robust_mvd", weights=<file>)`` at full
+            width and S 256: the state dict and the invdepth of a 384x1280
+            1+2-view frame bit-equal to the seeded model's (cuDNN
+            deterministic), K1 twice in that frame; the encode and load
+            seconds).
+19. the kernels line, and last the ``{"ok": true, ...}`` line.
 
 Any failed check raises and the script exits non-zero; it does nothing
 without a CUDA device. Weights are random, from a seed.
@@ -226,6 +235,7 @@ import contextlib
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -1013,6 +1023,146 @@ def phase_main(counters):
     set_tf32(False)
     emit("breakdown", **device_breakdown(model, sample, frames=10))
     return runs
+
+
+def _pack_header(out, n, small_base, small_limit, sized):
+    """A msgpack length: one byte below ``small_limit``, else the first of
+    ``sized`` ((type byte, struct format, limit), ...) that holds it."""
+    if n < small_limit:
+        out.append(struct.pack(">B", small_base | n))
+        return
+    for code, fmt, limit in sized:
+        if n < limit:
+            out.append(struct.pack(">B", code) + struct.pack(fmt, n))
+            return
+    raise ValueError(f"msgpack length {n}")
+
+
+_U8, _U16, _U32 = (">B", 1 << 8), (">H", 1 << 16), (">I", 1 << 32)
+
+
+def _pack(obj, out):
+    """msgpack of the types a flax variables tree holds, as the msgpack
+    package packs them (the shortest header of each)."""
+    if isinstance(obj, dict):
+        _pack_header(out, len(obj), 0x80, 16, ((0xDE, *_U16), (0xDF, *_U32)))
+        for key, value in obj.items():
+            _pack(key, out)
+            _pack(value, out)
+    elif isinstance(obj, str):
+        raw = obj.encode()
+        _pack_header(out, len(raw), 0xA0, 32, ((0xD9, *_U8), (0xDA, *_U16), (0xDB, *_U32)))
+        out.append(raw)
+    elif isinstance(obj, bytes):
+        _pack_header(out, len(obj), 0, 0, ((0xC4, *_U8), (0xC5, *_U16), (0xC6, *_U32)))
+        out.append(obj)
+    elif isinstance(obj, (list, tuple)):
+        _pack_header(out, len(obj), 0x90, 16, ((0xDC, *_U16), (0xDD, *_U32)))
+        for value in obj:
+            _pack(value, out)
+    elif isinstance(obj, int) and not isinstance(obj, bool) and obj >= 0:
+        _pack_header(out, obj, 0, 128, ((0xCC, *_U8), (0xCD, *_U16), (0xCE, *_U32), (0xCF, ">Q", 1 << 64)))
+    elif isinstance(obj, np.ndarray):  # flax's ext 1: [shape, dtype name, C-order bytes]
+        inner = []
+        _pack([list(obj.shape), obj.dtype.name, obj.tobytes("C")], inner)
+        data = b"".join(inner)
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if len(data) in fixext:
+            out.append(struct.pack(">B", fixext[len(data)]))
+        else:
+            _pack_header(out, len(data), 0, 0, ((0xC7, *_U8), (0xC8, *_U16), (0xC9, *_U32)))
+        out.append(b"\x01" + data)
+    else:
+        raise TypeError(f"no msgpack encoding here for {type(obj).__name__}")
+
+
+def flax_msgpack_bytes(tree):
+    """The bytes ``flax.serialization.msgpack_serialize`` writes for a tree
+    of str-keyed dicts with numpy leaves (none above flax's chunk size), the
+    format of the JAX package's weights-only snapshots. flax is not on the
+    card; ``tests/test_torch_port_msgpack.py`` holds this against it."""
+    out = []
+    _pack(tree, out)
+    return b"".join(out)
+
+
+def robust_mvd_flax_tree(state):
+    """robust_mvd's port state dict (numpy) -> the JAX package's parameter
+    tree, the rule of its ``convert_torch_state_dict``: Sequential indices
+    become "conv", ``corr_to_view_weight.{0,2}`` become
+    ``corr_to_view_weight_conv{0,1}``; conv weights (O, I, kh, kw) become
+    (kh, kw, I, O), transposed convs (I, O, kh, kw) (kh, kw, I, O) flipped."""
+    params = {}
+    for name, w in state.items():
+        for old, new in (("corr_to_view_weight.0", "corr_to_view_weight_conv0"),
+                         ("corr_to_view_weight.2", "corr_to_view_weight_conv1")):
+            name = name.replace(old, new)
+        *parts, leaf = name.split(".")
+        parts = ["conv" if p.isdigit() else p for p in parts]
+        if leaf == "weight":
+            deconv = any(p.startswith("deconv") for p in parts)
+            w, leaf = (w.transpose(2, 3, 0, 1)[::-1, ::-1] if deconv else w.transpose(2, 3, 1, 0)), "kernel"
+        node = params
+        for p in parts:
+            node = node.setdefault(p, {})
+        node[leaf] = w
+    return params
+
+
+def phase_weights_msgpack(counters, device="cuda", size=(384, 1280)):
+    """robust_mvd from a flax msgpack snapshot (the JAX trainer's
+    weights-only format): the seeded model's parameters written as the JAX
+    package's tree, read back by ``create_model(weights=...)`` at full width
+    and S 256, and held bit for bit against the seeded model: the state dict,
+    and the invdepth of one 1+2-view frame at ``size`` (TF32 off, cuDNN
+    deterministic). K1 must launch twice in the loaded model's frame."""
+    import torch
+
+    import robustmvd_tpu_torch as rmvd
+
+    tf32 = set_tf32(False)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        seeded = rmvd.create_model("robust_mvd", seed=0, device=device)
+        state = {k: v.cpu().numpy() for k, v in seeded.state_dict().items()}
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "snapshot-iter-000000000.msgpack")
+            t0 = time.perf_counter()
+            data = flax_msgpack_bytes({"params": robust_mvd_flax_tree(state)})
+            with open(path, "wb") as f:
+                f.write(data)
+            encode_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loaded = rmvd.create_model("robust_mvd", weights=path, device=device)
+            load_s = time.perf_counter() - t0
+        ours = loaded.state_dict()
+        state_equal = list(ours) == list(state) and all(
+            torch.equal(ours[k].cpu(), torch.from_numpy(v)) for k, v in state.items())
+        sample = kitti_like_sample(np.random.RandomState(3), *size, 3)
+        _, aux_seeded = seeded.run(**sample)
+        counters.reset()
+        pred, aux = loaded.run(**sample)
+        launches = counters.read()
+        inv, inv_seeded = aux["invdepth"], aux_seeded["invdepth"]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    bit_equal = inv.shape == inv_seeded.shape and np.array_equal(inv.view(np.uint32), inv_seeded.view(np.uint32))
+    if not state_equal:
+        raise AssertionError("weights_msgpack: the loaded state dict differs from the seeded model's")
+    if not bit_equal:
+        raise AssertionError(f"weights_msgpack: invdepth max |d| {np.abs(inv - inv_seeded).max()}, not bit-equal")
+    if launches["planesweep_sample"] != 2:
+        raise AssertionError(f"weights_msgpack: K1 launched {launches} times in a frame of 2 source views")
+    if not np.isfinite(pred["depth"]).all():
+        raise AssertionError("weights_msgpack: non-finite depth")
+    emit("weights_msgpack", tf32=tf32, size=list(size), views=3, num_sampling_points=seeded.num_sampling_points,
+         file_mib=len(data) / 2**20, leaves=len(state), encode_s=encode_s, load_s=load_s,
+         state_bit_equal=state_equal, invdepth_bit_equal=bit_equal, invdepth_shape=list(inv.shape),
+         launches=launches)
+    del seeded, loaded
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_parity_bf16(counters):
@@ -4717,6 +4867,7 @@ def main():
     phase_vis_parity(counters)
     phase_family_parity_bf16(counters)
     runs = phase_main(counters)
+    weights_msgpack = phase_weights_msgpack(counters)
     runs_bf16 = phase_main_bf16(counters, runs)
     family = phase_family_main(counters)
     vis = phase_vis_main(counters)
@@ -4790,6 +4941,7 @@ def main():
                     "robustmvd_tpu/ops/pallas/planesweep_sample_v2.py:64",
         "launches": runs["fp32"]["launches"]["planesweep_sample"],
         "launches_by_path": {"robust_mvd": runs["fp32"]["launches"]["planesweep_sample"],
+                             "weights_msgpack": weights_msgpack["planesweep_sample"],
                              **{path: r["k1_launches"] for path, r in evals.items()},
                              "train_main": train["launches"]["planesweep_sample"],
                              "train_writer": train_writer["launches"]["planesweep_sample"],

@@ -6,11 +6,22 @@ and KITTI's training splits) and ``synthetic``, the augmentation and batch
 augmentation presets, and the compound dataset."""
 
 from . import augmentations, batch_augmentations, datasets  # noqa: F401  (they register themselves)
+from .augmentations import (  # noqa: F401
+    dpt_augmentations,
+    mvsnet_augmentations,
+    mvsnet_sai_augmentations,
+    robust_mvd_augmentations_blendedmvs,
+    robust_mvd_augmentations_staticthings3d,
+    supervised_monodepth2_augmentations,
+)
+from .batch_augmentations import robust_mvd_batch_augmentations  # noqa: F401
+from .blendedmvs import BlendedMVSMVSNetTrain, BlendedMVSSeq4TrainSmall  # noqa: F401
 from .dataset import Dataset, Sample  # noqa: F401
-from .dtu import DTURobustMVD  # noqa: F401
+from .dtu import DTUMvsnetTrain, DTURobustMVD  # noqa: F401
 from .eth3d import ETH3DTrainRobustMVD  # noqa: F401
 from .factory import create_compound_dataset, create_dataloader, create_dataset  # noqa: F401
-from .kitti import KITTIRobustMVD  # noqa: F401
+from .flyingthings3d import FlyingThings3DSeq4Train  # noqa: F401
+from .kitti import KITTIEigenDenseDepthTest, KITTIEigenDenseDepthTrain, KITTIRobustMVD  # noqa: F401
 from .registry import (  # noqa: F401
     create_augmentation,
     create_batch_augmentation,
@@ -29,5 +40,6 @@ from .registry import (  # noqa: F401
     register_default_dataset,
 )
 from .scannet import ScanNetRobustMVD  # noqa: F401
+from .staticthings3d import StaticThings3DSeq4Train  # noqa: F401
 from .synthetic import SyntheticMVD  # noqa: F401
 from .tanks_and_temples import TanksAndTemplesTrainRobustMVD  # noqa: F401

@@ -96,7 +96,8 @@ def parse_args(argv=None):
     parser.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
                         help="Compute dtype of the robust_mvd family (float32 by default; bfloat16 runs the "
                              "convolutions and the correlation in bf16 with float32 sums and float32 heads).")
-    parser.add_argument("--weights", help="Path to rmvd model weights (.pt). Optional.")
+    parser.add_argument("--weights",
+                        help="Path to model weights (.pt; robust_mvd also a JAX .msgpack snapshot). Optional.")
     parser.add_argument("--num_gpus", type=int, default=1,
                         help="Declared as in the JAX CLI, which never reads it; the card is --device.")
     parser.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu.")

@@ -15,6 +15,12 @@ from .registry import register_loss
 from .utils import masked_ratio
 
 
+def smooth_l1(x):
+    """Smooth L1 of ``x`` elementwise, beta 1: ``0.5 x^2`` where ``|x| < 1``,
+    else ``|x| - 0.5`` (torch's ``F.smooth_l1_loss`` against 0)."""
+    return F.smooth_l1_loss(x, torch.zeros_like(x), reduction="none", beta=1.0)
+
+
 class SL1Loss:
     def __init__(self, model=None, verbose=True):
         self.name = type(self).__name__
@@ -33,7 +39,7 @@ class SL1Loss:
         size = p.shape[-2:]
         gt = resize_bilinear(gt, size)
         masks = resize_nearest_torch(masks, size) > 0.5
-        diff = F.smooth_l1_loss(p, gt, reduction="none", beta=1.0) * masks
+        diff = smooth_l1(p - gt) * masks
         loss = masked_ratio(diff.sum(), masks.sum(), lambda total, count: total / torch.clamp(count, min=1.0))
         return loss, {}, {}
 

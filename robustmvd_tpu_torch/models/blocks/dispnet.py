@@ -33,6 +33,11 @@ from ...parallel.collectives import all_gather, all_reduce_sum, tie
 from ...parallel.context import hyp_group, share, view_group
 
 
+def leaky_relu(x):
+    """LeakyReLU(0.2), the DispNet blocks' activation."""
+    return F.leaky_relu(x, 0.2)
+
+
 def conv_lrelu(in_ch, out_ch, kernel_size=3, stride=1, dtype=torch.float32):
     """Conv(k, s, symmetric padding) + LeakyReLU(0.2)
 
@@ -55,20 +60,25 @@ def iconv_block(in_ch, out_ch, dtype=torch.float32):
     return conv_lrelu(in_ch, out_ch, 3, 1, dtype)
 
 
-class ReLUAndSigmoid(nn.Module):
-    """Channel 0: ReLU; channel 1: scaled sigmoid into [min, max]
+def relu_and_sigmoid(x, min_val=-10.0, max_val=10.0):
+    """Channel 0 of (N, C, H, W): ReLU; the others: a sigmoid scaled into
 
-    (reference: rmvd/models/blocks/utils.py:30-45)."""
+    [min, max] (reference: rmvd/models/blocks/utils.py:30-45)."""
+    rng = max_val - min_val
+    c0 = F.relu(x[:, :1])
+    c1 = torch.sigmoid(x[:, 1:] * (4.0 / rng)) * rng + min_val
+    return torch.cat([c0, c1], 1)
+
+
+class ReLUAndSigmoid(nn.Module):
+    """:func:`relu_and_sigmoid` as a module."""
 
     def __init__(self, min_val=-10.0, max_val=10.0):
         super().__init__()
         self.min_val, self.max_val = min_val, max_val
 
     def forward(self, x):
-        rng = self.max_val - self.min_val
-        c0 = F.relu(x[:, :1])
-        c1 = torch.sigmoid(x[:, 1:] * (4.0 / rng)) * rng + self.min_val
-        return torch.cat([c0, c1], 1)
+        return relu_and_sigmoid(x, self.min_val, self.max_val)
 
 
 def pred_block(in_ch):
@@ -78,6 +88,15 @@ def pred_block(in_ch):
     bf16's relative error into the benchmark's metrics
     (reference: dispnet_decoder.py:17-23 `pred_block`)."""
     return nn.Sequential(Conv2d(in_ch, 2, 3, padding=1), ReLUAndSigmoid(-10.0, 10.0))
+
+
+# the JAX package's flax names of the four blocks above: a torch module needs
+# its input channels, so each takes (in_ch, out_ch, ...) where JAX's takes
+# (features, ...)
+ConvLReLU = conv_lrelu
+DeconvLReLU = deconv_lrelu
+IConvBlock = iconv_block
+PredBlock = pred_block
 
 
 def init_weights(module, generator):

@@ -77,6 +77,79 @@ def resolve_device(device):
     return device
 
 
+class LazyNumpyDict(dict):
+    """A dict whose values are converted on first access and kept so: the
+
+    JAX package's ``LazyNumpyDict`` (robustmvd_tpu/models/helpers.py:27-56).
+    The native models' output adapters return aux through it, so the
+    evaluation, which drops aux, copies only pred to the host. The port's
+    conversion is ``to_numpy``'s device->host copy, one per key (its models
+    are NCHW inside: JAX's layout transpose has no counterpart).
+
+    Stricter than JAX's, which converts on ``[]``, ``items()`` and
+    ``values()`` only: ``get``, ``pop``, ``popitem``, ``setdefault``,
+    ``copy``, ``|``, pickling and the copies ``dict(aux)`` / ``{**aux}``
+    convert too, since a raw CUDA tensor, unlike a ``jax.Array``, does not
+    pass for a numpy array. (Overriding ``__iter__`` sends the two copies
+    through ``keys()`` and ``[]`` instead of the dict's own storage.)
+    """
+
+    def __init__(self, data, convert):
+        super().__init__(data)
+        self._convert = convert
+        self._done = set()
+
+    def __getitem__(self, key):
+        value = super().__getitem__(key)
+        if key not in self._done:
+            value = self._convert(value)
+            super().__setitem__(key, value)
+            self._done.add(key)
+        return value
+
+    def __setitem__(self, key, value):
+        super().__setitem__(key, value)
+        self._done.discard(key)
+
+    def __iter__(self):
+        return iter(self.keys())
+
+    def get(self, key, default=None):
+        return self[key] if key in self else default
+
+    def items(self):
+        return [(k, self[k]) for k in self.keys()]
+
+    def values(self):
+        return [self[k] for k in self.keys()]
+
+    def pop(self, key, *default):
+        if key not in self:
+            return super().pop(key, *default)
+        value = self[key]
+        super().pop(key)
+        self._done.discard(key)
+        return value
+
+    def popitem(self):
+        key = next(reversed(self.keys()))
+        return key, self.pop(key)
+
+    def setdefault(self, key, default=None):
+        if key not in self:
+            self[key] = default
+        return self[key]
+
+    def copy(self):
+        return dict(self)
+
+    def __or__(self, other):
+        return {**self, **other}
+
+    def __reduce__(self):  # pickled and deep-copied as a plain dict of converted values
+        return dict, (self.copy(),)
+
+
 def _run(model, images, keyview_idx, poses=None, intrinsics=None, depth_range=None):
     no_batch_dim = images[0].ndim == 3
     if no_batch_dim:
@@ -115,8 +188,11 @@ class ModelBase(nn.Module):
         raise NotImplementedError
 
     def output_adapter(self, model_output):
-        pred, aux = to_numpy(model_output)  # one device->host copy for both
-        return pred, aux
+        """pred to the host in one copy; aux as a :class:`LazyNumpyDict`,
+        each value copied on first access (the JAX package's native models'
+        adapters)."""
+        pred, aux = model_output
+        return to_numpy(pred), LazyNumpyDict(aux, to_numpy)
 
     def run(self, images, keyview_idx, poses=None, intrinsics=None, depth_range=None, **_):
         """Numpy in -> numpy out, handling the batch dim

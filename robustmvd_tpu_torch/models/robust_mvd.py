@@ -37,7 +37,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.corr import corr_impl_of, planesweep_correlation
 from ..ops.epipolar import sampling_invdepths
 from ..parallel.context import hyp_group, share, view_group
-from ..utils import to_relative_intrinsics
+from ..utils import flax_msgpack, to_relative_intrinsics
 from .blocks.dispnet import (
     DispnetContextEncoder,
     DispnetCostvolumeEncoder,
@@ -48,7 +48,7 @@ from .blocks.dispnet import (
 )
 from .helpers import ModelBase, compute_dtype_of, resize_to_multiple, to_device
 from .registry import register_model
-from .weights import load_checkpoint
+from .weights import load_checkpoint, state_dict_from_jax
 
 
 def split_key_sources(stacked, keyview_idx):
@@ -108,7 +108,7 @@ class RobustMVD(ModelBase):
         if weights is None:
             init_weights(self, torch.Generator().manual_seed(seed))
         else:
-            self.load_state_dict(load_checkpoint(weights))
+            load_robust_mvd_weights(weights, self)
         # the path has no BatchNorm and no dropout: the mode only tells the
         # caller whether the model was built for training
         self.to(device).train(train)
@@ -211,12 +211,35 @@ class RobustMVD(ModelBase):
         }
 
 
+def load_robust_mvd_weights(weights_path, module=None):
+    """robust_mvd's weights from a rmvd ``.pt`` checkpoint or, for any other
+
+    path, a flax msgpack file of ``{"params": ...}`` (the JAX package's
+    weights-only snapshots, ``snapshot-iter-*.msgpack``), as the port's
+    state_dict; read without msgpack or flax (``utils/flax_msgpack.py``).
+    Where ``module`` is given (JAX's takes the module as the template it
+    restores into), the weights are loaded into it: ``load_state_dict``'s
+    strict check and its refusal of another ``num_sampling_points`` apply."""
+    if str(weights_path).endswith(".pt"):
+        state = load_checkpoint(weights_path)
+    else:
+        tree = flax_msgpack.read(weights_path)
+        if not (isinstance(tree, dict) and isinstance(tree.get("params"), dict)):
+            found = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+            raise ValueError(f"{weights_path}: expected flax variables {{'params': ...}}, found {found}")
+        state = state_dict_from_jax({"params": tree["params"]})
+    if module is not None:
+        module.load_state_dict(state)
+    return state
+
+
 @register_model
 def robust_mvd(pretrained=True, weights=None, train=False, device="cuda", seed=0, dtype="float32",
                num_sampling_points=NUM_SAMPLING_POINTS, min_depth=MIN_DEPTH, max_depth=MAX_DEPTH, remat=None,
                corr_impl="pixelscan"):
     """The paper's baseline (rmvd/models/robust_mvd.py:151-158). There is no
-    download: pass a rmvd ``.pt`` as ``weights``, or get weights from ``seed``.
+    download: pass a rmvd ``.pt`` or a JAX ``.msgpack`` snapshot as
+    ``weights`` (:func:`load_robust_mvd_weights`), or get weights from ``seed``.
     ``dtype``: "float32" or "bfloat16" ("bf16"), the compute dtype; the
     other options are :class:`RobustMVD`'s."""
     return RobustMVD(device=device, weights=weights, seed=seed, train=train, dtype=dtype,

@@ -166,6 +166,10 @@ class VisMVSNet(ModelBase):
         return sample
 
 
+# the JAX package's and rmvd's name of the class
+VisMvsnet = VisMVSNet
+
+
 @register_model
 def vis_mvsnet(pretrained=True, weights=None, train=False, device="cuda", seed=0, num_sampling_steps=192,
                conv3d_impl="banded", warp_impl="fused", dtype="float32", bn_mode="batch"):

@@ -141,10 +141,21 @@ def _flatten(tree, prefix=()):
             yield prefix + (key,), value
 
 
+def _numpy_leaf(value):
+    """A leaf as numpy: a tensor (the msgpack reader's bfloat16 leaves)
+    through float32, which holds every bfloat16 value exactly."""
+    if isinstance(value, torch.Tensor):
+        return value.float().numpy()
+    return np.asarray(value)
+
+
 def state_dict_from_jax(variables):
     """JAX variables -> state_dict: ``{"params", "batch_stats"}`` of the
 
-    MVSNet family, or robust_mvd's ``{"params": ...}`` or params tree."""
+    MVSNet family, or robust_mvd's ``{"params": ...}`` or params tree.
+    Leaves become float32 tensors: float32 leaves bit for bit, bfloat16
+    ones (numpy's ``ml_dtypes`` arrays or ``torch.bfloat16`` tensors)
+    widened exactly."""
     if "batch_stats" in variables:
         return _family_state_dict(variables)
     params = variables.get("params", variables)
@@ -153,7 +164,7 @@ def state_dict_from_jax(variables):
         *parts, leaf = path
         is_deconv = any(p.startswith("deconv") for p in parts)
         parts = [_SEQ_NAMES.get(p, "0" if p == "conv" else p) for p in parts]
-        w = np.asarray(value)
+        w = _numpy_leaf(value)
         if leaf == "kernel":
             if is_deconv:
                 w = w[::-1, ::-1].transpose(2, 3, 0, 1)  # flipped (kh,kw,I,O) -> (I,O,kh,kw)
@@ -195,7 +206,7 @@ def _family_state_dict(variables):
         for path, value in _flatten(variables[collection]):
             *parts, leaf = path
             module = ".".join(parts)
-            w = np.asarray(value)
+            w = _numpy_leaf(value)
             if _is_bn(module):
                 name = _BN_LEAVES[(collection, leaf)]
                 if name == "weight":

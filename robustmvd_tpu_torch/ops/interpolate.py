@@ -1,5 +1,6 @@
-"""Device-side resizes: bilinear (torch semantics), bicubic x2 (JAX's) and
-the losses' nearest resize of ground truth (:func:`resize_nearest_torch`).
+"""Device-side resizes: bilinear (torch semantics), bicubic x2 (JAX's),
+nearest (``jax.image.resize``'s, :func:`resize_nearest`) and the losses'
+nearest resize of ground truth (:func:`resize_nearest_torch`).
 
 ``resize_bilinear``: half-pixel centers, no antialias, the semantics of the
 reference's ``F.interpolate(mode="bilinear", align_corners=False)``
@@ -63,6 +64,19 @@ def resize_bicubic_x2(x):
     wh = _bicubic_x2_weights(H, x.device)  # (H, 2H)
     ww = _bicubic_x2_weights(W, x.device)  # (W, 2W)
     return torch.matmul(torch.matmul(wh.t(), x), ww)
+
+
+def resize_nearest(x, size):
+    """Nearest resize of (..., H, W) to ``size``: the JAX package's
+
+    ``resize_nearest`` (``jax.image.resize(..., "nearest")``), half-pixel
+    centres, ``src = floor((dst + 0.5) * in / out)`` in float32."""
+
+    def rows(n_in, n_out):
+        return torch.floor((torch.arange(n_out, dtype=torch.float32, device=x.device) + 0.5) * n_in / n_out).long()
+
+    H, W = x.shape[-2:]
+    return x.index_select(-2, rows(H, int(size[0]))).index_select(-1, rows(W, int(size[1])))
 
 
 def resize_nearest_torch(x, size):

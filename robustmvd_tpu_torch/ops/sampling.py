@@ -1,8 +1,11 @@
-"""Bilinear sampling at index-space coordinates (channel-last maps).
+"""Bilinear sampling at index-space coordinates.
 
-Counterpart of the JAX package's ``ops/sampling.py::bilinear_sample``, the
-``grid_sample(align_corners=False)`` equivalent that every MVSNet-family warp
-goes through (reference: rmvd/models/blocks/utils.py:222-268). A sample at
+Counterpart of the JAX package's ``ops/sampling.py``: ``bilinear_sample``,
+the ``grid_sample(align_corners=False)`` equivalent that every MVSNet-family
+warp goes through (reference: rmvd/models/blocks/utils.py:222-268), and its
+two entry points in the reference's conventions, :func:`warp` (pixel-centre
+grids) and :func:`grid_sample_normalized` (grids in [-1, 1]), which take
+NCHW maps as ``F.grid_sample`` does. A sample at
 ``x == j`` hits pixel column ``j``; the four taps are gathered from the
 flattened spatial axis and blended in the JAX order (weights ``w00, w01,
 w10, w11``, summed in that order).
@@ -71,3 +74,28 @@ def bilinear_sample(img, x, y, padding_mode="zeros"):
         ones_w = vw if ones_w is None else ones_w + vw
     mask = (ones_w >= 0.9999).to(img.dtype)
     return out.reshape(B, *sample_shape, C), mask.reshape(B, *sample_shape)
+
+
+def warp(img, grid, padding_mode="zeros"):
+    """Warp (B, C, H, W) ``img`` at (B, *S, 2) ``grid`` of (x, y) in
+
+    pixel-centre coordinates (pixel i centred at i + 0.5), the plane-sweep
+    sampler's convention (reference: planesweep_corr.py:489-512). Returns
+    (B, C, *S) values and the (B, *S) mask of :func:`bilinear_sample`, all
+    ones for ``border`` (reference: planesweep_corr.py:95-96)."""
+    out, mask = bilinear_sample(img.movedim(1, -1), grid[..., 0] - 0.5, grid[..., 1] - 0.5, padding_mode)
+    if padding_mode == "border":
+        mask = torch.ones_like(mask)
+    return out.movedim(-1, 1), mask
+
+
+def grid_sample_normalized(img, grid_n, padding_mode="zeros"):
+    """``F.grid_sample(img, grid_n, align_corners=False)``'s values through
+
+    :func:`bilinear_sample`: (B, C, H, W) ``img``, (B, *S, 2) ``grid_n`` of
+    (x, y) in [-1, 1]; returns (B, C, *S), no mask."""
+    H, W = img.shape[-2:]
+    x = ((grid_n[..., 0] + 1.0) * W - 1.0) / 2.0
+    y = ((grid_n[..., 1] + 1.0) * H - 1.0) / 2.0
+    out, _ = bilinear_sample(img.movedim(1, -1), x, y, padding_mode)
+    return out.movedim(-1, 1)

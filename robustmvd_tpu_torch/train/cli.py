@@ -140,7 +140,8 @@ def parse_args(argv=None):
     parser.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
                         help="Compute dtype of the robust_mvd family (float32 by default; bfloat16 runs the "
                              "convolutions and the correlation in bf16 with float32 sums and float32 heads).")
-    parser.add_argument("--weights", help="Initial weights (a rmvd .pt). Optional.")
+    parser.add_argument("--weights",
+                        help="Initial weights (a rmvd .pt; robust_mvd also a JAX .msgpack snapshot). Optional.")
     parser.add_argument("--training_type", default="mvd")
     parser.add_argument("--dataset", nargs="*", help="Training dataset(s).")
     parser.add_argument("--augmentations", nargs="*")

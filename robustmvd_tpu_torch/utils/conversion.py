@@ -73,6 +73,13 @@ def exclude_index(views, exclude_idx):
     return [np.stack(group, 0) for group in zip(*per_sample)]
 
 
+def batched_index(views, elements):
+    """Index of each batch sample's element within the view list
+
+    (reference: rmvd/utils/utils.py:350-369)."""
+    return np.array([[v[b] for v in views].index(ele) for b, ele in enumerate(elements)])
+
+
 def remove_batch_dim(data):
     """Strip the leading batch axis from every array in a nested structure.
 

@@ -2,7 +2,9 @@
 
 Counterpart of the JAX package's ``utils/geometry.py``: pose inversion (the
 inference CLI, sample preprocessing), relative intrinsics (the robust_mvd
-input adapter), depth ranges and intrinsics scaling (the data layer).
+input adapter), depth ranges and intrinsics scaling (the data layer), and
+that module's other public helpers: poses rebased to the key view, the
+rotation and translation of a transform, L2 normalisation.
 """
 
 from __future__ import annotations
@@ -72,3 +74,41 @@ def to_relative_intrinsics(K, width, height):
     K = np.asarray(K, dtype=np.float32)
     scale = np.array([[width] * 3, [height] * 3, [1.0] * 3], dtype=np.float32)
     return K / scale
+
+
+def from_relative_intrinsics(K_rel, width, height):
+    """Inverse of :func:`to_relative_intrinsics`."""
+    K_rel = np.asarray(K_rel, dtype=np.float32)
+    scale = np.array([[width] * 3, [height] * 3, [1.0] * 3], dtype=np.float32)
+    return K_rel * scale
+
+
+def rebase_poses_to_key(to_ref_transforms, keyview_idx):
+    """Per-view (4, 4) transforms to a common frame -> the sample contract's
+
+    poses: ``to_key[i] = to_ref[i] @ inv(to_ref[key])`` in the reference's
+    product order (rmvd/data/dataset.py:362-367, inference.py:40-41), each
+    mapping key-camera points into view i's camera; the key view's own is
+    the identity. Returns a list of float32 (4, 4) arrays."""
+    to_ref_transforms = [np.asarray(T, dtype=np.float32) for T in to_ref_transforms]
+    ref_to_key = invert_transform(to_ref_transforms[int(keyview_idx)])
+    return [T @ ref_to_key for T in to_ref_transforms]
+
+
+def trans_from_transform(T):
+    """Translation vector(s) of (..., 4, 4) transform(s) (reference:
+    rmvd/utils/utils.py:84-85, batched: torchutils.py:64-79)."""
+    return np.asarray(T)[..., 0:3, 3]
+
+
+def rot_from_transform(T):
+    """Rotation block(s) of (..., 4, 4) transform(s) (reference:
+    rmvd/utils/utils.py:88-89, batched: torchutils.py:82-97)."""
+    return np.asarray(T)[..., 0:3, 0:3]
+
+
+def normalize(x, axis=None, eps=1e-9):
+    """``x`` over its L2 norm along ``axis`` (all of it by default) plus
+
+    ``eps`` (reference: rmvd/utils/utils.py:395-397)."""
+    return x / (np.linalg.norm(x, axis=axis, keepdims=True) + eps)

@@ -1,4 +1,4 @@
-"""The port stands alone: no JAX, no flax, nothing of robustmvd_tpu.
+"""The port stands alone: no JAX, no flax, no msgpack, nothing of robustmvd_tpu.
 
 - Importing ``robustmvd_tpu_torch`` and running each model on the CPU, in a
   fresh interpreter, loads none of them: each model at its defaults, then
@@ -20,7 +20,10 @@
   robust_mvd through the train CLI with ``--data_parallel`` (a gloo group of
   one process, ``DistributedDataParallel``), the collectives of the view and
   hyp axes, the data scripts (``make_sample_data`` run) and ``python -m
-  robustmvd_tpu_torch.run_conf`` on a yaml of one command.
+  robustmvd_tpu_torch.run_conf`` on a yaml of one command; in a fourth,
+  robust_mvd built from a flax msgpack snapshot (``utils/flax_msgpack.py``,
+  ``load_robust_mvd_weights``) and run, with the re-exports of ``utils``,
+  ``ops``, ``models/blocks`` and ``data``.
 - No source file of the package, nor ``chip_smoke.py``, imports them or
   names them in a string (``importlib`` style).
 - Entry points default to the card and raise, naming ``device='cpu'``,
@@ -44,7 +47,7 @@ from robustmvd_tpu_torch.train.cli import main as train_main
 from robustmvd_tpu_torch.train.cli import parse_args as train_parse_args
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "robustmvd_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "robustmvd_tpu")
 
 
 def _forbidden(name):
@@ -198,6 +201,41 @@ print("LOADED", bad)
     assert list((tmp_path / "train").glob("events.out.tfevents.*"))
     assert list((tmp_path / "train" / "weights_only_checkpoints_dir").glob("snapshot-iter-*.pt"))
     assert "ran" in out.stdout and (tmp_path / "sample_data" / "gt_depth_key.npy").exists()
+
+
+def test_loading_a_jax_snapshot_loads_no_jax(tmp_path):
+    import flax.serialization
+
+    from robustmvd_tpu.models.weights import convert_torch_state_dict
+
+    state = robustmvd_tpu_torch.create_model("robust_mvd", device="cpu", seed=5).state_dict()
+    path = tmp_path / "snapshot-iter-000000001.msgpack"
+    path.write_bytes(flax.serialization.msgpack_serialize(convert_torch_state_dict(
+        {k: v.numpy() for k, v in state.items()})))
+    code = """
+import sys
+import numpy as np
+import torch
+torch.set_num_threads(2)
+import robustmvd_tpu_torch as r
+from robustmvd_tpu_torch import data, ops, utils
+from robustmvd_tpu_torch.models import blocks
+model = r.create_model("robust_mvd", device="cpu", weights=sys.argv[1])
+images = [np.random.RandomState(i).rand(3, 64, 64).astype(np.float32) * 255 for i in range(2)]
+K = np.array([[50, 0, 32], [0, 50, 32], [0, 0, 1]], np.float32)
+T = np.eye(4, dtype=np.float32); T[0, 3] = 0.1
+pred, aux = model.run(images=images, keyview_idx=0, poses=[np.eye(4, dtype=np.float32), T], intrinsics=[K, K])
+assert np.isfinite(pred["depth"]).all() and isinstance(aux["invdepth"], np.ndarray)
+print("SUM", float(sum(v.double().sum() for v in model.state_dict().values())))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
+print("LOADED", bad)
+""" % (FORBIDDEN,)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code, str(path)], cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LOADED []" in out.stdout, out.stdout
+    assert f"SUM {float(sum(v.double().sum() for v in state.values()))}" in out.stdout
 
 
 def _sources():
