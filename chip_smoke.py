@@ -225,7 +225,15 @@ CUDA toolkit (``nvcc``). Phases, each printing one JSON line:
             1+2-view frame bit-equal to the seeded model's (cuDNN
             deterministic), K1 twice in that frame; the encode and load
             seconds).
-19. the kernels line, and last the ``{"ok": true, ...}`` line.
+19. bench: ``bench`` (after ``profile_main``; the port's bench, ``python -m
+            robustmvd_tpu_torch.bench``, in this process): its
+            ``robust_mvd_bf16`` and ``vis_mvsnet_bf16`` workloads at their full
+            shapes (384x1280 and 256x320, 1+2 views) with 5 timed calls: JAX's
+            fields, 0 < mfu <= 1.05, K1 v2 twice a frame and vis's kernels as
+            many times a frame as in ``main_family_bf16``; each workload's FLOP
+            count on the card equal to the CPU's at 64x128; the device's busy
+            share of a frame (torch.profiler).
+20. the kernels line, and last the ``{"ok": true, ...}`` line.
 
 Any failed check raises and the script exits non-zero; it does nothing
 without a CUDA device. Weights are random, from a seed.
@@ -390,6 +398,8 @@ def k1_bound(corr, y0, x0):
     once, and each distinct in-range score tap read once (data-dependent)."""
     import torch
 
+    from robustmvd_tpu_torch.ops.kernels.planesweep_sample import planesweep_sample_flops
+
     P, Hs, Ws = corr.shape
     S = y0.shape[1]
     ty, tx = y0.long(), x0.long()
@@ -403,7 +413,7 @@ def k1_bound(corr, y0, x0):
     distinct = int(torch.unique(torch.cat(taps)).numel())
     samples = P * S
     nbytes = samples * (4 * 4 + 4) + distinct * corr.element_size()
-    flops = samples * 12
+    flops = planesweep_sample_flops(P, S)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOPS_PER_S * 1e3
     return {"bytes": nbytes, "distinct_taps": distinct, "taps_in_range_share": distinct / (4 * samples),
@@ -532,13 +542,15 @@ def k2_bound(ref, src, out_dtype, depth):
     rate; against (15 + 11 C) flops per (pixel, view) at the f32 rate."""
     import torch
 
+    from robustmvd_tpu_torch.ops.kernels.sweep_warp import sweep_variance_flops
+
     B, H, W, C = ref.shape
     V = src.shape[1]
     D = depth.shape[1]
     out_elt = torch.empty((), dtype=out_dtype).element_size()
     nbytes = (B * D * H * W * C * out_elt + ref.numel() * ref.element_size() + src.numel() * src.element_size()
               + (depth.numel() * 4 if depth.dim() == 4 else 0))
-    flops = B * D * H * W * V * (15 + 11 * C)
+    flops = sweep_variance_flops(B, V, D, H, W, C)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOPS_PER_S * 1e3
     return {"bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
@@ -647,12 +659,12 @@ def k5_bound(x, cout, bias):
     CUDA cores (``ops_f32_ms``, also reported for the tensor-core path, as
     the bound of earlier rows), 3 TF32 products per f32 product at the TF32
     rate on the tensor cores (``ops_tc_ms``)."""
-    from robustmvd_tpu_torch.ops.kernels.conv3d import conv3d_banded_path
+    from robustmvd_tpu_torch.ops.kernels.conv3d import conv3d_banded_flops, conv3d_banded_path
 
     B, cin, D, H, W = x.shape
     voxels = B * D * H * W
     nbytes = 4 * (x.numel() + 27 * cin * cout + voxels * cout + (cout if bias else 0))
-    flops = voxels * cout * (54 * cin + (1 if bias else 0))
+    flops = conv3d_banded_flops(B, D, H, W, cin, cout, bias)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_f32_ms = flops / F32_FLOPS_PER_S * 1e3
     ops_tc_ms = 3 * flops / TF32_FLOPS_PER_S * 1e3
@@ -667,10 +679,12 @@ def k5_bound_bf16(x, cout):
     """Least time for K5's bf16 form: bf16 input, weights and output moved
     once at the HBM rate, against 54 Cin Cout flops per output voxel at the
     dense bf16 tensor-core rate."""
+    from robustmvd_tpu_torch.ops.kernels.conv3d import conv3d_banded_flops
+
     B, cin, D, H, W = x.shape
     voxels = B * D * H * W
     nbytes = 2 * (x.numel() + 27 * cin * cout + voxels * cout)
-    flops = voxels * cout * 54 * cin
+    flops = conv3d_banded_flops(B, D, H, W, cin, cout)
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
     return {"path": "bf16_mma", "bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
             "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
@@ -870,10 +884,12 @@ def k4_inputs(device):
 def k4_bound(src, depth):
     """Least time for K4: the float32 volume written once, the map and the
     depths read once, at the HBM rate; against (15 + 7 C) flops per pixel."""
+    from robustmvd_tpu_torch.ops.kernels.warp_volume import homo_warp_volume_flops
+
     B, H, W, C = src.shape
     D = depth.shape[1]
     nbytes = B * D * H * W * C * 4 + src.numel() * src.element_size() + depth.numel() * 4
-    flops = B * D * H * W * (15 + 7 * C)
+    flops = homo_warp_volume_flops(B, D, H, W, C)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOPS_PER_S * 1e3
     return {"bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
@@ -1607,11 +1623,13 @@ def k2_group_bound(ref, src, w, G, out_bytes=4):
     value), the key and source maps (in their dtype) and the per-pixel w
     each moved once, at the HBM rate; against (45 + 9 C) flops per pixel at
     the f32 rate (the sums are float32 at either feature dtype)."""
+    from robustmvd_tpu_torch.ops.kernels.sweep_group_cost import homography_group_cost_flops
+
     B, D, H, W = w.shape
     C = ref.shape[3]
     nbytes = (B * D * H * W * G * out_bytes + (ref.numel() + src.numel()) * ref.element_size()
               + w.numel() * w.element_size())
-    flops = B * D * H * W * (45 + 9 * C)
+    flops = homography_group_cost_flops(B, D, H, W, C)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOPS_PER_S * 1e3
     return {"bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
@@ -1740,9 +1758,11 @@ def k3_bound(volume):
     """Least time for K3: the volume read once, the probability volume and
     three maps written once, at the HBM rate; against ~20 flops per element
     (exp, log and division counted as one each) at the f32 rate."""
+    from robustmvd_tpu_torch.ops.kernels.soft_argmin import fused_soft_argmin_flops
+
     B, D, H, W = volume.shape
     nbytes = 2 * volume.numel() * 4 + 3 * B * H * W * 4
-    flops = 20 * volume.numel()
+    flops = fused_soft_argmin_flops(B, D, H, W)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOPS_PER_S * 1e3
     return {"bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
@@ -2332,10 +2352,12 @@ def k1b_bound(grad, Hs, Ws, out_bytes=4):
     """Least time for K1b: dS written once (``out_bytes`` per element: 4 in
     float32, 2 in bf16), the gradient and four tap arrays read once, against
     ~10 flops per sample."""
+    from robustmvd_tpu_torch.ops.kernels.planesweep_sample_backward import planesweep_sample_backward_flops
+
     P, S = grad.shape
     nbytes = P * Hs * Ws * out_bytes + P * S * 5 * 4
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = P * S * 10 / F32_FLOPS_PER_S * 1e3
+    ops_ms = planesweep_sample_backward_flops(P, S) / F32_FLOPS_PER_S * 1e3
     return {"bytes": nbytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
@@ -4787,6 +4809,67 @@ def phase_profile_main(counters, fp32_runs):
     return result
 
 
+# the bench workloads phase bench runs, and each one's launches a frame
+BENCH_LAUNCHES = {"robust_mvd_bf16": {"planesweep_sample": 2, "planesweep_sample[bfloat16]": 2},
+                  "vis_mvsnet_bf16": {"sweep_group_cost[bfloat16]": 6, "soft_argmin": 6,
+                                      "conv3d_banded[bfloat16]": 24, "conv3d_banded[float32]": 6}}
+BENCH_ENTRY_KEYS = {"metric", "value", "unit", "msec_per_frame", "mfu", "tflops_per_frame"}
+
+
+def phase_bench(counters, iters=5, burn_in=2, count_size=(64, 128), device="cuda"):
+    """The port's bench in this process: the workloads of ``BENCH_LAUNCHES``
+    at their full shapes, ``iters`` timed calls after 1 + ``burn_in``; each
+    entry with JAX's fields and 0 < mfu <= 1.05, each kernel launched its
+    count a frame (the FLOP count's call included), and the FLOP count on
+    the card equal to the CPU's at ``count_size``; the device's kernel time
+    a frame in a torch.profiler trace of 3 more calls, and its share of the
+    bench's ms a frame."""
+    import torch
+
+    from robustmvd_tpu_torch.bench import flops, workloads
+
+    kind = torch.cuda.get_device_name(0)
+    bench = workloads.Bench(device=torch.device(device), peak=flops.peak_flops(kind),
+                            rng=np.random.RandomState(0), iters=iters, burn_in=burn_in)
+    frames = 1 + 1 + burn_in + iters  # the FLOP count's call, the first, the burn-in and the timed calls
+    result = {"entries": {}, "launches": {}, "seconds": {}, "counts": {}, "device_ms_per_frame": {}, "busy_share": {}}
+    for workload in (w for w in workloads.WORKLOADS if w.key in BENCH_LAUNCHES):
+        counters.reset()
+        t0 = time.perf_counter()
+        run_iter, batch = workload.prepare(bench)  # Workload.run without its fp32 precision: both are bf16
+        entry = workloads.measure(workload, bench, run_iter, batch)
+        result["seconds"][workload.key] = time.perf_counter() - t0
+        launches = result["launches"][workload.key] = counters.read()
+        if bench.device.type == "cuda":
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for i in range(3):
+                    run_iter(i)
+                torch.cuda.synchronize()
+            device_ms = sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+                            for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / 3
+            result["device_ms_per_frame"][workload.key] = device_ms
+            result["busy_share"][workload.key] = device_ms / entry["msec_per_frame"]
+        if set(entry) != BENCH_ENTRY_KEYS or not 0 < entry["mfu"] <= 1.05:
+            raise AssertionError(f"bench {workload.key}: entry {entry}; expected the keys {sorted(BENCH_ENTRY_KEYS)} "
+                                 f"and 0 < mfu <= 1.05 (peak {bench.peak} for {kind})")
+        wrong = {k: launches[k] for k, n in BENCH_LAUNCHES[workload.key].items() if launches[k] != n * frames}
+        if wrong:
+            raise AssertionError(f"bench {workload.key}: launches {wrong} in {frames} frames, expected "
+                                 f"{BENCH_LAUNCHES[workload.key]} a frame")
+        shape = workloads.Shape(workload.shape.B, workload.shape.V, *count_size)
+        card, card_kernels = workloads.flop_count(workload, device, shape)
+        cpu, cpu_kernels = workloads.flop_count(workload, "cpu", shape)
+        if (card, card_kernels) != (cpu, cpu_kernels):
+            raise AssertionError(f"bench {workload.key}: FLOP count on the card {card} {card_kernels}, "
+                                 f"on the CPU {cpu} {cpu_kernels}")
+        result["entries"][workload.key] = entry
+        result["counts"][workload.key] = {"size": list(count_size), "flops": card, "by_kernel": card_kernels}
+        torch.cuda.empty_cache()
+    emit("bench", card=kind, peak_flops=bench.peak, iters=iters, burn_in=burn_in, frames=frames, **result)
+    return result
+
+
 def kernel_kind(name):
     """Group profiler rows: convolutions (cuDNN, 2D and 3D, direct, implicit
     GEMM and FFT), GEMMs outside cuDNN (robust_mvd's score matmul; the
@@ -4901,6 +4984,7 @@ def main():
     mesh = phase_mesh_view_hyp(counters)
     mesh_family = phase_mesh_family(counters)
     profile_main = phase_profile_main(counters, runs["fp32"])
+    bench = phase_bench(counters)["launches"]
 
     f32, bf16 = k1["f32"], k1["bf16"]
     # K1 v2 (the bf16 instantiation) and K1b's bf16 form on the bf16 paths
@@ -4908,7 +4992,8 @@ def main():
                    "eval_kitti_bf16": eval_bf16["k1_launches"],
                    "train_bf16": train_bf16["launches"]["planesweep_sample[bfloat16]"],
                    "mesh_view_hyp": mesh["launches"]["planesweep_sample[bfloat16]"],
-                   "train_remat": train_remat["launches"]["planesweep_sample[bfloat16]"]}
+                   "train_remat": train_remat["launches"]["planesweep_sample[bfloat16]"],
+                   "bench": bench["robust_mvd_bf16"]["planesweep_sample[bfloat16]"]}
     k1b_bf16_launches = {"train_bf16": train_bf16["launches"]["planesweep_sample_backward[bfloat16]"],
                          "train_remat": train_remat["launches"]["planesweep_sample_backward[bfloat16]"]}
     k2_main = k2["mvsnet_f32"]
@@ -4922,13 +5007,15 @@ def main():
                    "train_vis": vis_train["launches"]["conv3d_banded"],
                    "train_vis_parity": vis_parity["launches_card"]["conv3d_banded"],
                    "train_vis_ddp": train_vis_ddp["launches"]["conv3d_banded"],
-                   "mesh_family": family_mesh.get("conv3d_banded[float32]", 0)}
+                   "mesh_family": family_mesh.get("conv3d_banded[float32]", 0),
+                   "bench": bench["vis_mvsnet_bf16"]["conv3d_banded[float32]"]}
     k5_main = k5["vis_stage3_reg"]
     k5_bf16 = {case: r["bf16"] for case, r in k5.items() if "bf16" in r}
     k5_bf16_runs = {path: family_bf16[path, "bfloat16"] for path in ("vis_mvsnet", "mvsnet_train_banded_xla")}
     k5_bf16_launches = {f"{path}_bf16": r["launches"]["conv3d_banded[bfloat16]"] for path, r in k5_bf16_runs.items()}
     k5_bf16_launches["train_vis_bf16"] = vis_train_bf16["launches"]["conv3d_banded[bfloat16]"]
     k5_bf16_launches["mesh_family"] = family_mesh.get("conv3d_banded[bfloat16]", 0)
+    k5_bf16_launches["bench"] = bench["vis_mvsnet_bf16"]["conv3d_banded[bfloat16]"]
     k4_main = k4["f32"]
     k2g_bf16 = {case: r["bf16"] for case, r in k2g.items()}
     k2g_bf16_run = family_bf16["vis_mvsnet", "bfloat16"]
@@ -5044,7 +5131,8 @@ def main():
                  # the profiled vis bf16 frame's K2 group device ms (6 launches)
                  "vis_bf16_frame_profiled_ms": family_bf16["vis_mvsnet", "k2_group_ms"],
                  "launches": k2g_bf16_run["launches"]["sweep_group_cost[bfloat16]"],
-                 "launches_by_path": {"vis_mvsnet_bf16": k2g_bf16_run["launches"]["sweep_group_cost[bfloat16]"]},
+                 "launches_by_path": {"vis_mvsnet_bf16": k2g_bf16_run["launches"]["sweep_group_cost[bfloat16]"],
+                                      "bench": bench["vis_mvsnet_bf16"]["sweep_group_cost[bfloat16]"]},
                  "launches_per_frame": {"vis_mvsnet_bf16":
                                         k2g_bf16_run["launches_per_frame"]["sweep_group_cost[bfloat16]"]},
                  "cases": {case: {k: r[k] for k in ("route", "max_abs_err", "limit", "ms", "plain_ms",
@@ -5064,7 +5152,8 @@ def main():
                              "train_vis": vis_train["launches"]["soft_argmin"],
                              "train_vis_bf16": vis_train_bf16["launches"]["soft_argmin"],
                              "train_vis_parity": vis_parity["launches_card"]["soft_argmin"],
-                             "train_vis_ddp": train_vis_ddp["launches"]["soft_argmin"]},
+                             "train_vis_ddp": train_vis_ddp["launches"]["soft_argmin"],
+                             "bench": bench["vis_mvsnet_bf16"]["soft_argmin"]},
         "launches_per_train_step": {"train_vis": vis_train["launches_per_step"]["soft_argmin"],
                                     "train_vis_bf16": vis_train_bf16["launches_per_step"]["soft_argmin"]},
         # the closed-form backward in torch ops (no kernel) at vis's training readouts, 256x320, batch 2

@@ -2,6 +2,8 @@
 
 Each wrapper launches its kernel for CUDA tensors, runs its plain torch
 version for CPU tensors, and counts its launches in ``<wrapper>.launches``.
+Its work in FLOPs is a formula of its shapes beside it (``*_flops``), which
+``work.py`` puts in a FLOP count in place of whatever its route runs.
 """
 
 from .conv3d import conv3d_banded, conv3d_banded_reference  # noqa: F401

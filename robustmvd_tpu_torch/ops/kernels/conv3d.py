@@ -40,11 +40,18 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from . import build
+from . import build, work
 
 _NAME = "conv3d_banded"
 # the C entry of each form by x's dtype
 _FORMS = {torch.float32: "conv3d_banded", torch.bfloat16: "conv3d_banded_bf16"}
+
+
+def conv3d_banded_flops(B, D, H, W, cin, cout, bias=False):
+    """K5's work: 54 Cin Cout flops an output voxel (27 taps, a product and
+    a sum each), and one more a channel for a bias; the same for both
+    forms."""
+    return B * D * H * W * cout * (54 * cin + (1 if bias else 0))
 
 
 def conv3d_banded_reference(x, kernel, bias=None):
@@ -103,13 +110,15 @@ def conv3d_banded(x, kernel, bias=None, channels_first=False):
         in x's dtype.
     """
     _check(x, kernel, bias, channels_first)
-    if x.device.type == "cpu":
-        if not channels_first:
-            return conv3d_banded_reference(x, kernel, bias)
-        return conv3d_banded_reference(x.movedim(1, -1), kernel, bias).movedim(-1, 1).contiguous()
-    if x.device.type != "cuda":
-        raise ValueError(f"conv3d_banded runs on cuda or cpu, not {x.device}")
-    return _Conv3dK5.apply(x, kernel, bias, channels_first)
+    (B, cin, D, H, W), _ = _axes(x, channels_first)
+    with work.kernel(_NAME, conv3d_banded_flops(B, D, H, W, cin, kernel.shape[4], bias is not None)):
+        if x.device.type == "cpu":
+            if not channels_first:
+                return conv3d_banded_reference(x, kernel, bias)
+            return conv3d_banded_reference(x.movedim(1, -1), kernel, bias).movedim(-1, 1).contiguous()
+        if x.device.type != "cuda":
+            raise ValueError(f"conv3d_banded runs on cuda or cpu, not {x.device}")
+        return _Conv3dK5.apply(x, kernel, bias, channels_first)
 
 
 # every launch, and the launches of each form by x's dtype

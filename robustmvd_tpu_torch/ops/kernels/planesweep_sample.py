@@ -22,10 +22,18 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, work
 from .planesweep_sample_backward import planesweep_sample_backward
 
 _NAME = "planesweep_sample"
+
+
+def planesweep_sample_flops(P, S):
+    """K1's work: 12 flops a sample (P key pixels x S hypotheses), the same
+    for both score dtypes: three two-tap blends (two products and a sum
+    each), the weights' complements 1 - wy and 1 - wx, and the flat offset
+    of the top-left tap."""
+    return 12 * P * S
 
 
 def planesweep_sample_reference(corr_img, y0, wy, x0, wx):
@@ -85,10 +93,15 @@ def planesweep_sample(corr_img, y0, wy, x0, wx):
         (P, S) float32 samples, unmasked.
     """
     _check(corr_img, y0, wy, x0, wx)
-    if corr_img.device.type == "cpu":
-        return planesweep_sample_reference(corr_img, y0, wy, x0, wx)
-    if corr_img.device.type != "cuda":
-        raise ValueError(f"planesweep_sample runs on cuda or cpu, not {corr_img.device}")
+    with work.kernel(_NAME, planesweep_sample_flops(*y0.shape)):
+        if corr_img.device.type == "cpu":
+            return planesweep_sample_reference(corr_img, y0, wy, x0, wx)
+        if corr_img.device.type != "cuda":
+            raise ValueError(f"planesweep_sample runs on cuda or cpu, not {corr_img.device}")
+        return _launch(corr_img, y0, wy, x0, wx)
+
+
+def _launch(corr_img, y0, wy, x0, wx):
     tensors = [t.contiguous() for t in (corr_img, y0, wy, x0, wx)]
     P, Hs, Ws = corr_img.shape
     S = y0.shape[1]

@@ -20,9 +20,17 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, work
 
 _NAME = "planesweep_sample_backward"
+
+
+def planesweep_sample_backward_flops(P, S):
+    """K1b's work: 10 flops a sample (P key pixels x S hypotheses), the same
+    for both forms: the complements 1 - wx and 1 - wy, the gradient times
+    the two column weights, those times the two row weights (the four tap
+    gradients), and two flops for their adds into dS."""
+    return 10 * P * S
 
 
 def planesweep_sample_backward_reference(grad, y0, wy, x0, wx, Hs, Ws, dtype=torch.float32):
@@ -86,10 +94,15 @@ def planesweep_sample_backward(grad, y0, wy, x0, wx, Hs, Ws, dtype=torch.float32
         (P, Hs, Ws) of ``dtype``, summed in float32.
     """
     _check(grad, y0, wy, x0, wx, Hs, Ws, dtype)
-    if grad.device.type == "cpu":
-        return planesweep_sample_backward_reference(grad, y0, wy, x0, wx, Hs, Ws, dtype)
-    if grad.device.type != "cuda":
-        raise ValueError(f"planesweep_sample_backward runs on cuda or cpu, not {grad.device}")
+    with work.kernel(_NAME, planesweep_sample_backward_flops(*grad.shape)):
+        if grad.device.type == "cpu":
+            return planesweep_sample_backward_reference(grad, y0, wy, x0, wx, Hs, Ws, dtype)
+        if grad.device.type != "cuda":
+            raise ValueError(f"planesweep_sample_backward runs on cuda or cpu, not {grad.device}")
+        return _launch(grad, y0, wy, x0, wx, Hs, Ws, dtype)
+
+
+def _launch(grad, y0, wy, x0, wx, Hs, Ws, dtype):
     tensors = [t.contiguous() for t in (grad, y0, wy, x0, wx)]
     P, S = grad.shape
     out = torch.empty((P, Hs, Ws), dtype=dtype, device=grad.device)

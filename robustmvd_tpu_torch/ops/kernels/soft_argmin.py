@@ -26,9 +26,16 @@ import ctypes
 import torch
 
 from ..reductions import entropy, soft_argmin
-from . import build
+from . import build, work
 
 _NAME = "soft_argmin"
+
+
+def fused_soft_argmin_flops(B, D, H, W):
+    """K3's work: 20 flops an element of the (B, D, H, W) volume (exp, log
+    and division counted as one each): the max and the softmax, the
+    expectation, the entropy and the window mass."""
+    return 20 * B * D * H * W
 
 
 def fused_soft_argmin_reference(volume, window=2):
@@ -52,11 +59,12 @@ def fused_soft_argmin(volume, window=2):
         raise ValueError(f"volume must be (B, D, H, W), got {tuple(volume.shape)}")
     if volume.dtype != torch.float32:
         raise TypeError(f"volume must be float32, got {volume.dtype}")
-    if volume.device.type == "cpu":
-        return fused_soft_argmin_reference(volume, window)
-    if volume.device.type != "cuda":
-        raise ValueError(f"soft_argmin runs on cuda or cpu, not {volume.device}")
-    return _SoftArgmin.apply(volume.contiguous(), float(window))
+    with work.kernel(_NAME, fused_soft_argmin_flops(*volume.shape)):
+        if volume.device.type == "cpu":
+            return fused_soft_argmin_reference(volume, window)
+        if volume.device.type != "cuda":
+            raise ValueError(f"soft_argmin runs on cuda or cpu, not {volume.device}")
+        return _SoftArgmin.apply(volume.contiguous(), float(window))
 
 
 def _launch(volume, window):

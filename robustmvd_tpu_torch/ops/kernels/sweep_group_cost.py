@@ -35,9 +35,17 @@ import ctypes
 import torch
 
 from ..sampling import _LIM, _finite_or_far, bilinear_sample
-from . import build
+from . import build, work
 
 _NAME = "sweep_group_cost"
+
+
+def homography_group_cost_flops(B, D, H, W, C):
+    """K2 group's work: (45 + 9 C) flops a (key pixel, plane), whatever G
+    (the sums are float32 at either feature dtype): 45 for the homography,
+    its projection and the tap weights, and per channel 7 for the bilinear
+    sample and 2 for the product with the key and its group sum."""
+    return B * D * H * W * (45 + 9 * C)
 
 
 def homography_coordinates(Amat, Bmat, w_dense):
@@ -149,10 +157,15 @@ def homography_group_cost(ref_feat, src_feat, Amat, Bmat, w_dense, groups=8, out
         (B, D, H, W, G) in ``out_dtype``.
     """
     _check(ref_feat, src_feat, Amat, Bmat, w_dense, groups, out_dtype)
-    if ref_feat.device.type == "cpu":
-        return homography_group_cost_reference(ref_feat, src_feat, Amat, Bmat, w_dense, groups, out_dtype)
-    if ref_feat.device.type != "cuda":
-        raise ValueError(f"sweep_group_cost runs on cuda or cpu, not {ref_feat.device}")
+    with work.kernel(_NAME, homography_group_cost_flops(*w_dense.shape, ref_feat.shape[3])):
+        if ref_feat.device.type == "cpu":
+            return homography_group_cost_reference(ref_feat, src_feat, Amat, Bmat, w_dense, groups, out_dtype)
+        if ref_feat.device.type != "cuda":
+            raise ValueError(f"sweep_group_cost runs on cuda or cpu, not {ref_feat.device}")
+        return _launch(ref_feat, src_feat, Amat, Bmat, w_dense, groups, out_dtype)
+
+
+def _launch(ref_feat, src_feat, Amat, Bmat, w_dense, groups, out_dtype):
     build.refuse_gradient("sweep_group_cost (K2 group)", ref_feat, src_feat, Amat, Bmat, w_dense)
     B, H, W, C = ref_feat.shape
     Hs, Ws = src_feat.shape[1:3]

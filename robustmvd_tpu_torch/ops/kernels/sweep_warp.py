@@ -36,9 +36,17 @@ import torch
 
 from ..homography import plane_sweep_transform, sweep_coordinates
 from ..sampling import bilinear_sample
-from . import build
+from . import build, work
 
 _NAME = "sweep_warp"
+
+
+def sweep_variance_flops(B, V, D, H, W, C):
+    """K2's work: (15 + 11 C) flops a (key pixel, plane, source view): 15 for
+    the tap coordinates and weights, and per channel 7 for the bilinear
+    sample, 2 for the valid-view scale and the running sum, 2 for the square
+    and its sum."""
+    return B * D * H * W * V * (15 + 11 * C)
 
 
 def sweep_variance_reference(ref_feat, src_feats, rot, trans, depth, src_valid, out_dtype=torch.float32):
@@ -108,12 +116,19 @@ def sweep_variance(ref_feat, src_feats, rot, trans, depth, src_valid=None, out_d
         src_valid = torch.ones((B, V), dtype=torch.float32, device=ref_feat.device)
     src_valid = src_valid.float()
     _check(ref_feat, src_feats, rot, trans, depth, src_valid, out_dtype)
-    if ref_feat.device.type == "cpu":
-        return sweep_variance_reference(ref_feat, src_feats, rot, trans, depth, src_valid, out_dtype)
-    if ref_feat.device.type != "cuda":
-        raise ValueError(f"sweep_warp runs on cuda or cpu, not {ref_feat.device}")
-    build.refuse_gradient("sweep_warp (K2)", ref_feat, src_feats, rot, trans, depth)
     _, H, W, C = ref_feat.shape
+    with work.kernel(_NAME, sweep_variance_flops(B, V, depth.shape[1], H, W, C)):
+        if ref_feat.device.type == "cpu":
+            return sweep_variance_reference(ref_feat, src_feats, rot, trans, depth, src_valid, out_dtype)
+        if ref_feat.device.type != "cuda":
+            raise ValueError(f"sweep_warp runs on cuda or cpu, not {ref_feat.device}")
+        return _launch(ref_feat, src_feats, rot, trans, depth, src_valid, out_dtype)
+
+
+def _launch(ref_feat, src_feats, rot, trans, depth, src_valid, out_dtype):
+    build.refuse_gradient("sweep_warp (K2)", ref_feat, src_feats, rot, trans, depth)
+    B, H, W, C = ref_feat.shape
+    V = src_feats.shape[1]
     Hs, Ws = src_feats.shape[2:4]
     D = depth.shape[1]
     if Hs * Ws * C >= 2**31:

@@ -29,9 +29,15 @@ import ctypes
 import torch
 
 from ..homography import homo_warp, plane_sweep_transform, rt_planesweep_warp
-from . import build
+from . import build, work
 
 _NAME = "warp_volume"
+
+
+def homo_warp_volume_flops(B, D, H, W, C):
+    """K4's work: (15 + 7 C) flops a (pixel, plane): 15 for the tap
+    coordinates and weights, 7 a channel for the bilinear sample."""
+    return B * D * H * W * (15 + 7 * C)
 
 
 def homo_warp_volume_reference(src_feat, src_proj, ref_proj_inv, depth_values):
@@ -70,12 +76,14 @@ def homo_warp_volume(src_feat, src_proj, ref_proj_inv, depth_values):
     rot, trans = plane_sweep_transform(src_proj, ref_proj_inv)
     depth = depth_values.float()
     _check(src_feat, rot, trans, depth)
-    if src_feat.device.type == "cpu":
-        return rt_planesweep_warp(src_feat, rot, trans, depth)
-    if src_feat.device.type != "cuda":
-        raise ValueError(f"warp_volume runs on cuda or cpu, not {src_feat.device}")
-    build.refuse_gradient("warp_volume (K4)", src_feat, src_proj, ref_proj_inv, depth_values)
-    return _launch(src_feat, rot, trans, depth)
+    B, H, W, C = src_feat.shape
+    with work.kernel(_NAME, homo_warp_volume_flops(B, depth.shape[1], H, W, C)):
+        if src_feat.device.type == "cpu":
+            return rt_planesweep_warp(src_feat, rot, trans, depth)
+        if src_feat.device.type != "cuda":
+            raise ValueError(f"warp_volume runs on cuda or cpu, not {src_feat.device}")
+        build.refuse_gradient("warp_volume (K4)", src_feat, src_proj, ref_proj_inv, depth_values)
+        return _launch(src_feat, rot, trans, depth)
 
 
 homo_warp_volume.launches = 0

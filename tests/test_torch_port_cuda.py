@@ -1897,3 +1897,18 @@ def test_profiler_on_the_card(cuda, tmp_path):
     stats = profiler.device_memory_stats(cuda)
     assert 0 < seconds < 1 and any(e.get("cat") == "kernel" for e in events)
     assert stats.keys() == {"mib_in_use", "peak_mib_in_use", "mib_limit"} and stats["mib_limit"] > 1000
+
+
+# the bench's FLOP count of each of its workloads at a small shape (its batch and views): the kernels' formulas
+# and the aten operations outside them, so the same on the card (kernels) as on the CPU (plain versions)
+@pytest.mark.parametrize("key", ["robust_mvd_bf16", "robust_mvd_fp32", "train_step", "mvsnet", "mvsnet_bf16",
+                                 "vis_mvsnet", "vis_mvsnet_bf16", "cvp_mvsnet", "cvp_mvsnet_bf16", "vis_train_step"])
+def test_bench_flop_count_on_card_matches_cpu(cuda, key):
+    from robustmvd_tpu_torch.bench import workloads
+
+    workload = next(w for w in workloads.WORKLOADS if w.key == key)
+    shape = workloads.Shape(workload.shape.B, workload.shape.V, 64, 128)
+    card, card_kernels = workloads.flop_count(workload, cuda, shape)
+    cpu, cpu_kernels = workloads.flop_count(workload, "cpu", shape)
+    assert card_kernels == cpu_kernels and card_kernels
+    assert card == cpu

@@ -23,7 +23,9 @@
   robustmvd_tpu_torch.run_conf`` on a yaml of one command; in a fourth,
   robust_mvd built from a flax msgpack snapshot (``utils/flax_msgpack.py``,
   ``load_robust_mvd_weights``) and run, with the re-exports of ``utils``,
-  ``ops``, ``models/blocks`` and ``data``.
+  ``ops``, ``models/blocks`` and ``data``; in a fifth, the bench's suite
+  (``python -m robustmvd_tpu_torch.bench``'s main) on one workload and its
+  scaling bench.
 - No source file of the package, nor ``chip_smoke.py``, imports them or
   names them in a string (``importlib`` style).
 - Entry points default to the card and raise, naming ``device='cpu'``,
@@ -236,6 +238,30 @@ print("LOADED", bad)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "LOADED []" in out.stdout, out.stdout
     assert f"SUM {float(sum(v.double().sum() for v in state.values()))}" in out.stdout
+
+
+def test_the_bench_loads_no_jax():
+    """The bench's suite (its main, one workload at a small size and its
+    FLOP count) and its scaling bench on the CPU."""
+    code = """
+import dataclasses, sys
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from robustmvd_tpu_torch.bench import __main__ as suite, scaling, workloads
+workloads.WORKLOADS = (dataclasses.replace(workloads.WORKLOADS[3], shape=workloads.Shape(1, 3, 64, 64), iters=1),)
+assert suite.main(["--device", "cpu"]) == 0
+scaling.main(scaling.parse_args(["--device", "cpu", "--height", "64", "--width", "64", "--iters", "1",
+                                 "--num_sampling_points", "8"]))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
+print("LOADED", bad)
+""" % (FORBIDDEN,)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(RMVD_BENCH_EVAL_PROTOCOL="0", BENCH_ONLY="mvsnet")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LOADED []" in out.stdout, out.stdout
+    assert '"mvsnet_train_forward_64x64_3views"' in out.stdout and "robust_mvd_fwd_scaling_n1" in out.stdout
 
 
 def _sources():
